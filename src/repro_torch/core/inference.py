@@ -1,11 +1,17 @@
 """The batched multi-model data-plane engine (paper Fig 2, §2).
 
     parse header → Model-ID table lookup → fixed-point MLP forward with
-    Taylor-approximated activations → deparse (outputs replace features)
+    Taylor-approximated activations  ─┐
+                                      ├→ deparse (outputs replace features)
+    parse header → forest-slot lookup → tree-ensemble traversal
+    (pointer chase or range table) with majority/mean vote ─┘
 
 It serves a mixed-model batch: every packet may target a different installed
-model.  Counterpart of ``repro.core.inference.DataPlaneEngine`` with two
-surfaces sharing one lane core (``kernels.fused_serve.serve_lanes``):
+model of either family.  The forest lane runs only once a forest has ever
+been installed (the monotone ``ControlPlane.forest_active``), so an
+MLP-only deployment never launches it.  Counterpart of
+``repro.core.inference.DataPlaneEngine`` with two surfaces sharing one lane
+core (``kernels.fused_serve.serve_lanes``):
 
   * ``run()`` / ``process()`` — the wire path: uint8 packet batches, byte
     parse and egress deparse on the device;
@@ -18,7 +24,8 @@ kernel argument fetched from the control plane's per-generation snapshot,
 so installs never rebuild anything.  PyTorch runs eagerly, so
 ``trace_count`` counts the first use of each distinct static serving
 configuration ``(surface, batch rows, row width, use_mlp, use_forest,
-variant)`` — what a jit cache would hold; it stays flat across installs.
+kernel variant, forest variant)`` — what a jit cache would hold; it stays
+flat across installs.
 
 ``block=False`` returns as soon as the work is queued: the result is a
 :class:`DeviceResult`, whose device→host copy completes asynchronously.
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 
 from ..kernels.fixedpoint_mlp import KERNEL_VARIANTS
+from ..kernels.forest_traversal import FOREST_VARIANTS
 from ..kernels.fused_serve import LaneConfig, serve_lanes
 from .control_plane import ControlPlane
 from .packet import FEATURE_BYTES, HEADER_BYTES, emit_results, parse_packets
@@ -100,16 +108,21 @@ class DataPlaneEngine:
     :class:`ControlPlane`.
 
     Parameters mirror the reference: ``max_features`` (static parser
-    bound), ``taylor_order`` (sigmoid polynomial order), ``leaky_alpha``
-    and ``kernel_variant`` (``"int16"`` or the saturating ``"int8"`` lane,
-    which needs ``weight_bits <= 8``), plus ``device`` (default the card).
-    The MLP lane always goes through the kernel wrapper: the CUDA kernel on
-    the card, its plain version on the CPU.
+    bound), ``taylor_order`` (sigmoid polynomial order), ``leaky_alpha``,
+    ``kernel_variant`` (``"int16"`` or the saturating ``"int8"`` lane,
+    which needs ``weight_bits <= 8``) and ``forest_variant`` (``"chase"``,
+    ``"range"`` or ``"auto"``), plus ``device`` (default the card).
+    ``"auto"`` picks the range form on the card when the control plane has
+    the range family (the reference's choice on its accelerator) and the
+    chase on the CPU; ``"range"`` without the range family raises.  Both
+    lanes always go through the kernel wrappers: the CUDA kernels on the
+    card, their plain versions on the CPU.
     """
 
     def __init__(self, control_plane: ControlPlane, *, max_features: int = 16,
                  taylor_order: int = 3, leaky_alpha: float = 0.01,
-                 kernel_variant: str = "int16", device="cuda"):
+                 kernel_variant: str = "int16", forest_variant: str = "auto",
+                 device="cuda"):
         if kernel_variant not in KERNEL_VARIANTS:
             raise ValueError(f"unknown kernel variant: {kernel_variant!r}")
         if kernel_variant == "int8" and control_plane.fmt.total_bits > 8:
@@ -117,8 +130,19 @@ class DataPlaneEngine:
                 f"kernel_variant='int8' needs weight_bits <= 8, but the "
                 f"control plane quantizes at {control_plane.fmt.total_bits} "
                 "bits — construct it with ControlPlane(weight_bits=8)")
+        if forest_variant not in FOREST_VARIANTS + ("auto",):
+            raise ValueError(f"unknown forest variant: {forest_variant!r}")
         self.device = resolve_device(device)
+        if forest_variant == "auto":
+            forest_variant = ("range" if self.device.type == "cuda"
+                              and control_plane.range_available else "chase")
+        if forest_variant == "range" and not control_plane.range_available:
+            raise ValueError(
+                "forest_variant='range' needs the control plane's range "
+                f"family (max_nodes={control_plane.max_nodes} > 64 exceeds "
+                "the 32-leaf mask bound)")
         self.kernel_variant = kernel_variant
+        self.forest_variant = forest_variant
         self.cp = control_plane
         self.max_features = max_features
         self.taylor_order = taylor_order
@@ -129,7 +153,8 @@ class DataPlaneEngine:
         self.lane_cfg = LaneConfig(
             frac=self.frac, sig_coeffs=self._sig_coeffs,
             leaky_alpha_q=self._leaky_alpha_q, max_features=max_features,
-            kernel_variant=kernel_variant)
+            max_tree_depth=control_plane.max_tree_depth,
+            kernel_variant=kernel_variant, forest_variant=forest_variant)
         self.out_features = min(max_features, int(control_plane.max_width))
         self._configs: set = set()
         self.stats = {"packets": 0, "bytes_in": 0, "bytes_out": 0,
@@ -141,10 +166,32 @@ class DataPlaneEngine:
         return len(self._configs)
 
     def _lane_flags(self, lanes: str):
+        """Resolve the lane hint against the monotone forest switch, from
+        one ``forest_active`` read."""
         forest_active = self.cp.forest_active
         use_forest = lanes != "mlp" and forest_active
         use_mlp = lanes != "forest" or not forest_active
         return use_mlp, use_forest
+
+    def _forest_snapshots(self, use_forest: bool):
+        """Both forest lowerings of one generation under one control-plane
+        lock (a racing ``install_forest`` cannot hand the range traversal a
+        torn pair)."""
+        if not use_forest:
+            return None, None
+        return self.cp.forest_snapshots(self.forest_variant == "range",
+                                        device=self.device)
+
+    def _snapshots(self, key: tuple, lanes: str):
+        """Table snapshots and lane flags for one batch; records the
+        batch's serving configuration under ``key`` (surface, shape)."""
+        tables = self.cp.tables(self.device)
+        use_mlp, use_forest = self._lane_flags(lanes)
+        ftables, rtables = self._forest_snapshots(use_forest)
+        self._configs.add(key + (use_mlp, use_forest, self.kernel_variant,
+                                 self.forest_variant))
+        return tables, ftables, rtables, dict(use_mlp=use_mlp,
+                                              use_forest=use_forest)
 
     def _to_device(self, a, dtype: torch.dtype) -> torch.Tensor:
         """Host array or tensor → contiguous tensor on the engine's device.
@@ -169,15 +216,12 @@ class DataPlaneEngine:
         else:
             pkts = self._to_device(np.asarray(pkts).astype(np.uint8, copy=False),
                                    torch.uint8)
-        tables = self.cp.tables(self.device)
-        use_mlp, use_forest = self._lane_flags(lanes)
-        self._configs.add(("wire", tuple(pkts.shape), use_mlp, use_forest,
-                           self.kernel_variant))
+        tables, ftables, rtables, flags = self._snapshots(
+            ("wire", tuple(pkts.shape)), lanes)
         t0 = time.perf_counter()
         parsed = parse_packets(pkts, self.max_features)
         outputs = serve_lanes(parsed.features_q, parsed.model_id, tables,
-                              self.lane_cfg, use_mlp=use_mlp,
-                              use_forest=use_forest)
+                              ftables, rtables, self.lane_cfg, **flags)
         out = DeviceResult(emit_results(parsed, outputs, self.frac))
         self.stats["packets"] += int(pkts.shape[0])
         self.stats["bytes_in"] += int(pkts.numel())
@@ -197,14 +241,11 @@ class DataPlaneEngine:
             raise ValueError(f"unknown lanes hint: {lanes!r}")
         x0 = self._to_device(feats_q, torch.int32)
         mid = self._to_device(model_id, torch.int32)
-        tables = self.cp.tables(self.device)
-        use_mlp, use_forest = self._lane_flags(lanes)
-        self._configs.add(("features", tuple(x0.shape), use_mlp, use_forest,
-                           self.kernel_variant))
+        tables, ftables, rtables, flags = self._snapshots(
+            ("features", tuple(x0.shape)), lanes)
         t0 = time.perf_counter()
-        out = DeviceResult(serve_lanes(x0, mid, tables, self.lane_cfg,
-                                       use_mlp=use_mlp,
-                                       use_forest=use_forest))
+        out = DeviceResult(serve_lanes(x0, mid, tables, ftables, rtables,
+                                       self.lane_cfg, **flags))
         n = int(x0.shape[0])
         self.stats["packets"] += n
         self.stats["bytes_in"] += n * (HEADER_BYTES

@@ -2,14 +2,17 @@
 encapsulated feature packets against control-plane tables, with weight
 hot-swap that never rebuilds anything.
 
-Counterpart of ``repro.launch.serve.PacketServer`` (MLP surface).  Serving
-runs through the ingress pipeline (``core/ingress.py``): ragged
-per-connection chunks are coalesced into fixed-shape mixed-model batches,
-byte-identical duplicates short-circuit through a generation-aware result
-cache, and each batch is one launch of the fused MLP kernel on the card.
-Egress rows come back in exact submission order, byte-identical to the
-reference's.  The raw-packet flow engine, tree ensembles, SLO budgets and
-reflex programs arrive with their slices.
+Counterpart of ``repro.launch.serve.PacketServer`` (MLP and tree-ensemble
+surfaces).  Serving runs through the ingress pipeline (``core/ingress.py``):
+ragged per-connection chunks are coalesced into fixed-shape mixed-model
+batches, byte-identical duplicates short-circuit through a
+generation-aware result cache, and each batch is one launch of the fused
+MLP kernel on the card.  With tree ensembles installed
+(:meth:`PacketServer.install_forest`), MLP- and forest-family packets stage
+into lane-pure batches, and a forest batch is one launch of the forest
+traversal kernel (range table or pointer chase).  Egress rows come back in
+exact submission order, byte-identical to the reference's.  The raw-packet
+flow engine, SLO budgets and reflex programs arrive with their slices.
 """
 
 from __future__ import annotations
@@ -38,22 +41,29 @@ class PacketServer:
       * **stream API** — ``submit_packets()`` accepts ragged per-connection
         chunks; ``drain_packets()`` returns per-packet egress rows (or
         per-packet error slots) in exact submission order: coalescing queue
-        → duplicate cache → fused kernel → deparse.
+        → duplicate cache → fused kernel → deparse.  With forests installed
+        the queue stages MLP- and forest-family packets into lane-pure
+        batches.
       * **batch API** — ``submit_async()``/``drain()`` dispatch
         caller-formed wire batches with up to ``max_inflight`` results
         outstanding; a batch failing validation occupies a
         :class:`~repro_torch.core.ingress.BatchError` slot in the drain.
 
     ``device`` is the card by default; construction raises when there is
-    none.  Pass ``device="cpu"`` to serve on the CPU.
+    none.  Pass ``device="cpu"`` to serve on the CPU.  ``forest_variant``
+    (``"auto"``, ``"chase"`` or ``"range"``) picks the forest traversal;
+    ``"auto"`` is the range form on the card and the chase on the CPU.
     """
 
     def __init__(self, *, max_models: int = 16, max_layers: int = 4,
                  max_width: int = 32, frac_bits: int = 8,
                  weight_bits: int = 16, taylor_order: int = 3,
                  kernel_variant: str = "int16",
+                 forest_variant: str = "auto",
                  max_inflight: int = 8, ingress_batch: int = 2048,
                  use_cache: bool = True, cache_capacity_pow2: int = 16,
+                 max_forests: int = 8, max_trees: int = 16,
+                 max_nodes: int = 64, max_tree_depth: int = 6,
                  flush_after: Optional[float] = None,
                  adaptive_batch: bool = False,
                  queue_capacity: Optional[int] = None,
@@ -68,11 +78,14 @@ class PacketServer:
         self.control_plane = ControlPlane(
             max_models=max_models, max_layers=max_layers,
             max_width=max_width, weight_bits=weight_bits,
-            frac_bits=frac_bits)
+            frac_bits=frac_bits, max_forests=max_forests,
+            max_trees=max_trees, max_nodes=max_nodes,
+            max_tree_depth=max_tree_depth)
         self.engine = DataPlaneEngine(self.control_plane,
                                       max_features=max_width,
                                       taylor_order=taylor_order,
                                       kernel_variant=kernel_variant,
+                                      forest_variant=forest_variant,
                                       device=device)
         # the pipeline pools max_inflight+2 staging buffers of
         # ingress_batch feature rows each
@@ -99,8 +112,16 @@ class PacketServer:
         generation orphans every cached egress row."""
         return self.control_plane.install(model_id, layers, activations, **kw)
 
+    def install_forest(self, model_id: int, forest) -> int:
+        """Quantize + install (hot-swap) a tree ensemble
+        (:class:`repro_torch.forest.Forest` or ``PackedForest``) — the same
+        mid-serving safety and cache-invalidation contract as
+        :meth:`install`: one generation counter covers both families."""
+        return self.control_plane.install_forest(model_id, forest)
+
     def remove(self, model_id: int) -> None:
-        """Uninstall a model and drop its cached egress rows."""
+        """Uninstall a model of either family and drop its cached egress
+        rows."""
         self.control_plane.remove(model_id)
         self.ingress.on_model_removed(model_id)
 

@@ -37,6 +37,8 @@ def _run(imports: str):
     "import repro_torch.core, repro_torch.kernels.ops, "
     "repro_torch.kernels.fused_serve, repro_torch.configs, repro_torch.obs, "
     "repro_torch.serve",
+    "import repro_torch.forest, repro_torch.forest.synthetic, "
+    "repro_torch.data, repro_torch.kernels.forest_traversal",
     "sys.path.insert(0, '.'); import chip_smoke",
 ])
 def test_port_imports_no_jax_and_no_reference(imports):

@@ -15,7 +15,8 @@ from repro_torch.kernels import fixedpoint_mlp as tfmlp
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.fused_serve import LaneConfig, serve_lanes
-from repro_torch.core.control_plane import tables_from_numpy
+from repro_torch.core.control_plane import (forest_tables_from_numpy,
+                                           tables_from_numpy)
 from repro_torch.core.taylor import scaled_constants
 
 torch.set_num_threads(1)
@@ -194,11 +195,17 @@ def test_serve_lanes_matches_reference(dispatch, variant):
                           leaky_alpha_q=3, max_features=feat_w,
                           kernel_variant=variant)
         got = serve_lanes(torch.as_tensor(x0), torch.as_tensor(mids), tt,
-                          tcfg).numpy()
+                          None, None, tcfg).numpy()
         np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError):
-        serve_lanes(torch.as_tensor(x0), torch.as_tensor(mids), tt, tcfg,
-                    use_forest=True)
+    # with the forest lane on but no forest installed, every row keeps its
+    # MLP-lane egress
+    ft = forest_tables_from_numpy(np.zeros((1, 1, 1, 5), np.int32),
+                                  np.zeros((1, 1), np.int32),
+                                  np.zeros(1, np.int32), np.zeros(1, np.int32),
+                                  np.full(65536, -1, np.int32))
+    both = serve_lanes(torch.as_tensor(x0), torch.as_tensor(mids), tt, ft,
+                       None, tcfg, use_forest=True).numpy()
+    np.testing.assert_array_equal(both, want)
 
 
 def test_kernel_wrapper_cpu_path_and_argument_checks():
