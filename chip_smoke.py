@@ -5,7 +5,7 @@
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
   1. device  — a CUDA card must be visible; prints its name and power limit.
-  2. build   — compiles every hand-written kernel of the path with nvcc
+  2. build   — compiles every hand-written kernel of the paths with nvcc
                (one process per source, all started together) into
                build/kernels/, and logs registers, shared memory and spills.
   3. kernels — each kernel against its plain PyTorch versions on the card, on
@@ -15,7 +15,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                two forest kernels (pointer chase and range table) against
                the gather and the masked plain versions, on random, trained,
                saturating, stump and padded tables, and against the masked
-               versions alone on tables that install_forest rejects.
+               versions alone on tables that install_forest rejects; the
+               flow-update kernel against ref.flow_update_ref (state, sketch
+               and features) on random, one-flow, all-distinct, dead-row,
+               non-monotone and saturating batches of 1–8193 packets, and
+               an empty batch that must launch nothing.
   4. serve   — PacketServer() at its defaults on the card serves seeded
                traces of ragged chunks with duplicates and unknown Model IDs;
                its egress must be byte-identical, in submission order, to
@@ -29,13 +33,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                read right after it: every kernel of the path must have
                launched, the serving-configuration count must stay flat
                across the install, and a mixed run must dispatch both MLP and
-               forest batches.
+               forest batches.  Then the raw-packet flow engine
+               (PacketServer.submit_raw → flow-update kernel → FeatureSpec
+               gather → MLP and forest lanes) against the CPU port on the
+               same calls:
+                 * 200k raw packets over 8192 flows with strict Model IDs
+                   (one flow in 17 on an uninstalled id), a FeatureSpec and
+                   a forest reinstall mid-trace: egress and error slots,
+                   final registers and sketch equal, recompiles flat;
+                 * 50k packets into a 4096-slot table with an idle timeout:
+                   expiry, eviction and per-flow rejection all happen,
+                   egress and error slots equal;
+                 * 50k packets over 2048 flows through the one-dispatch
+                   flow.serve_raw_fused on the card, against submit_raw on
+                   a second card server: egress and registers equal.
   5. numbers — per-kernel time (CUDA events: per call as the path issues
                it, and queued behind a device sleep, device only), the
                plain version's time, the least time the card could take
                (bytes or operations over its peak), and each path's packets
                per second with its engine-call and kernel shares of the wall
-               time.
+               time; for the flow path also the longest flow chain of the
+               timed batch, the register file's host↔card round trip and
+               the share of the wall inside FlowFrontend.extract.
 
 Output: a JSON line of per-kernel numbers, the card's name and power limit,
 and, as the last line, {"ok": true, "device": {...}}.  Imports nothing of
@@ -60,15 +79,21 @@ from repro_torch.configs.paper_models import PAPER_MODELS, make_paper_model  # n
 from repro_torch.core.control_plane import ControlPlane  # noqa: E402
 from repro_torch.core.packet import HEADER_BYTES, encode_packets_np  # noqa: E402
 from repro_torch.core.taylor import scaled_constants  # noqa: E402
-from repro_torch.data.packets import anomaly_dataset, qos_dataset  # noqa: E402
+from repro_torch.data.packets import (anomaly_dataset,  # noqa: E402
+                                      parse_raw_headers, qos_dataset,
+                                      raw_trace)
+from repro_torch.flow import FlowTable  # noqa: E402
 from repro_torch.forest import train_forest  # noqa: E402
 from repro_torch.forest.synthetic import (random_forest_tables,  # noqa: E402
                                           rejected_tables, stack_ranges)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import fixedpoint_mlp as fmlp  # noqa: E402
+from repro_torch.kernels import flow_update as fuk  # noqa: E402
 from repro_torch.kernels import forest_traversal as ftk  # noqa: E402
 from repro_torch.kernels.ops import forest_traverse, fused_mlp  # noqa: E402
-from repro_torch.kernels.ref import (forest_range_gather_ref,  # noqa: E402
+from repro_torch.kernels.ref import (FLOW_CODE_MAX,  # noqa: E402
+                                     flow_update_ref,
+                                     forest_range_gather_ref,
                                      forest_traverse_gather_ref,
                                      fused_mlp_gather_ref)
 from repro_torch.launch.serve import PacketServer  # noqa: E402
@@ -107,7 +132,22 @@ KERNELS = {
                   replaces="src/repro/kernels/forest_traversal.py:125"),
     "range": dict(name="forest_range", route="cuda", source=_FOREST_SRC,
                   replaces="src/repro/kernels/forest_traversal.py:227"),
+    "flow_update": dict(name="flow_update", route="cuda",
+                        source="src/repro_torch/kernels/csrc/flow_update.cu",
+                        replaces="src/repro/kernels/flow_update.py:132"),
 }
+SOURCES = ["fixedpoint_mlp", "forest_traversal", "flow_update"]
+
+# the flow engine at the server's defaults: flow_capacity_pow2=14, a 2 x 4096
+# count-min sketch, and the FlowParams shifts
+FLOW_KW = dict(frac=FRAC, ewma_shift=3, byte_shift=6, dur_shift=10)
+N_FLOWS = 8192
+# FeatureSpecs as the reference's flow benchmark installs them
+# (benchmarks/bench_fig1_throughput.py:708-711): the converging register
+# lanes, EWMAs and min/max, in two orders
+MLP_SPEC = (2, 3, 4, 5) * (WIDTH // 4)
+FOREST_SPEC = (4, 5, 2, 3) * (WIDTH // 4)
+SWAPPED_SPEC = (0, 7, 1, 6) * (WIDTH // 4)
 
 
 def log(msg: str) -> None:
@@ -117,10 +157,11 @@ def log(msg: str) -> None:
 def reset_launches() -> None:
     fmlp.reset_launches()
     ftk.reset_launches()
+    fuk.reset_launches()
 
 
 def read_launches() -> dict:
-    return {**fmlp.launches, **ftk.launches}
+    return {**fmlp.launches, **ftk.launches, **fuk.launches}
 
 
 # ---------------------------------------------------------------------------
@@ -436,6 +477,106 @@ def forest_bound(x, slot, nodes, tree_on, mode, ranges, variant: str):
 
 
 # ---------------------------------------------------------------------------
+# flow-update kernel inputs, checks and timing
+# ---------------------------------------------------------------------------
+
+
+def flow_batch(rng, n, n_slots, cms_shape, case):
+    """One flow-update batch on the host: a random pre-populated state (the
+    reference tests' recipe) and a batch shaped by ``case``."""
+    depth, width_c = cms_shape
+    state = np.zeros((n_slots, 8), np.int32)
+    pre = int(rng.integers(0, n_slots + 1))
+    state[:pre] = rng.integers(0, 5000, (pre, 8))
+    state[:pre, 0] = rng.integers(0, 5, pre)
+    cms = rng.integers(0, 100, cms_shape).astype(np.int32)
+    slots = rng.integers(0, n_slots, n).astype(np.int32)
+    cells = rng.integers(0, width_c, (n, depth)).astype(np.int32)
+    ts = np.cumsum(rng.integers(0, 100, n)).astype(np.int32)
+    length = rng.integers(0, 2000, n).astype(np.int32)
+    live = np.ones(n, np.int32)
+    if case == "one_flow":       # one chain of length n
+        slots[:] = int(rng.integers(0, n_slots))
+    elif case == "distinct":     # every packet its own flow
+        slots = rng.permutation(n_slots)[:n].astype(np.int32)
+    elif case == "dead":         # about 15% padding rows
+        live = (rng.random(n) > 0.15).astype(np.int32)
+    elif case == "non_monotone":
+        ts = rng.integers(0, 2 ** 31 - 1, n).astype(np.int32)
+    elif case == "saturation":   # the reference's test_saturation_never_wraps
+        state[:] = [FLOW_CODE_MAX - 1, FLOW_CODE_MAX - 1, 0, 0,
+                    FLOW_CODE_MAX, FLOW_CODE_MAX, 1, FLOW_CODE_MAX >> FRAC]
+        cms[:] = FLOW_CODE_MAX
+        ts[:] = 2 ** 31 - 1
+        length[:] = 65535
+    return state, cms, slots, cells, ts, length, live
+
+
+def check_flow(dev, args, label: str) -> int:
+    """The flow kernel against ref.flow_update_ref on the card; returns the
+    largest absolute difference over state, sketch and features."""
+    args = _dev(dev, *args)
+    got = fuk.flow_update_kernel(*args, **FLOW_KW)
+    want = flow_update_ref(*args, **FLOW_KW)
+    torch.cuda.synchronize()
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+              if g.numel() else 0 for g, w in zip(got, want))
+    ok = all(torch.equal(g, w) for g, w in zip(got, want))
+    log(f"kernel flow_update {label}: {'equal' if ok else 'DIFFERS'} to "
+        f"ref.flow_update_ref in state, sketch and features "
+        f"(max_abs_err {err})")
+    if not ok:
+        raise SystemExit(f"flow_update kernel differs from its plain version "
+                         f"({label})")
+    return err
+
+
+def check_flow_kernels(dev) -> int:
+    rng = np.random.default_rng(SEED + 6)
+    worst = 0
+    for n in (1, 127, 2048, 8192, 8193):
+        for n_slots in (64, 16384):
+            for cms_shape in ((2, 4096), (3, 64)):
+                args = flow_batch(rng, n, n_slots, cms_shape, "random")
+                worst = max(worst, check_flow(
+                    dev, args, f"random B={n} S={n_slots} sketch={cms_shape}"))
+        cms_shape = (2, 4096) if n % 2 else (3, 64)
+        for case in ("one_flow", "distinct", "dead", "non_monotone",
+                     "saturation"):
+            args = flow_batch(rng, n, 16384, cms_shape, case)
+            worst = max(worst, check_flow(
+                dev, args, f"{case} B={n} S=16384 sketch={cms_shape}"))
+    # an empty batch launches nothing and passes the state through
+    empty = _dev(dev, *flow_batch(rng, 0, 64, (2, 4096), "random"))
+    before = fuk.launches["flow_update"]
+    new_state, _, feats = fuk.flow_update_kernel(*empty, **FLOW_KW)
+    torch.cuda.synchronize()
+    if (fuk.launches["flow_update"] != before or feats.shape != (0, 8)
+            or not torch.equal(new_state, empty[0])):
+        raise SystemExit("flow_update: an empty batch launched or changed "
+                         "the state")
+    log("kernel flow_update B=0: no launch, state passed through")
+    return worst
+
+
+def flow_bound(n_live: int, args) -> tuple:
+    """Least time for one flow-update call: the register file and the sketch
+    read once and written once, the per-packet inputs read once and the
+    features written once, over HBM bandwidth; vs the int32 operations the
+    oracle does per live packet — 59 for the register update and the seven
+    register features (clamps, shifts, the two rounding-shift EWMAs, the
+    fresh / second-packet selects, min, max and the saturating counts) plus
+    4 per sketch row and 3 for the estimate's code — over the CUDA cores'
+    int32 rate."""
+    state, cms, slots, cells, ts, length, live = args
+    n = slots.shape[0]
+    n_bytes = 2 * nbytes(state, cms) + nbytes(slots, cells, ts, length,
+                                               live) + n * 8 * 4
+    ops = n_live * (59 + 4 * cms.shape[0] + 3)
+    return bound_ms(n_bytes, ops, INT32_CORE_OPS_PER_S)
+
+
+# ---------------------------------------------------------------------------
 # the serving path
 # ---------------------------------------------------------------------------
 
@@ -587,6 +728,246 @@ def run_path(dev, n_packets: int, label: str, kernels: tuple, card: str,
                 seconds=run["seconds"], engine_s=run["engine_s"])
 
 
+def flow_server(dev, forests, **kw):
+    """PacketServer at its defaults on ``dev`` with the 8 MLPs (ids 1–8)
+    and the 8 trained forests (ids 9–16), FeatureSpecs as the reference's
+    flow benchmark installs them, and all three lane programs warmed."""
+    srv = PacketServer(device=dev, **kw)
+    install_models(srv, np.random.default_rng(SEED + 4), ids=MLP_IDS)
+    for mid, forest in forests.items():
+        srv.install_forest(mid, forest)
+    for mid in MLP_IDS:
+        srv.install_feature_spec(mid, MLP_SPEC)
+    for mid in FOREST_IDS:
+        srv.install_feature_spec(mid, FOREST_SPEC)
+    srv.engine.warm(srv.ingress.batch_size, HEADER_BYTES + 4 * WIDTH,
+                    lanes=("mlp", "forest", "both"))
+    return srv
+
+
+def flow_trace(n_packets: int, n_flows: int, ids) -> list:
+    """A seeded raw 5-tuple trace (even flows periodic, odd flows bursty,
+    Model IDs cyclic over the flows) cut into ragged chunks of 1–8192."""
+    rng = np.random.default_rng(SEED + 5)
+    raw = raw_trace(rng, n_packets, n_flows=n_flows, model_ids=tuple(ids),
+                    pattern="mixed")
+    cuts = np.unique(np.cumsum(rng.integers(1, 8193, n_packets // 256)))
+    return np.split(raw, cuts[cuts < n_packets])
+
+
+def egress_list(out) -> list:
+    """Egress rows as bytes and error slots as their reasons, in order."""
+    return [o.tobytes() if isinstance(o, np.ndarray) else o.reason
+            for o in out]
+
+
+def serve_flow(dev, chunks, forests, drifted=None, **server_kw) -> dict:
+    """Serve raw chunks through submit_raw; with ``drifted``, reinstall one
+    MLP's FeatureSpec and forest 9 at the midpoint.  The launch counters are
+    zeroed right before the trace and read right after it."""
+    srv = flow_server(dev, forests, **server_kw)
+    flow = srv.flow
+    timers = {"engine": 0.0, "extract": 0.0}
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                timers[key] += time.perf_counter() - t
+        return call
+
+    srv.engine.run_features = timed(srv.engine.run_features, "engine")
+    flow.extract = timed(flow.extract, "extract")
+    mid = len(chunks) // 2
+    rc_before = None
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for i, chunk in enumerate(chunks):
+        if i == mid and drifted is not None:
+            rc_before = srv.stats()["recompiles"]
+            srv.install_feature_spec(MLP_IDS[0], SWAPPED_SPEC)
+            srv.install_forest(FOREST_IDS[0], drifted)
+        srv.submit_raw(chunk)
+    out = srv.drain_packets()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return dict(server=srv, egress=egress_list(out), seconds=dt,
+                engine_s=timers["engine"], extract_s=timers["extract"],
+                launches=read_launches(), rc_before=rc_before,
+                rc_after=srv.stats()["recompiles"],
+                regs=flow.table.registers.copy(), cms=flow.cms.copy(),
+                table={k: flow.table.stats[k] for k in (
+                    "flow_created_total", "flow_expiries_total",
+                    "flow_evictions_total", "flow_rejects_total")},
+                lane_batches=dict(srv.ingress.stats["lane_batches"]))
+
+
+def run_flow_path(dev, label: str, n_packets: int, card: str, forests,
+                  drifted=None, **server_kw) -> dict:
+    """The card's submit_raw run against the CPU port's on the same calls:
+    egress and error slots must be equal, and the flow, MLP and forest
+    kernels must all have launched on the card."""
+    chunks = flow_trace(n_packets, N_FLOWS, list(MLP_IDS) + list(FOREST_IDS)
+                        + [999])
+    ref = serve_flow(torch.device("cpu"), chunks, forests, drifted,
+                     **server_kw)
+    run = serve_flow(dev, chunks, forests, drifted, **server_kw)
+    same = run["egress"] == ref["egress"]
+    n_err = sum(isinstance(e, str) for e in run["egress"])
+    launches = {k: run["launches"][k] for k in ("int16", "range",
+                                                "flow_update")}
+    log(f"serve flow {label}: {n_packets} raw packets in {len(chunks)} "
+        f"chunks, egress {'byte-identical' if same else 'DIFFERS'} to the "
+        f"CPU port ({n_err} error slots); launches {launches}; lane batches "
+        f"{run['lane_batches']}; flow table {run['table']}; recompiles "
+        f"{run['rc_before']} -> {run['rc_after']}; "
+        f"{n_packets / run['seconds']:.0f} packets/s on {dev} "
+        f"({run['seconds']:.3f} s, of which {run['engine_s']:.3f} s inside "
+        f"engine.run_features and {run['extract_s']:.3f} s inside "
+        f"flow.extract); {n_packets / ref['seconds']:.0f} packets/s with the "
+        f"port on the host CPU [{card}]")
+    if not same:
+        diff = [i for i, (a, b) in enumerate(zip(run["egress"],
+                                                 ref["egress"])) if a != b]
+        raise SystemExit(f"flow {label} egress differs at {len(diff)} "
+                         f"packets, first {diff[:5]}")
+    if not (np.array_equal(run["regs"], ref["regs"])
+            and np.array_equal(run["cms"], ref["cms"])
+            and run["table"] == ref["table"]):
+        raise SystemExit(f"flow {label}: final registers, sketch or table "
+                         "counters differ from the CPU port's")
+    for k, v in launches.items():
+        if v == 0:
+            raise SystemExit(f"kernel {k} never launched on the flow "
+                             f"{label} path")
+    if drifted is not None and run["rc_before"] != run["rc_after"]:
+        raise SystemExit(f"reinstalls changed the serving configurations: "
+                         f"{run['rc_before']} -> {run['rc_after']}")
+    if n_err == 0:
+        raise SystemExit(f"flow {label}: expected error slots")
+    return dict(launches=launches, packets_per_s=n_packets / run["seconds"],
+                seconds=run["seconds"], engine_s=run["engine_s"],
+                extract_s=run["extract_s"], server=run["server"],
+                chunks=chunks, table=run["table"])
+
+
+def run_fused_path(dev, n_packets: int, card: str, forests) -> dict:
+    """flow.serve_raw_fused in 2048-packet chunks on the card against
+    submit_raw + drain_packets on a second card server: egress and final
+    registers must be equal."""
+    raw = raw_trace(np.random.default_rng(SEED + 7), n_packets,
+                    n_flows=2048, model_ids=tuple(MLP_IDS + FOREST_IDS),
+                    pattern="mixed")
+    chunks = [raw[i: i + 2048] for i in range(0, n_packets, 2048)]
+    staged = flow_server(dev, forests)
+    for chunk in chunks:
+        staged.submit_raw(chunk)
+    want = np.stack(staged.drain_packets())
+    fused = flow_server(dev, forests)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = np.concatenate([fused.flow.serve_raw_fused(c) for c in chunks])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: read_launches()[k] for k in ("int16", "range",
+                                                "flow_update")}
+    same = np.array_equal(got[:, : want.shape[1]], want)
+    regs = np.array_equal(fused.flow.table.registers,
+                          staged.flow.table.registers) and np.array_equal(
+        fused.flow.cms, staged.flow.cms)
+    log(f"serve flow fused: {n_packets} raw packets over 2048 flows through "
+        f"flow.serve_raw_fused in 2048-packet chunks, egress "
+        f"{'byte-identical' if same else 'DIFFERS'} to submit_raw on a "
+        f"second card server; registers and sketch "
+        f"{'equal' if regs else 'DIFFER'}; launches {launches}; "
+        f"{n_packets / dt:.0f} packets/s [{card}]")
+    if not (same and regs):
+        raise SystemExit("serve_raw_fused differs from the staged path")
+    for k, v in launches.items():
+        if v == 0:
+            raise SystemExit(f"kernel {k} never launched on the fused path")
+    return dict(launches=launches, packets_per_s=n_packets / dt, seconds=dt,
+                engine_s=0.0)
+
+
+def flow_launch_only(args):
+    """A call of the flow kernel's C entry point alone, on outputs made
+    once (no clones, no error-word read): what :func:`queued_ms` times as
+    the kernel's device time.  It adds nothing to the launch counter."""
+    state, cms, slots, cells, ts, length, live = args
+    n, (depth, width_c) = slots.shape[0], cms.shape
+    outs = (torch.empty_like(state), torch.empty_like(cms),
+            torch.empty((n, 8), dtype=torch.int32, device=state.device),
+            torch.zeros(1, dtype=torch.int32, device=state.device))
+    ptrs = [t.data_ptr() for t in (*args, *outs)]
+    lib = fuk.load_library()
+    stream = torch.cuda.current_stream(state.device).cuda_stream
+
+    def call():
+        rc = lib.flow_update_launch(
+            *ptrs, n, state.shape[0], depth, width_c, FLOW_KW["frac"],
+            FLOW_KW["ewma_shift"], FLOW_KW["byte_shift"],
+            FLOW_KW["dur_shift"], stream)
+        if rc != 0:
+            raise SystemExit(f"flow_update launch failed: CUDA error {rc}")
+    return call
+
+
+def flow_numbers(dev, flow: dict, worst: int, card: str) -> dict:
+    """Phase 5 for the flow kernel, on a 2048-packet batch of the 200k flow
+    trace as the card server's flow table resolves it (the trace's own mix
+    of flows): per call (the wrapper reads the kernel's error word, which
+    synchronises), queued (the kernel's C entry point alone), plain, bound,
+    the longest flow chain, the register file's round trip and the flow
+    path's shares.  Returns the kernel's JSON entry."""
+    fsrv = flow["server"]
+    batch = np.concatenate(flow["chunks"])[100_000: 102_048]
+    fields = parse_raw_headers(batch)
+    words, hashes = FlowTable.pack_keys(fields.key_bytes,
+                                        fsrv.flow.key_words)
+    slots, _ = fsrv.flow.table.lookup_or_insert(words, hashes, fields.ts)
+    if (slots < 0).any():
+        raise SystemExit("timing batch: a flow was rejected")
+    cells = fsrv.flow.params.cms_cells(hashes)
+    fargs = _dev(dev, fsrv.flow.table.registers, fsrv.flow.cms,
+                 slots.astype(np.int32), cells, fields.ts, fields.length,
+                 np.ones(slots.shape[0], np.int32))
+    chain = int(np.bincount(slots).max())
+    k_ms = cuda_ms(lambda: fuk.flow_update_kernel(*fargs, **FLOW_KW))
+    q_ms = queued_ms(flow_launch_only(fargs))
+    p_ms = cuda_ms(lambda: flow_update_ref(*fargs, **FLOW_KW), reps=5,
+                   inner=5)
+    b_ms, b_by = flow_bound(slots.shape[0], fargs)
+    rt = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        fsrv.flow.download_state(*fsrv.flow.upload_state())
+        rt.append((time.perf_counter() - t0) * 1e3)
+    rt_ms = statistics.median(rt)
+    log(f"time flow_update B=2048 S={fargs[0].shape[0]} "
+        f"sketch={tuple(fargs[1].shape)} (200k flow trace, longest chain "
+        f"{chain}): kernel {k_ms:.4f} ms per call through the wrapper "
+        f"({q_ms:.4f} ms queued, the entry point alone, device only), plain "
+        f"{p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); register-file round "
+        f"trip (upload + copy back of {nbytes(fargs[0], fargs[1])} bytes) "
+        f"{rt_ms:.4f} ms [{card}]")
+    n_calls = flow["launches"]["flow_update"]
+    log(f"path flow 200k: extract share "
+        f"{flow['extract_s'] / flow['seconds']:.4f} of the wall; {n_calls} "
+        f"extract calls x {rt_ms:.4f} ms round trip = "
+        f"{n_calls * rt_ms * 1e-3 / flow['seconds']:.4f} of the wall "
+        f"[{card}]")
+    return dict(KERNELS["flow_update"], launches=n_calls, max_abs_err=worst,
+                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
 def main() -> int:
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -604,7 +985,7 @@ def main() -> int:
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build_all(["fixedpoint_mlp", "forest_traversal"])
+    _build.build_all(SOURCES)
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
@@ -622,6 +1003,9 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     trained = trained_tables(forests)
     worst.update(check_forest_kernels(dev, trained))
+    t0 = time.perf_counter()
+    worst["flow_update"] = check_flow_kernels(dev)
+    log(f"flow kernel checks: {time.perf_counter() - t0:.1f} s")
 
     # -- 4. the serving path --------------------------------------------------
     mixed = dict(forests=forests, drifted=drifted)
@@ -635,6 +1019,17 @@ def main() -> int:
         "int8": run_path(dev, 50_000, "int8", ("int8",), smi, weight_bits=8,
                          kernel_variant="int8"),
     }
+    flow = run_flow_path(dev, "200k", 200_000, smi, forests, drifted,
+                         strict_model_ids=True)
+    overflow = run_flow_path(dev, "overflow", 50_000, smi, forests,
+                             flow_capacity_pow2=12, flow_idle_timeout=1024,
+                             strict_model_ids=True)
+    if min(overflow["table"].values()) == 0:
+        raise SystemExit(f"overflow run: expected expiry, eviction and "
+                         f"rejection, got {overflow['table']}")
+    path["flow"] = flow
+    path["flow overflow"] = overflow
+    path["flow fused"] = run_fused_path(dev, 50_000, smi, forests)
 
     # -- 5. numbers -----------------------------------------------------------
     rng = np.random.default_rng(SEED + 2)
@@ -692,6 +1087,9 @@ def main() -> int:
             f"{k_ms[variant]:.4f} ms per call ({q_ms:.4f} ms queued, device "
             f"only), plain {p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}) "
             f"[{smi}]")
+    entry = flow_numbers(dev, flow, worst["flow_update"], smi)
+    k_ms["flow_update"] = entry["ms"]
+    kernels.append(entry)
     for label, p in path.items():
         kernel_s = sum(n * k_ms[k] * 1e-3 for k, n in p["launches"].items())
         log(f"path {label}: {p['packets_per_s']:.0f} packets/s, engine call "

@@ -1,5 +1,5 @@
-"""Control-plane tables (paper §2, §3 item 3, Fig 2): the MLP family and
-the tree-ensemble (forest) family.
+"""Control-plane tables (paper §2, §3 item 3, Fig 2): the MLP family, the
+tree-ensemble (forest) family and the flow engine's feature-spec family.
 
 Model parameters (weights, biases, activation opcodes, tree node tables)
 live in control-plane tables, so a model can be retrained and re-installed
@@ -16,9 +16,10 @@ event and fault hooks, and per-(family generation, device) snapshot caches
 that upload with ``torch.as_tensor(..., device=)``.  Forest installs
 publish two lowerings in one swap: the dense node tables
 (:class:`ForestTables`, the pointer chase) and their range-table
-compilation (:class:`RangeTables`).  The feature-spec, SLO and reflex
-families arrive with their slices; until then their ``*_active`` latches
-read ``False``.
+compilation (:class:`RangeTables`).  The feature-spec family
+(:class:`FeatureSpec`) is host-only state the flow frontend reads, swapped
+under the same discipline.  The SLO and reflex families arrive with their
+slices; until then their ``*_active`` latches read ``False``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..kernels.ref import N_FLOW_FEATURES
 from .fixedpoint import FixedPointFormat, encode
 
 __all__ = [
@@ -42,6 +44,7 @@ __all__ = [
     "ModelTables",
     "ForestTables",
     "RangeTables",
+    "FeatureSpec",
     "ControlPlane",
     "tables_from_numpy",
     "forest_tables_from_numpy",
@@ -173,8 +176,34 @@ def range_tables_from_numpy(feat, thresh, lmask, payload,
                        payload=_put(payload, np.int32, device))
 
 
+@dataclasses.dataclass(frozen=True)
+class FeatureSpec:
+    """Flow-feature → model-input column mapping (the Planter "feature
+    mapping stage" as its own control-plane object).
+
+    ``columns[j]`` names the flow-engine feature lane
+    (``kernels.ref.FLOW_FEATURE_NAMES`` order) that feeds the model's input
+    column ``j``.  Installed per Model ID with the same generation-swap
+    discipline as the weight tables, so an MLP and a forest can consume
+    different register subsets from one shared flow table, and re-mapping a
+    live model is one host-side swap — no new serving configuration.
+    """
+
+    columns: Tuple[int, ...]
+
+    def __post_init__(self):
+        if not self.columns:
+            raise ValueError("FeatureSpec needs at least one column")
+        for c in self.columns:
+            if not 0 <= int(c) < N_FLOW_FEATURES:
+                raise ValueError(
+                    f"FeatureSpec column {c} outside the flow engine's "
+                    f"[0, {N_FLOW_FEATURES}) feature lanes")
+
+
 class ControlPlane:
-    """Host-side registry that owns and mutates the MLP and forest tables.
+    """Host-side registry that owns and mutates the MLP, forest and
+    feature-spec tables.
 
     ``frac_bits`` is shared by features, weights and tree thresholds.
     Installs are double-buffered: a writer prepares private copies of the
@@ -250,6 +279,16 @@ class ControlPlane:
         # latched on the first forest install: the engine's "run the forest
         # lane" switch keys off it, so it flips at most once per process
         self._forest_ever = False
+        # -- flow feature-spec family (host-only: read by the flow
+        #    frontend, never uploaded — an install is still a generation
+        #    swap so readers see one coherent mapping) --
+        self._spec_map = np.full((_N_MODEL_IDS,), -1, np.int32)
+        self._spec_rows = np.full((0, max_width), -1, np.int32)
+        self._spec_lens = np.zeros((0,), np.int32)
+        self._specs: Dict[int, FeatureSpec] = {}
+        # per-generation read table (identity row prepended so slot -1 maps
+        # to it via +1): the frontend's hot path is one gather
+        self._spec_read_cache: Optional[Tuple] = None
         self._version = 0
         # per-family write counters: the shared ``_version`` is the cache
         # and staleness key, but snapshots re-upload per family, so a swap
@@ -533,6 +572,98 @@ class ControlPlane:
         engine's forest-lane switch keys off it, so it flips at most once
         per process)."""
         return self._forest_ever
+
+    # -- flow feature-spec family ----------------------------------------
+
+    def install_feature_spec(self, model_id: int, spec) -> int:
+        """Install (or hot-swap) the :class:`FeatureSpec` mapping flow-engine
+        feature lanes onto ``model_id``'s input columns.  Returns the spec
+        slot.
+
+        Validate everything, prepare copies, commit under the lock with one
+        version bump: a reinstall publishes a new mapping for the *next*
+        raw batch and never adds a serving configuration.  The version bump
+        orphans cached egress rows built under the old mapping.  A spec
+        outlives ``remove()`` of its model (the mapping belongs to the Model
+        ID); drop it with :meth:`remove_feature_spec`.
+        """
+        if not isinstance(spec, FeatureSpec):
+            spec = FeatureSpec(columns=tuple(int(c) for c in spec))
+        if not 0 <= int(model_id) < _N_MODEL_IDS:
+            raise ValueError(f"model id {model_id} outside the 16-bit "
+                             "Model ID field")
+        if len(spec.columns) > self.max_width:
+            raise ValueError(
+                f"FeatureSpec has {len(spec.columns)} columns > "
+                f"max_width={self.max_width} input lanes")
+        with self._lock:
+            # prepare-then-commit (same crash-safety contract as install())
+            smap = self._spec_map
+            rows, lens = self._spec_rows.copy(), self._spec_lens.copy()
+            slot = int(smap[model_id])
+            if slot < 0:  # the map only changes when a new slot is minted
+                smap = smap.copy()
+                slot = rows.shape[0]
+                rows = np.concatenate(
+                    [rows, np.full((1, self.max_width), -1, np.int32)])
+                lens = np.concatenate([lens, np.zeros(1, np.int32)])
+                smap[model_id] = slot
+            rows[slot] = -1
+            rows[slot, : len(spec.columns)] = spec.columns
+            lens[slot] = len(spec.columns)
+            self._fire_fault("install")
+            # -- commit (atomic under the lock) --
+            self._spec_map, self._spec_rows, self._spec_lens = \
+                smap, rows, lens
+            self._specs[model_id] = spec
+            self._version += 1
+            self._emit("install_feature_spec", model_id, slot=slot)
+            return slot
+
+    def remove_feature_spec(self, model_id: int) -> None:
+        """Uninstall a feature spec; the model id falls back to the identity
+        mapping (no-op if none installed)."""
+        with self._lock:
+            if self._specs.pop(model_id, None) is None:
+                return
+            self._spec_map = self._spec_map.copy()
+            self._spec_map[model_id] = -1  # row slot retired (specs are tiny)
+            self._version += 1
+            self._emit("remove", model_id, family="spec")
+
+    def feature_spec(self, model_id: int) -> Optional[FeatureSpec]:
+        with self._lock:
+            return self._specs.get(model_id)
+
+    def feature_spec_rows(self, model_ids: np.ndarray, width: int
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+        """Vectorized per-packet spec gather for the flow frontend: returns
+        ``(cols, lens)`` with ``cols`` of shape ``(B, width)`` holding each
+        packet's flow-feature lane per model input column (``-1`` = unused
+        column, encoded as a zero code) and ``lens`` the declared feature
+        counts.  Ids with no installed spec use the identity mapping over
+        the first ``min(N_FLOW_FEATURES, width)`` lanes."""
+        mids = np.asarray(model_ids, np.int64).reshape(-1)
+        with self._lock:
+            cache = self._spec_read_cache
+            if cache is None or cache[0] != self._version:
+                ident = np.full((1, self.max_width), -1, np.int32)
+                k = min(N_FLOW_FEATURES, self.max_width)
+                ident[0, :k] = np.arange(k, dtype=np.int32)
+                cache = (self._version, self._spec_map,
+                         np.concatenate([ident, self._spec_rows]),
+                         np.concatenate([np.asarray([k], np.int32),
+                                         self._spec_lens]))
+                self._spec_read_cache = cache
+        _, smap, rows_ext, lens_ext = cache
+        slot = smap[mids] + 1  # 0 = the identity row
+        w = min(width, rows_ext.shape[1])
+        cols = rows_ext[slot][:, :w]
+        if w < width:
+            cols = np.concatenate(
+                [cols, np.full((mids.shape[0], width - w), -1, np.int32)],
+                axis=1)
+        return cols, np.minimum(lens_ext[slot], width)
 
     # -- latches of the families still to port ----------------------------
 

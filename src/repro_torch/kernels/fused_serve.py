@@ -1,12 +1,15 @@
-"""The lane-dispatch core of the serving program.
+"""The lane-dispatch core of the serving program, and the fused raw-packet
+program built on it.
 
-Counterpart of ``repro.kernels.fused_serve.serve_lanes``: parsed int32
+Counterpart of ``repro.kernels.fused_serve``.  ``serve_lanes``: parsed int32
 feature codes and Model IDs in, int32 output codes out — Model-ID
 resolution through both control-plane ``id_map`` tables (MLP slots and
 forest slots, one namespace), the fused MLP kernel, the tree-ensemble
 traversal kernel (pointer chase or range table) and per-model output
 masking.  ``core.inference.DataPlaneEngine`` calls it for both its wire
-path and its feature path, so the two cannot drift.
+path and its feature path, so the two cannot drift.  ``serve_raw`` chains
+the flow-update kernel, the FeatureSpec take (``spec_take``), the lanes and
+the egress encode on one device — ``flow.FlowFrontend.serve_raw_fused``.
 """
 
 from __future__ import annotations
@@ -15,9 +18,9 @@ from typing import NamedTuple
 
 import torch
 
-from .ops import forest_traverse, fused_mlp
+from .ops import flow_update, forest_traverse, fused_mlp
 
-__all__ = ["LaneConfig", "serve_lanes"]
+__all__ = ["LaneConfig", "serve_lanes", "spec_take", "serve_raw"]
 
 
 class LaneConfig(NamedTuple):
@@ -89,3 +92,58 @@ def serve_lanes(x0: torch.Tensor, model_id: torch.Tensor, tables,
         outputs = torch.where(fvalid[:, None], fout, outputs)
 
     return outputs[:, : cfg.max_features]
+
+
+def spec_take(feats: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Feature-spec gather as a device take.
+
+    feats (B, NF) int32 flow-feature codes · cols (B, W) int32 per-packet
+    input-column map (``-1`` = unused column) → (B, W) int32 model inputs.
+    The appended zero lane realizes the ``-1`` convention with one gather
+    and no masking pass — the same semantics as the host-side gather in
+    ``flow.frontend``.
+    """
+    n = feats.shape[0]
+    feats_z = torch.cat([feats.to(torch.int32),
+                         torch.zeros((n, 1), dtype=torch.int32,
+                                     device=feats.device)], dim=1)
+    safe = torch.where(cols >= 0, cols,
+                       torch.full_like(cols, feats_z.shape[1] - 1))
+    return feats_z.gather(1, safe.to(torch.int64))
+
+
+def serve_raw(state: torch.Tensor, cms: torch.Tensor, slots: torch.Tensor,
+              cells: torch.Tensor, ts: torch.Tensor, length: torch.Tensor,
+              live: torch.Tensor, cols: torch.Tensor, model_id: torch.Tensor,
+              tables, ftables, rtables, cfg: LaneConfig, *,
+              use_mlp: bool, use_forest: bool, ewma_shift: int,
+              byte_shift: int, dur_shift: int, backend: str = "auto"):
+    """The fused raw-packet serving program: parsed raw headers (flow slots
+    pre-resolved by the host flow table) to egress wire rows, on the
+    tensors' device:
+
+        flow_update (the CUDA kernel on the card: registers + sketch)
+          → spec_take → serve_lanes (MLP / forest kernels)
+          → emit_results (wire encode, once, at egress)
+
+    Returns ``(new_state, new_cms, egress_rows)``: the caller owns the
+    register file across batches.  Bit-exact against the staged path —
+    the same kernels in the same order.
+    """
+    # late import: core/__init__ imports the engine, which imports this
+    from ..core.packet import ParsedBatch, emit_results
+
+    new_state, new_cms, feats = flow_update(
+        state, cms, slots, cells, ts, length, live, frac=cfg.frac,
+        ewma_shift=ewma_shift, byte_shift=byte_shift, dur_shift=dur_shift,
+        backend=backend)
+    x0 = spec_take(feats, cols)
+    outputs = serve_lanes(x0, model_id, tables, ftables, rtables, cfg,
+                          use_mlp=use_mlp, use_forest=use_forest)
+    n = outputs.shape[0]
+    zeros = torch.zeros((n,), dtype=torch.int32, device=outputs.device)
+    parsed = ParsedBatch(
+        model_id=model_id.to(torch.int32), feature_cnt=zeros,
+        output_cnt=zeros, scale=torch.full_like(zeros, cfg.frac),
+        flags=zeros, features_q=x0)
+    return new_state, new_cms, emit_results(parsed, outputs, cfg.frac)

@@ -1,7 +1,7 @@
 """Public wrappers around the serving kernels with backend dispatch.
 
-Counterpart of ``repro.kernels.ops`` for the fused MLP and the forest
-traversal.  ``backend``:
+Counterpart of ``repro.kernels.ops`` for the fused MLP, the forest
+traversal and the flow update.  ``backend``:
 
   * ``"auto"``   — the kernel wrapper: the CUDA kernel for tensors on the
                    card, its plain version (gather form) for CPU tensors;
@@ -11,6 +11,8 @@ traversal.  ``backend``:
                    literal formulation) on any device — the cross-check path.
 
 Callers hand over tables exactly as the control plane stores them.
+:func:`flow_update` takes the same three names with its own CPU path (see
+there).
 """
 
 from __future__ import annotations
@@ -21,9 +23,10 @@ import torch
 from . import forest_traversal as ft
 from . import ref
 from .fixedpoint_mlp import KERNEL_VARIANTS, fixedpoint_mlp
+from .flow_update import flow_update_gather, flow_update_kernel
 from .forest_traversal import FOREST_VARIANTS
 
-__all__ = ["fused_mlp", "forest_traverse", "KERNEL_VARIANTS",
+__all__ = ["fused_mlp", "forest_traverse", "flow_update", "KERNEL_VARIANTS",
            "FOREST_VARIANTS"]
 
 
@@ -123,3 +126,49 @@ def forest_traverse(x_q: torch.Tensor, slot: torch.Tensor,
 def _tree_major(tree_on: torch.Tensor) -> torch.Tensor:
     """(F, T) → (T, F, 1) int32, the masked forms' liveness operand."""
     return tree_on.t().to(torch.int32)[:, :, None]
+
+
+def flow_update(state, cms, slots, cells, ts, length, live, *, frac: int,
+                ewma_shift: int = 3, byte_shift: int = 6,
+                dur_shift: int = 10, backend: str = "auto",
+                copy: bool = True, rank=None):
+    """Stateful per-flow register update + feature emit for one batch of
+    parsed raw headers (see ``kernels.flow_update`` for the stage's role
+    and ``ref.flow_update_numpy`` for the exact semantics).  Returns
+    ``(new_state, new_cms, features)``; the caller (the flow engine) owns
+    the register file and feeds each batch the previous batch's state.
+
+    ``backend``:
+
+      * ``"auto"``   — the CUDA kernel for tensors on the card; otherwise
+        the rank-round numpy lowering ``flow_update_gather`` (the flow
+        engine's CPU serving path), which takes ``copy=False`` to update a
+        numpy register file in place and ``rank`` to skip re-ranking;
+      * ``"kernel"`` — the CUDA kernel; raises for inputs not on the card;
+      * ``"ref"``    — the pure-Python oracle (tests only).
+
+    Tensors in give tensors out, on the same device; numpy in gives numpy
+    out.  The kernel and the oracle always return fresh arrays.
+    """
+    if backend not in ("auto", "kernel", "ref"):
+        raise ValueError(f"unknown backend: {backend!r}")
+    kw = dict(frac=frac, ewma_shift=ewma_shift, byte_shift=byte_shift,
+              dur_shift=dur_shift)
+    on_card = isinstance(state, torch.Tensor) and state.device.type == "cuda"
+    if backend == "kernel" and not on_card:
+        raise ValueError("backend='kernel' needs tensors on the card, got "
+                         f"{getattr(state, 'device', type(state).__name__)}")
+    if on_card and backend != "ref":
+        return flow_update_kernel(state, cms, slots, cells, ts, length, live,
+                                  **kw)
+    as_tensor = isinstance(state, torch.Tensor)
+    args = [a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+            for a in (state, cms, slots, cells, ts, length, live)]
+    if backend == "ref":
+        out = ref.flow_update_numpy(*args, **kw)
+    else:
+        out = flow_update_gather(*args, copy=copy, rank=rank, **kw)
+    if as_tensor:
+        return tuple(torch.from_numpy(np.asarray(o)).to(state.device)
+                     for o in out)
+    return out

@@ -6,7 +6,10 @@ Counterparts of ``repro.kernels.ref``: ``rounding_rshift``, ``lane_clamp``,
 ``_select_activation_ref``, ``fused_mlp_ref``, ``fused_mlp_gather_ref`` for
 the MLP lane, and ``forest_traverse_ref``, ``forest_traverse_gather_ref``,
 ``forest_range_ref``, ``forest_range_gather_ref`` and ``_forest_vote`` for
-the tree-ensemble lane.  Every product and sum is int32 with
+the tree-ensemble lane, and the flow engine's register-file constants,
+``rounding_rshift_np``, ``sat_shl_np`` and the pure-Python per-packet
+oracle ``flow_update_numpy`` (numpy, copied verbatim) beside its plain
+PyTorch version ``flow_update_ref``.  Every product and sum is int32 with
 two's-complement wraparound, as in the reference: products are int32
 tensor multiplies, and reductions use ``sum(..., dtype=torch.int32)`` so
 the accumulator wraps to int32 *before* the rounding shift (a plain
@@ -25,12 +28,18 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 __all__ = ["rounding_rshift", "lane_clamp", "fused_mlp_ref",
            "fused_mlp_gather_ref", "forest_traverse_ref",
            "forest_traverse_gather_ref", "forest_range_ref",
-           "forest_range_gather_ref", "FOREST_REGRESS", "FOREST_CLASSIFY"]
+           "forest_range_gather_ref", "FOREST_REGRESS", "FOREST_CLASSIFY",
+           "REG_PKT_COUNT", "REG_BYTE_COUNT", "REG_LAST_TS", "REG_FIRST_TS",
+           "REG_EWMA_IAT", "REG_EWMA_LEN", "REG_MIN_LEN", "REG_MAX_LEN",
+           "N_FLOW_REGISTERS", "FLOW_FEATURE_NAMES", "N_FLOW_FEATURES",
+           "FLOW_CODE_MAX", "rounding_rshift_np", "sat_shl_np",
+           "flow_update_numpy", "flow_update_ref"]
 
 
 def rounding_rshift(x: torch.Tensor, shift: int) -> torch.Tensor:
@@ -351,3 +360,238 @@ def forest_range_gather_ref(x_q: torch.Tensor, slot: torch.Tensor,
     on = tree_on[s] > 0
     md = mode[s][:, None]
     return _forest_vote(leaf, on, md, width, frac)
+
+
+# ---------------------------------------------------------------------------
+# Stateful flow engine (repro_torch.flow) — per-flow register update + feature
+# emit
+# ---------------------------------------------------------------------------
+
+# Register-file columns, one row per flow-table slot.  All registers are
+# int32; counters/lengths/timestamps are raw integer quantities, the EWMA
+# registers are fixed-point codes at the wire's ``frac`` fractional bits
+# (the same grid ``core.fixedpoint.encode`` writes).
+REG_PKT_COUNT = 0   # packets seen (0 ⇒ slot holds no flow state yet)
+REG_BYTE_COUNT = 1  # saturating byte total
+REG_LAST_TS = 2     # tick of the last packet (drives inter-arrival + expiry)
+REG_FIRST_TS = 3    # tick of the first packet (drives the duration feature)
+REG_EWMA_IAT = 4    # EWMA of inter-arrival ticks, code at ``frac``
+REG_EWMA_LEN = 5    # EWMA of packet length, code at ``frac``
+REG_MIN_LEN = 6     # smallest packet length seen
+REG_MAX_LEN = 7     # largest packet length seen
+N_FLOW_REGISTERS = 8
+
+# Emitted per-packet feature lanes (post-update flow state, every lane a
+# fixed-point code at ``frac`` — directly encodable into the wire's feature
+# block).  ``FeatureSpec`` columns index into this order.
+FLOW_FEATURE_NAMES = ("pkt_count", "byte_count", "iat_ewma", "len_ewma",
+                      "len_min", "len_max", "duration", "cms_count")
+N_FLOW_FEATURES = len(FLOW_FEATURE_NAMES)
+
+# Every register/feature value lives in [0, FLOW_CODE_MAX] (EWMA deltas then
+# fit int32 with headroom), so the update arithmetic can never wrap — the
+# saturation bound is part of the bit-exact contract, not a soft limit.
+FLOW_CODE_MAX = (1 << 30) - 1
+
+
+def rounding_rshift_np(x, shift: int):
+    """Numpy twin of :func:`rounding_rshift` (arithmetic right shift,
+    round-to-nearest, ties away from zero)."""
+    if shift <= 0:
+        return x
+    x = np.asarray(x)
+    rounding = np.where(x >= 0, 1 << (shift - 1), (1 << (shift - 1)) - 1)
+    return (x + rounding.astype(x.dtype)) >> shift
+
+
+def sat_shl_np(v, shift: int):
+    """Saturating left shift of a non-negative quantity onto the ``shift``
+    fractional-bit code grid: values beyond ``FLOW_CODE_MAX >> shift``
+    saturate instead of wrapping."""
+    v = np.minimum(np.maximum(v, 0), FLOW_CODE_MAX >> shift)
+    return v << shift
+
+
+def flow_update_numpy(state: np.ndarray, cms: np.ndarray, slots: np.ndarray,
+                      cells: np.ndarray, ts: np.ndarray, length: np.ndarray,
+                      live: np.ndarray, *, frac: int, ewma_shift: int,
+                      byte_shift: int, dur_shift: int):
+    """THE flow-update oracle: a pure-Python per-packet walk of the register
+    file, in batch order.
+
+    Deliberately scalar (the hardware analogue is one packet at a time
+    through the stateful ALU) so nothing about the vectorized formulations
+    can leak into the reference semantics; the CUDA kernel, the rank-round
+    CPU lowering (``kernels.flow_update``) and :func:`flow_update_ref` must
+    reproduce it bit for bit — including the saturation bounds and the
+    rounding-shift EWMA.
+
+    state  (S, N_FLOW_REGISTERS) int32 — per-slot register rows
+    cms    (D, Wc) int32 — count-min sketch counters
+    slots  (B,) int32 — flow-table slot per packet (resolved by FlowTable)
+    cells  (B, D) int32 — count-min cell per packet per sketch row
+    ts     (B,) int32 — arrival tick; length (B,) int32 — wire bytes
+    live   (B,) bool/int — 0 rows are padding: no state touch, zero features
+
+    Returns ``(new_state, new_cms, features)`` with ``features`` of shape
+    ``(B, N_FLOW_FEATURES)`` int32 codes at ``frac`` — the **post-update**
+    flow state as each packet observed it, which is what a per-packet
+    stateful P4 pipeline exports to its ML stage.
+    """
+    state = np.array(state, np.int32, copy=True)
+    cms = np.array(cms, np.int32, copy=True)
+    slots = np.asarray(slots).reshape(-1)
+    n = slots.shape[0]
+    depth = cms.shape[0]
+    feats = np.zeros((n, N_FLOW_FEATURES), np.int32)
+
+    def _shl(v, s=frac):
+        return int(sat_shl_np(int(v), s))
+
+    for p in range(n):
+        if not live[p]:
+            continue
+        s = int(slots[p])
+        t = int(ts[p])
+        ln = max(int(length[p]), 0)
+        row = state[s]
+        cnt = int(row[REG_PKT_COUNT])
+        len_q = _shl(ln)
+        if cnt == 0:  # fresh slot: this packet opens the flow
+            first = t
+            iat_e = 0
+            len_e = len_q
+            mn = mx = ln
+            byte = min(ln, FLOW_CODE_MAX)
+            cnt2 = 1
+        else:
+            iat_q = _shl(max(t - int(row[REG_LAST_TS]), 0))
+            if cnt == 1:  # first inter-arrival sample seeds the EWMA
+                iat_e = iat_q
+            else:
+                iat_e = int(row[REG_EWMA_IAT]) + int(rounding_rshift_np(
+                    np.int64(iat_q - int(row[REG_EWMA_IAT])), ewma_shift))
+            len_e = int(row[REG_EWMA_LEN]) + int(rounding_rshift_np(
+                np.int64(len_q - int(row[REG_EWMA_LEN])), ewma_shift))
+            mn = min(int(row[REG_MIN_LEN]), ln)
+            mx = max(int(row[REG_MAX_LEN]), ln)
+            byte = min(int(row[REG_BYTE_COUNT]) + ln, FLOW_CODE_MAX)
+            cnt2 = min(cnt + 1, FLOW_CODE_MAX)
+            first = int(row[REG_FIRST_TS])
+        state[s] = (cnt2, byte, t, first, iat_e, len_e, mn, mx)
+        est = FLOW_CODE_MAX
+        for d in range(depth):
+            c = int(cells[p, d])
+            cms[d, c] = min(int(cms[d, c]) + 1, FLOW_CODE_MAX)
+            est = min(est, int(cms[d, c]))
+        feats[p] = (_shl(cnt2), _shl(byte >> byte_shift), iat_e, len_e,
+                    _shl(mn), _shl(mx), _shl(max(t - first, 0) >> dur_shift),
+                    _shl(est))
+    return state, cms, feats
+
+
+def _sat_shl(v: torch.Tensor, shift: int) -> torch.Tensor:
+    """torch twin of :func:`sat_shl_np` (saturating shift onto the code
+    grid, int32)."""
+    return torch.clamp(v, 0, FLOW_CODE_MAX >> shift) << shift
+
+
+def _group_rank(keys: torch.Tensor) -> torch.Tensor:
+    """Stable per-key occurrence rank: the k-th occurrence of a key (in
+    array order) gets rank k (int64)."""
+    n = keys.shape[0]
+    order = torch.sort(keys, stable=True).indices
+    sk = keys[order]
+    newg = torch.ones(n, dtype=torch.bool, device=keys.device)
+    newg[1:] = sk[1:] != sk[:-1]
+    ar = torch.arange(n, device=keys.device)
+    gstart = torch.cummax(torch.where(newg, ar, torch.zeros_like(ar)),
+                          0).values
+    rank = torch.empty(n, dtype=torch.int64, device=keys.device)
+    rank[order] = ar - gstart
+    return rank
+
+
+def flow_update_ref(state: torch.Tensor, cms: torch.Tensor,
+                    slots: torch.Tensor, cells: torch.Tensor,
+                    ts: torch.Tensor, length: torch.Tensor,
+                    live: torch.Tensor, *, frac: int, ewma_shift: int,
+                    byte_shift: int, dur_shift: int):
+    """Plain PyTorch version of the flow update, on any device: the
+    rank-round form (round ``r`` updates every flow's rank-``r`` live packet
+    at once, so the EWMA chains stay in batch order and each round's
+    scatter touches distinct rows), int32 throughout, and the count-min
+    lane in its closed form — packet p's estimate in row d is
+    ``min(prior + rank_in_cell + 1, FLOW_CODE_MAX)`` and every cell adds
+    its live count, saturating.
+
+    Same arguments and results as :func:`flow_update_numpy` (int32 tensors;
+    ``state``/``cms`` are not modified, fresh tensors come back).  Exact
+    on the contract of ``kernels.flow_update.flow_update_gather``: ``ts``
+    non-negative int32, registers and lengths in ``[0, FLOW_CODE_MAX]``,
+    slots in ``[0, S)`` and cells in ``[0, Wc)``.
+    """
+    dev = state.device
+    i32 = torch.int32
+    state = state.to(i32).clone()
+    cms = cms.to(i32).clone()
+    slots = slots.reshape(-1).to(torch.int64)
+    n = slots.shape[0]
+    feats = torch.zeros((n, N_FLOW_FEATURES), dtype=i32, device=dev)
+    if n == 0:
+        return state, cms, feats
+    idx = torch.nonzero(live.reshape(-1) != 0).reshape(-1)
+    if idx.numel() == 0:
+        return state, cms, feats
+    ts = ts.reshape(-1).to(i32)
+    length = torch.clamp(length.reshape(-1).to(i32), 0, FLOW_CODE_MAX)
+    code_max = torch.tensor(FLOW_CODE_MAX, dtype=i32, device=dev)
+    lslots = slots[idx]
+    rank = _group_rank(lslots)
+    for r in range(int(rank.max()) + 1):
+        sel = idx[rank == r]       # one packet per flow: distinct rows
+        s = slots[sel]
+        t = ts[sel]
+        ln = length[sel]
+        row = state[s]
+        cnt = row[:, REG_PKT_COUNT]
+        fresh = cnt == 0
+        len_q = _sat_shl(ln, frac)
+        iat_q = _sat_shl(torch.clamp_min(t - row[:, REG_LAST_TS], 0), frac)
+        blend_iat = row[:, REG_EWMA_IAT] + rounding_rshift(
+            iat_q - row[:, REG_EWMA_IAT], ewma_shift)
+        blend_len = row[:, REG_EWMA_LEN] + rounding_rshift(
+            len_q - row[:, REG_EWMA_LEN], ewma_shift)
+        zero = torch.zeros_like(cnt)
+        iat_e = torch.where(fresh, zero,
+                            torch.where(cnt == 1, iat_q, blend_iat))
+        len_e = torch.where(fresh, len_q, blend_len)
+        mn = torch.where(fresh, ln, torch.minimum(row[:, REG_MIN_LEN], ln))
+        mx = torch.where(fresh, ln, torch.maximum(row[:, REG_MAX_LEN], ln))
+        byte = torch.where(fresh, torch.minimum(ln, code_max),
+                           torch.minimum(row[:, REG_BYTE_COUNT] + ln,
+                                         code_max))
+        cnt2 = torch.where(fresh, torch.ones_like(cnt),
+                           torch.minimum(cnt + 1, code_max))
+        first = torch.where(fresh, t, row[:, REG_FIRST_TS])
+        state[s] = torch.stack([cnt2, byte, t, first, iat_e, len_e, mn, mx],
+                               dim=1)
+        feats[sel, : N_FLOW_FEATURES - 1] = torch.stack([
+            _sat_shl(cnt2, frac), _sat_shl(byte >> byte_shift, frac),
+            iat_e, len_e, _sat_shl(mn, frac), _sat_shl(mx, frac),
+            _sat_shl(torch.clamp_min(t - first, 0) >> dur_shift, frac),
+        ], dim=1)
+    # count-min lane: increments commute, so each estimate is closed-form
+    cl = cells.reshape(n, -1).to(torch.int64)[idx]
+    est = torch.full((idx.numel(),), FLOW_CODE_MAX, dtype=torch.int64,
+                     device=dev)
+    for d in range(cms.shape[0]):
+        cd = cl[:, d]
+        prior = cms[d, cd].to(torch.int64)
+        est = torch.minimum(est, torch.clamp_max(
+            prior + _group_rank(cd) + 1, FLOW_CODE_MAX))
+        counts = torch.bincount(cd, minlength=cms.shape[1])
+        cms[d] = torch.clamp_max(cms[d].to(torch.int64) + counts,
+                                 FLOW_CODE_MAX).to(i32)
+    feats[idx, N_FLOW_FEATURES - 1] = _sat_shl(est.to(i32), frac)
+    return state, cms, feats

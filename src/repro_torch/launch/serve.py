@@ -10,16 +10,20 @@ generation-aware result cache, and each batch is one launch of the fused
 MLP kernel on the card.  With tree ensembles installed
 (:meth:`PacketServer.install_forest`), MLP- and forest-family packets stage
 into lane-pure batches, and a forest batch is one launch of the forest
-traversal kernel (range table or pointer chase).  Egress rows come back in
-exact submission order, byte-identical to the reference's.  The raw-packet
-flow engine, SLO budgets and reflex programs arrive with their slices.
+traversal kernel (range table or pointer chase).  Raw 5-tuple headers
+enter through :meth:`PacketServer.submit_raw`: the flow engine
+(``repro_torch.flow``) resolves each packet's flow, updates its registers
+with the flow-update kernel and builds each model's inputs from its
+FeatureSpec.  Egress rows come back in exact submission order,
+byte-identical to the reference's.  SLO budgets and reflex programs arrive
+with their slices.
 """
 
 from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Dict, List, Optional, Union
+from typing import TYPE_CHECKING, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -30,14 +34,22 @@ from ..core.ingress import BatchError, IngressPipeline
 from ..core.packet import HEADER_BYTES
 from ..obs import Observability
 
+if TYPE_CHECKING:
+    from ..flow import FlowFrontend
+
 __all__ = ["PacketServer", "BatchError"]
 
 
 class PacketServer:
     """Deployment wrapper: ControlPlane + DataPlaneEngine + ingress pipeline.
 
-    Two serving surfaces:
+    Three serving surfaces:
 
+      * **raw-packet API** — ``submit_raw()`` accepts raw 5-tuple header
+        batches: the flow engine resolves each packet's flow, updates its
+        registers (counters, EWMAs, count-min sketch) and builds each
+        model's input columns from its installed FeatureSpec before handing
+        the rows to the stream path below.
       * **stream API** — ``submit_packets()`` accepts ragged per-connection
         chunks; ``drain_packets()`` returns per-packet egress rows (or
         per-packet error slots) in exact submission order: coalescing queue
@@ -53,6 +65,9 @@ class PacketServer:
     none.  Pass ``device="cpu"`` to serve on the CPU.  ``forest_variant``
     (``"auto"``, ``"chase"`` or ``"range"``) picks the forest traversal;
     ``"auto"`` is the range form on the card and the chase on the CPU.
+    ``flow_capacity_pow2`` and ``flow_idle_timeout`` size and age the flow
+    table; ``strict_model_ids=True`` turns raw rows whose Model ID is not
+    installed into per-packet error slots.
     """
 
     def __init__(self, *, max_models: int = 16, max_layers: int = 4,
@@ -66,6 +81,9 @@ class PacketServer:
                  max_nodes: int = 64, max_tree_depth: int = 6,
                  flush_after: Optional[float] = None,
                  adaptive_batch: bool = False,
+                 flow_capacity_pow2: int = 14,
+                 flow_idle_timeout: Optional[int] = None,
+                 strict_model_ids: bool = False,
                  queue_capacity: Optional[int] = None,
                  max_retries: int = 2, retry_backoff: float = 0.0,
                  clock=None, obs=None, trace_every: int = 0,
@@ -98,8 +116,14 @@ class PacketServer:
             clock=clock, queue_capacity=queue_capacity, obs=obs)
         self.control_plane.events = obs.events
         self.max_inflight = max_inflight
+        self.strict_model_ids = strict_model_ids
         self._inflight: deque = deque()
         self._window_t0: Optional[float] = None
+        # flow engine (stage 0): created on first use so feature-vector
+        # deployments never allocate the register file
+        self._flow_capacity_pow2 = flow_capacity_pow2
+        self._flow_idle_timeout = flow_idle_timeout
+        self._flow: Optional["FlowFrontend"] = None
 
     @property
     def device(self) -> torch.device:
@@ -132,6 +156,60 @@ class PacketServer:
         if self._window_t0 is not None:
             self.drain()
         return self.engine.process(packets)
+
+    # -- raw-packet ingress (stateful flow engine, stage 0) ----------------
+
+    @property
+    def flow(self) -> "FlowFrontend":
+        """The stateful flow engine (:class:`repro_torch.flow.FlowFrontend`),
+        created on first use; its counters and a ``flow_occupancy`` gauge
+        join the server's metrics registry."""
+        if self._flow is None:
+            from ..flow import FlowFrontend
+            flow = FlowFrontend(self.ingress,
+                                capacity_pow2=self._flow_capacity_pow2,
+                                idle_timeout=self._flow_idle_timeout)
+            reg = self.obs.registry
+            for name, cell in flow.table.stats.cells():
+                reg.attach(name, cell)
+            for name, cell in flow.stats.cells():
+                reg.attach(name, cell)
+            g_occ = reg.gauge("flow_occupancy")
+            reg.register_collector(lambda: g_occ.set(len(flow.table)))
+            self._flow = flow
+        return self._flow
+
+    def install_feature_spec(self, model_id: int, columns) -> int:
+        """Install (hot-swap) the flow-feature → input-column mapping for a
+        model (:class:`~repro_torch.core.control_plane.FeatureSpec`).
+        Applies from the next ``submit_raw()`` batch; adds no serving
+        configuration."""
+        return self.control_plane.install_feature_spec(model_id, columns)
+
+    def submit_raw(self, raw) -> tuple:
+        """Feed one batch of **raw 5-tuple headers**
+        (``repro_torch.data.packets.RAW_HEADER_BYTES``-byte rows) through
+        the flow engine: per-flow register update → feature extraction →
+        per-model FeatureSpec gather → the ingress pipeline.  Returns
+        ``(first_ticket, n_packets)``; results arrive via
+        :meth:`drain_packets` in submission order, interleaving freely with
+        :meth:`submit_packets` chunks.
+
+        Rows that fail admission — truncated/oversized headers, a
+        wrong-width batch, or (with ``strict_model_ids=True``) a Model ID
+        not currently installed — never touch flow state and resolve as
+        per-packet :class:`~repro_torch.core.ingress.PacketError` slots at
+        their submission-order positions
+        (:func:`repro_torch.data.packets.validate_raw_rows`)."""
+        if self._window_t0 is None:
+            self._window_t0 = time.perf_counter()
+        from ..data.packets import validate_raw_rows
+        known = (self.control_plane.installed_ids()
+                 if self.strict_model_ids else None)
+        rows, bad, reasons = validate_raw_rows(raw, known_model_ids=known)
+        if bad is None:
+            return self.flow.submit_raw(rows)
+        return self.flow.submit_raw(rows, drop_mask=bad, drop_reason=reasons)
 
     # -- streaming ingress (coalescing queue + duplicate cache) ------------
 

@@ -13,13 +13,15 @@ import torch
 
 from repro_torch.core.packet import HEADER_BYTES, encode_packets_np
 from repro_torch.core.taylor import scaled_constants
-from repro_torch.data.packets import anomaly_dataset, qos_dataset
+from repro_torch.data.packets import anomaly_dataset, qos_dataset, raw_trace
 from repro_torch.forest import train_forest
 from repro_torch.forest.synthetic import random_forest_tables, stack_ranges
 from repro_torch.kernels import fixedpoint_mlp as fmlp
+from repro_torch.kernels import flow_update as fuk
 from repro_torch.kernels import forest_traversal as ftk
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import (forest_range_gather_ref,
+from repro_torch.kernels.ref import (FLOW_CODE_MAX, flow_update_ref,
+                                     forest_range_gather_ref,
                                      forest_traverse_gather_ref,
                                      fused_mlp_gather_ref)
 from repro_torch.launch.serve import PacketServer
@@ -252,3 +254,140 @@ def test_forest_example_runs_on_card(card):
     spec.loader.exec_module(mod)
     res = mod.main("cuda")
     assert res["recompiles"] == 1 and res["acc"] > 0.9
+
+
+FLOW_KW = dict(frac=FRAC, ewma_shift=3, byte_shift=6, dur_shift=10)
+
+
+def _flow_case(rng, n, n_slots, cms_shape, case):
+    """The flow kernel's phase-3 cases (``chip_smoke.py``) at small sizes."""
+    state = np.zeros((n_slots, 8), np.int32)
+    pre = int(rng.integers(0, n_slots + 1))
+    state[:pre] = rng.integers(0, 5000, (pre, 8))
+    state[:pre, 0] = rng.integers(0, 5, pre)
+    cms = rng.integers(0, 100, cms_shape).astype(np.int32)
+    slots = rng.integers(0, n_slots, n).astype(np.int32)
+    cells = rng.integers(0, cms_shape[1], (n, cms_shape[0])).astype(np.int32)
+    ts = np.cumsum(rng.integers(0, 100, n)).astype(np.int32)
+    length = rng.integers(0, 2000, n).astype(np.int32)
+    live = np.ones(n, np.int32)
+    if case == "one_flow":
+        slots[:] = n_slots // 2
+    elif case == "distinct":
+        slots = rng.permutation(n_slots)[:n].astype(np.int32)
+    elif case == "dead":
+        live = (rng.random(n) > 0.15).astype(np.int32)
+    elif case == "non_monotone":
+        ts = rng.integers(0, 10 ** 6, n).astype(np.int32)
+    elif case == "saturation":
+        state[:] = [FLOW_CODE_MAX - 1, FLOW_CODE_MAX - 1, 0, 0, FLOW_CODE_MAX,
+                    FLOW_CODE_MAX, 1, FLOW_CODE_MAX >> FRAC]
+        cms[:] = FLOW_CODE_MAX - 1
+        ts[:] = 2 ** 31 - 1
+        length[:] = 65535
+    return state, cms, slots, cells, ts, length, live
+
+
+@pytest.mark.parametrize("case", ["random", "one_flow", "distinct", "dead",
+                                  "non_monotone", "saturation"])
+@pytest.mark.parametrize("n,n_slots,cms_shape", [(1, 64, (2, 4096)),
+                                                 (127, 256, (3, 64)),
+                                                 (60, 16384, (2, 4096)),
+                                                 (300, 512, (3, 64))])
+def test_flow_kernel_equals_plain_version(card, case, n, n_slots, cms_shape):
+    rng = np.random.default_rng(n + n_slots)
+    args = [torch.as_tensor(a, device=card)
+            for a in _flow_case(rng, n, n_slots, cms_shape, case)]
+    before = fuk.launches["flow_update"]
+    got = fuk.flow_update_kernel(*args, **FLOW_KW)
+    assert fuk.launches["flow_update"] == before + 1
+    want = flow_update_ref(*args, **FLOW_KW)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_flow_kernel_empty_batch_and_bad_arguments(card):
+    state = torch.zeros((8, 8), dtype=torch.int32, device=card)
+    cms = torch.zeros((2, 16), dtype=torch.int32, device=card)
+    z = torch.zeros(0, dtype=torch.int32, device=card)
+    before = fuk.launches["flow_update"]
+    s2, c2, f2 = fuk.flow_update_kernel(state, cms, z, z.reshape(0, 2), z, z,
+                                        z, **FLOW_KW)
+    assert fuk.launches["flow_update"] == before
+    assert torch.equal(s2, state) and f2.shape == (0, 8)
+    one = torch.ones(4, dtype=torch.int32, device=card)
+    cells = torch.zeros((4, 2), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="slot"):
+        fuk.flow_update_kernel(state, cms, one * 8, cells, one, one, one,
+                               **FLOW_KW)
+    with pytest.raises(ValueError, match="cell"):
+        fuk.flow_update_kernel(state, cms, one, cells + 16, one, one, one,
+                               **FLOW_KW)
+    # both ran and skipped the packets they refused
+    assert fuk.launches["flow_update"] == before + 2
+    with pytest.raises(TypeError):
+        fuk.flow_update_kernel(state, cms, one.long(), cells, one, one, one,
+                               **FLOW_KW)
+    with pytest.raises(ValueError, match="card"):
+        ops.flow_update(*(t.cpu() for t in (state, cms, one, cells, one,
+                                             one, one)),
+                        backend="kernel", **FLOW_KW)
+    assert fuk.launches["flow_update"] == before + 2
+
+
+def _flow_servers(card, **extra):
+    kw = dict(max_models=4, max_layers=3, max_width=16, ingress_batch=128,
+              max_forests=4, max_trees=4, max_nodes=31, max_tree_depth=4,
+              **extra)
+    servers = [PacketServer(device=card, **kw),
+               PacketServer(device="cpu", **kw)]
+    rng = np.random.default_rng(3)
+    forests = _forests()
+    for m in range(4):
+        layers = [(rng.normal(size=(16, 16)).astype(np.float32) * 0.4,
+                   rng.normal(size=(16,)).astype(np.float32) * 0.1)
+                  for _ in range(3)]
+        for s in servers:
+            s.install(m + 1, layers, ["sigmoid", "leaky_relu"],
+                      final_activation="hard_sigmoid")
+    for s in servers:
+        for mid, f in forests.items():
+            s.install_forest(mid, f)
+        for mid in (1, 2, 3, 4):
+            s.install_feature_spec(mid, (2, 3, 4, 5) * 4)
+        for mid in forests:
+            s.install_feature_spec(mid, (4, 5, 2, 3, 0, 7, 1, 6))
+    return servers
+
+
+def test_submit_raw_on_card_matches_cpu_port(card):
+    servers = _flow_servers(card, strict_model_ids=True)
+    raw = raw_trace(np.random.default_rng(4), 3000, n_flows=200,
+                    model_ids=(1, 5, 2, 6, 3, 7, 4, 999), pattern="mixed")
+    before = fuk.launches["flow_update"]
+    outs = []
+    for s in servers:
+        for i in range(0, 3000, 233):
+            s.submit_raw(raw[i: i + 233])
+        outs.append([o.tobytes() if isinstance(o, np.ndarray) else o.reason
+                     for o in s.drain_packets()])
+    assert fuk.launches["flow_update"] > before
+    assert outs[0] == outs[1]
+    np.testing.assert_array_equal(servers[0].flow.table.registers,
+                                  servers[1].flow.table.registers)
+    np.testing.assert_array_equal(servers[0].flow.cms, servers[1].flow.cms)
+
+
+def test_serve_raw_fused_on_card_matches_staged_path(card):
+    fused, staged = (_flow_servers(card)[0], _flow_servers(card)[0])
+    rng = np.random.default_rng(5)
+    for _ in range(3):
+        raw = raw_trace(rng, 500, n_flows=64, model_ids=(1, 5, 2, 6),
+                        pattern="mixed")
+        staged.submit_raw(raw)
+        want = np.stack(staged.drain_packets())
+        got = fused.flow.serve_raw_fused(raw)
+        np.testing.assert_array_equal(got[:, : want.shape[1]], want)
+    np.testing.assert_array_equal(fused.flow.table.registers,
+                                  staged.flow.table.registers)

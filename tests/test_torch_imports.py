@@ -39,6 +39,8 @@ def _run(imports: str):
     "repro_torch.serve",
     "import repro_torch.forest, repro_torch.forest.synthetic, "
     "repro_torch.data, repro_torch.kernels.forest_traversal",
+    "import repro_torch.flow, repro_torch.flow.table, "
+    "repro_torch.flow.frontend, repro_torch.kernels.flow_update",
     "sys.path.insert(0, '.'); import chip_smoke",
 ])
 def test_port_imports_no_jax_and_no_reference(imports):
