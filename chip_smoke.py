@@ -19,7 +19,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                flow-update kernel against ref.flow_update_ref (state, sketch
                and features) on random, one-flow, all-distinct, dead-row,
                non-monotone and saturating batches of 1–8193 packets, and
-               an empty batch that must launch nothing.
+               an empty batch that must launch nothing; the W8A8 GEMM
+               against ref.fixedpoint_matmul_ref on the qwen2-1.5b
+               projections at M ∈ {1, 17, 255, 2048}, ragged shapes, raw
+               int8 codes at unit scales (against an exact int64 product)
+               and a bfloat16 activation; the Taylor activation against
+               its plain version at orders 1/3/5/7 × x_frac 0/8/12/16 over
+               1 to 2048·8960 codes that straddle its clamp, and a case
+               whose Horner products wrap int32.
   4. serve   — PacketServer() at its defaults on the card serves seeded
                traces of ragged chunks with duplicates and unknown Model IDs;
                its egress must be byte-identical, in submission order, to
@@ -47,6 +54,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                  * 50k packets over 2048 flows through the one-dispatch
                    flow.serve_raw_fused on the card, against submit_raw on
                    a second card server: egress and registers equal.
+               Then the paper's C1/C2 library path at the width of
+               qwen2-1.5b (d_model 1536, kv 256, d_ff 8960): quantize_tree
+               on a seeded float32 decoder layer, matmul(x, leaf,
+               "w8a8_int") for its 7 projections on 2048 seeded tokens
+               (equal to the plain version on the card, equal to the CPU
+               port at 17 tokens, NMSE against the float product below
+               1e-3), and ops.taylor_activation on the 2048×8960 gate
+               output at orders 1/3/5 (equal to the plain version; NMSE
+               against the float sigmoid, order 5 below 1e-4 on
+               [-1.5, 1.5]).
   5. numbers — per-kernel time (CUDA events: per call as the path issues
                it, and queued behind a device sleep, device only), the
                plain version's time, the least time the card could take
@@ -63,7 +80,9 @@ JAX or of the JAX package.
 
 from __future__ import annotations
 
+import importlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -76,7 +95,9 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs.paper_models import PAPER_MODELS, make_paper_model  # noqa: E402
+from repro_torch.core import quantize as tq  # noqa: E402
 from repro_torch.core.control_plane import ControlPlane  # noqa: E402
+from repro_torch.core.fixedpoint import encode  # noqa: E402
 from repro_torch.core.packet import HEADER_BYTES, encode_packets_np  # noqa: E402
 from repro_torch.core.taylor import scaled_constants  # noqa: E402
 from repro_torch.data.packets import (anomaly_dataset,  # noqa: E402
@@ -90,6 +111,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import fixedpoint_mlp as fmlp  # noqa: E402
 from repro_torch.kernels import flow_update as fuk  # noqa: E402
 from repro_torch.kernels import forest_traversal as ftk  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ops import forest_traverse, fused_mlp  # noqa: E402
 from repro_torch.kernels.ref import (FLOW_CODE_MAX,  # noqa: E402
                                      flow_update_ref,
@@ -97,6 +119,11 @@ from repro_torch.kernels.ref import (FLOW_CODE_MAX,  # noqa: E402
                                      forest_traverse_gather_ref,
                                      fused_mlp_gather_ref)
 from repro_torch.launch.serve import PacketServer  # noqa: E402
+
+# the C1/C2 kernel modules (``repro_torch.kernels`` exports their wrappers,
+# which share the modules' names)
+fmm = importlib.import_module("repro_torch.kernels.fixedpoint_matmul")
+tak = importlib.import_module("repro_torch.kernels.taylor_activation")
 
 SEED = 0
 FRAC = 8
@@ -135,8 +162,33 @@ KERNELS = {
     "flow_update": dict(name="flow_update", route="cuda",
                         source="src/repro_torch/kernels/csrc/flow_update.cu",
                         replaces="src/repro/kernels/flow_update.py:132"),
+    "fixedpoint_matmul": dict(
+        name="fixedpoint_matmul", route="cuda",
+        source="src/repro_torch/kernels/csrc/fixedpoint_matmul.cu",
+        replaces="src/repro/kernels/fixedpoint_matmul.py:54"),
+    "taylor_activation": dict(
+        name="taylor_activation", route="cuda",
+        source="src/repro_torch/kernels/csrc/taylor_activation.cu",
+        replaces="src/repro/kernels/taylor_activation.py:52"),
 }
-SOURCES = ["fixedpoint_mlp", "forest_traversal", "flow_update"]
+SOURCES = ["fixedpoint_mlp", "forest_traversal", "flow_update",
+           "fixedpoint_matmul", "taylor_activation"]
+
+# one qwen2-1.5b decoder layer (src/repro/configs/qwen2_1_5b.py): d_model
+# 1536, q_dim 12·128, kv_dim 2·128, d_ff 8960; leaf names as
+# src/repro/models/layers.py:152-179 gives them
+D_MODEL, KV_DIM, D_FF = 1536, 256, 8960
+N_TOKENS = 2048
+PROJECTIONS = {  # name: (path in the layer, K, N)
+    "wq": (("attn", "wq"), D_MODEL, D_MODEL),
+    "wk": (("attn", "wk"), D_MODEL, KV_DIM),
+    "wv": (("attn", "wv"), D_MODEL, KV_DIM),
+    "wo": (("attn", "wo"), D_MODEL, D_MODEL),
+    "up": (("mlp", "up"), D_MODEL, D_FF),
+    "gate": (("mlp", "gate"), D_MODEL, D_FF),
+    "down": (("mlp", "down"), D_FF, D_MODEL),
+}
+TAYLOR_FRAC = 12  # x_frac of the Taylor pass, and the constants' scale
 
 # the flow engine at the server's defaults: flow_capacity_pow2=14, a 2 x 4096
 # count-min sketch, and the FlowParams shifts
@@ -155,13 +207,13 @@ def log(msg: str) -> None:
 
 
 def reset_launches() -> None:
-    fmlp.reset_launches()
-    ftk.reset_launches()
-    fuk.reset_launches()
+    for mod in (fmlp, ftk, fuk, fmm, tak):
+        mod.reset_launches()
 
 
 def read_launches() -> dict:
-    return {**fmlp.launches, **ftk.launches, **fuk.launches}
+    return {**fmlp.launches, **ftk.launches, **fuk.launches, **fmm.launches,
+            **tak.launches}
 
 
 # ---------------------------------------------------------------------------
@@ -967,6 +1019,338 @@ def flow_numbers(dev, flow: dict, worst: int, card: str) -> dict:
                 ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
 
+# ---------------------------------------------------------------------------
+# the paper's C1/C2 primitives: the W8A8 GEMM and the Taylor activation
+# ---------------------------------------------------------------------------
+
+
+def gemm_operands(seed: int, m: int, k: int, n: int, dev):
+    """Seeded float x (M, K) ~ N(0, 1) and w (K, N) ~ N(0, 1/K) on ``dev``,
+    quantized as the path quantizes them: per row and per column."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=dev)
+    w = torch.randn((k, n), generator=g, device=dev) / math.sqrt(k)
+    xc, xs = tq.absmax_quantize(x, axis=-1)
+    wc, ws = tq.absmax_quantize(w, axis=0)
+    return xc, wc, xs, ws
+
+
+def check_gemm(label: str, xc, wc, xs, ws, exact=None) -> float:
+    """The GEMM kernel against ref.fixedpoint_matmul_ref on the same card
+    inputs (and against ``exact`` when given); returns the largest
+    absolute difference (must be 0)."""
+    got = fmm.fixedpoint_matmul(xc, wc, xs, ws)
+    want = ops.fixedpoint_matmul(xc, wc, xs, ws, backend="ref")
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    ok = torch.equal(got, want) and (exact is None or torch.equal(
+        got.cpu(), exact))
+    m, k = xc.shape
+    log(f"kernel fixedpoint_matmul {label} M={m} K={k} N={wc.shape[1]}: "
+        f"{'equal' if ok else 'DIFFERS'} to its plain version"
+        f"{' and the exact int64 product' if exact is not None else ''} "
+        f"(max_abs_err {err})")
+    if not ok:
+        raise SystemExit(f"fixedpoint_matmul differs from its plain version "
+                         f"({label}, M={m} K={k} N={wc.shape[1]})")
+    return err
+
+
+def check_gemm_kernels(dev) -> float:
+    worst = 0.0
+    for name, (_, k, n) in PROJECTIONS.items():
+        if name in ("wk", "wo", "gate"):  # same (K, N) as wv, wq, up
+            continue
+        for m in (1, 17, 255, N_TOKENS):
+            worst = max(worst, check_gemm(
+                f"qwen2-1.5b {name}", *gemm_operands(SEED + m, m, k, n, dev)))
+    for m, k, n in ((100, 300, 50), (257, 513, 129), (1, 512, 7)):
+        worst = max(worst, check_gemm(
+            "ragged", *gemm_operands(SEED + k, m, k, n, dev)))
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    for k in (512, D_MODEL):  # raw codes over the whole int8 range
+        xc = torch.randint(-128, 128, (255, k), generator=g, device=dev,
+                           dtype=torch.int8)
+        wc = torch.randint(-128, 128, (k, 129), generator=g, device=dev,
+                           dtype=torch.int8)
+        exact = torch.as_tensor(xc.cpu().numpy().astype(np.int64)
+                                @ wc.cpu().numpy().astype(np.int64))
+        worst = max(worst, check_gemm(
+            "raw codes, unit scales", xc, wc,
+            torch.ones((255, 1), device=dev), torch.ones((1, 129), device=dev),
+            exact=exact.to(torch.float32)))
+    # a bfloat16 activation through the w8a8_int linear: card vs CPU port
+    x = (torch.randn((255, D_MODEL), generator=g, device=dev) * 3).to(
+        torch.bfloat16)
+    _, wc, _, ws = gemm_operands(SEED + 12, 1, D_MODEL, KV_DIM, dev)
+    got = tq.matmul(x, (wc, ws), "w8a8_int")
+    want = tq.matmul(x.cpu(), (wc.cpu(), ws.cpu()), "w8a8_int")
+    ok = got.dtype == torch.bfloat16 and torch.equal(got.cpu(), want)
+    log(f"kernel fixedpoint_matmul bfloat16 x M=255 K={D_MODEL} N={KV_DIM} "
+        f"through w8a8_matmul_int: {'equal' if ok else 'DIFFERS'} to the CPU "
+        "port")
+    if not ok:
+        raise SystemExit("bfloat16 w8a8_int linear differs from the CPU port")
+    return worst
+
+
+def check_taylor(label: str, x, coeffs, x_frac: int) -> int:
+    got = tak.taylor_activation(x, coeffs, x_frac)
+    want = ops.taylor_activation(x, coeffs, x_frac, backend="ref")
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    ok = torch.equal(got, want)
+    if not ok:
+        raise SystemExit(f"taylor_activation differs from its plain version "
+                         f"({label})")
+    return err
+
+
+def check_taylor_kernels(dev) -> int:
+    """Orders 1/3/5/7 × x_frac 0/8/12/16 over 1, 17 and 2048·8960 codes
+    drawn from ±2**15 (straddling the ±(2**14 − 1) clamp), and exp
+    constants at s=16 on codes at 8 fractional bits, whose Horner products
+    wrap int32, in aligned and unaligned views."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    worst = 0
+    for order in (1, 3, 5, 7):
+        coeffs = scaled_constants("sigmoid", order, 16)
+        for x_frac in (0, 8, 12, 16):
+            for size in (1, 17, N_TOKENS * D_FF):
+                x = torch.randint(-2 ** 15, 2 ** 15, (size,), generator=g,
+                                  device=dev, dtype=torch.int32)
+                worst = max(worst, check_taylor(
+                    f"order {order} x_frac {x_frac} n={size}", x, coeffs,
+                    x_frac))
+        log(f"kernel taylor_activation order={order} x_frac=0/8/12/16 "
+            f"n=1/17/{N_TOKENS * D_FF}: equal to its plain version "
+            f"(max_abs_err {worst})")
+    coeffs = scaled_constants("exp", 5, 16)
+    x = torch.arange(-20000, 20001, dtype=torch.int32, device=dev)
+    for view in (x, x[1:], x[3:-2]):
+        worst = max(worst, check_taylor("exp wrap", view, coeffs, 8))
+    wide = torch.full_like(x, int(coeffs[-1]), dtype=torch.int64)
+    xc = torch.clamp(x, -tak.CLAMP, tak.CLAMP).to(torch.int64)
+    for c in coeffs[-2::-1]:
+        prod = wide * xc
+        wide = ((prod + torch.where(prod >= 0, 128, 127)) >> 8) + int(c)
+    wrapped = int((wide != tak.taylor_activation(x, coeffs, 8)).sum())
+    log(f"kernel taylor_activation exp order 5 s=16 x_frac 8, aligned and "
+        f"unaligned views: equal to its plain version; {wrapped} of "
+        f"{x.numel()} codes differ from the unwrapped int64 chain")
+    if wrapped == 0:
+        raise SystemExit("exp wrap case: no Horner product wrapped")
+    return worst
+
+
+def qwen_layer(dev) -> dict:
+    """A seeded float32 parameter tree shaped like one qwen2-1.5b decoder
+    layer: the 7 projections (w ~ N(0, 1/K); q/k/v with biases) and one
+    norm scale, which quantize_tree must leave float."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+
+    def lin(k, n, bias=False):
+        p = {"w": torch.randn((k, n), generator=g, device=dev) / math.sqrt(k)}
+        if bias:
+            p["b"] = torch.randn((n,), generator=g, device=dev) * 0.02
+        return p
+
+    layer = {"attn": {}, "mlp": {},
+             "ln1": {"scale": torch.ones(D_MODEL, device=dev)}}
+    for name, ((part, leaf), k, n) in PROJECTIONS.items():
+        layer[part][leaf] = lin(k, n, bias=name in ("wq", "wk", "wv"))
+    return layer
+
+
+def nmse(ref, approx) -> float:
+    return float(((ref - approx) ** 2).mean() / (ref ** 2).mean().clamp_min(
+        1e-12))
+
+
+def run_c1c2_path(dev, card: str) -> dict:
+    """quantize_tree on one qwen2-1.5b layer, the 7 w8a8_int projections on
+    2048 seeded tokens, and the Taylor sigmoid on the gate output's codes at
+    orders 1/3/5; launch counters zeroed right before and read right
+    after.  Each output is held to its plain version on the card, the
+    projections at 17 tokens to the CPU port, and both to the float
+    function they approximate."""
+    params = qwen_layer(dev)
+    q = tq.quantize_tree(params)
+    leaves = {name: q[part][leaf]["w"]
+              for name, ((part, leaf), _, _) in PROJECTIONS.items()}
+    floats = {name: params[part][leaf]["w"]
+              for name, ((part, leaf), _, _) in PROJECTIONS.items()}
+    kept = [q["ln1"]["scale"]] + [q["attn"][n]["b"] for n in ("wq", "wk",
+                                                               "wv")]
+    if not (all(isinstance(v, tuple) and v[0].dtype == torch.int8
+                and v[1].dtype == torch.float32 for v in leaves.values())
+            and all(t.dtype == torch.float32 for t in kept)):
+        raise SystemExit("quantize_tree: weight leaves not int8 pairs, or a "
+                         "norm/bias leaf quantized")
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    x = torch.randn((N_TOKENS, D_MODEL), generator=g, device=dev)
+    inputs = {name: x for name in PROJECTIONS}
+    inputs["wo"] = torch.randn((N_TOKENS, D_MODEL), generator=g, device=dev)
+    inputs["down"] = torch.randn((N_TOKENS, D_FF), generator=g, device=dev)
+    sig = {o: scaled_constants("sigmoid", o, TAYLOR_FRAC) for o in (1, 3, 5)}
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = {name: tq.matmul(inputs[name], leaves[name], "w8a8_int")
+            for name in PROJECTIONS}
+    x_q = encode(outs["gate"], TAYLOR_FRAC)
+    acts = {o: ops.taylor_activation(x_q, c, TAYLOR_FRAC)
+            for o, c in sig.items()}
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: read_launches()[k] for k in ("fixedpoint_matmul",
+                                                "taylor_activation")}
+    if launches != {"fixedpoint_matmul": 7, "taylor_activation": 3}:
+        raise SystemExit(f"C1/C2 path launches {launches}, expected 7 and 3")
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full float32 reference
+    errs = {}
+    for name, (codes, scale) in leaves.items():
+        inp = inputs[name]
+        xc, xs = tq.absmax_quantize(inp, axis=-1)
+        plain = ops.fixedpoint_matmul(xc, codes, xs, scale, backend="ref")
+        cpu = tq.matmul(inp[:17].cpu(), (codes.cpu(), scale.cpu()),
+                        "w8a8_int")
+        err = nmse(inp @ floats[name], outs[name])
+        same = torch.equal(outs[name], plain)
+        same_cpu = torch.equal(outs[name][:17].cpu(), cpu)
+        errs[name] = err
+        log(f"path C1 {name} {tuple(inp.shape)} · {tuple(codes.shape)} "
+            f"w8a8_int: {'equal' if same else 'DIFFERS'} "
+            f"to the plain version on the card, "
+            f"{'equal' if same_cpu else 'DIFFERS'} to the CPU port at 17 "
+            f"tokens; NMSE against the float32 product {err:.3e}")
+        if not (same and same_cpu):
+            raise SystemExit(f"C1 path: projection {name} differs")
+        if not err < 1e-3:
+            raise SystemExit(f"C1 path: {name} NMSE {err} above the 1e-3 "
+                             "int8 budget")
+    xf = x_q.to(torch.float32) / 2 ** TAYLOR_FRAC
+    inside = xf.abs() <= 1.5
+    ref_sig = torch.sigmoid(xf)
+    nmse_in = {}
+    for o, c in sig.items():
+        plain = ops.taylor_activation(x_q, c, TAYLOR_FRAC, backend="ref")
+        y = acts[o].to(torch.float32) / 2 ** TAYLOR_FRAC
+        nmse_in[o] = nmse(ref_sig[inside], y[inside])
+        same = torch.equal(acts[o], plain)
+        log(f"path C2 sigmoid order {o} on the gate codes ({N_TOKENS}, "
+            f"{D_FF}) at x_frac {TAYLOR_FRAC}: "
+            f"{'equal' if same else 'DIFFERS'} to the plain version; NMSE "
+            f"against the float sigmoid {nmse(ref_sig, y):.3e} over all "
+            f"codes, {nmse_in[o]:.3e} over the "
+            f"{float(inside.float().mean()):.3f} of them in [-1.5, 1.5]")
+        if not same:
+            raise SystemExit(f"C2 path: order {o} differs")
+    if not (nmse_in[5] < 1e-4 and nmse_in[1] > nmse_in[3] > nmse_in[5]):
+        raise SystemExit(f"C2 path: NMSE on [-1.5, 1.5] {nmse_in}: expected "
+                         "order 5 below 1e-4 and falling with the order")
+    log(f"path C1/C2: 7 projections + 3 Taylor passes in {dt:.4f} s "
+        f"(launches {launches}) [{card}]")
+    return dict(launches=launches, inputs=inputs, leaves=leaves, x_q=x_q,
+                sig=sig, nmse=errs)
+
+
+def gemm_bound(m: int, k: int, n: int):
+    """Least time for one GEMM call: x, w, both scales and the float32
+    output once over HBM bandwidth, vs 2·M·N·K operations over the int8
+    tensor-core peak."""
+    return bound_ms(m * k + k * n + 4 * m + 4 * n + 4 * m * n, 2 * m * n * k,
+                    INT8_TENSOR_OPS_PER_S)
+
+
+# int32 operations per element of the Taylor kernel: the clamp's min and max,
+# then per Horner step the multiply, the sign test, the rounding add, the
+# shift and the constant's add
+def taylor_ops(n: int, order: int) -> int:
+    return n * (2 + 5 * order)
+
+
+def c1c2_numbers(dev, c1c2: dict, worst: dict, card: str) -> list:
+    """Phase 5 for the GEMM (every projection of the layer on the path's own
+    operands, plus decode-sized M on the widest one) and the Taylor kernel
+    (order 5 on the path's 2048×8960 codes).  Returns the two JSON
+    entries; the GEMM's is the up projection, the layer's largest."""
+    rows = {}
+    for name, (codes, scale) in c1c2["leaves"].items():
+        if name in ("wk", "gate"):  # same operand shapes as wv and up
+            continue
+        xc, xs = tq.absmax_quantize(c1c2["inputs"][name], axis=-1)
+        m, k = xc.shape
+        n = codes.shape[1]
+        col = codes.t().contiguous().t()  # column-major for cuBLASLt
+
+        def call():
+            fmm.fixedpoint_matmul(xc, codes, xs, scale)
+
+        def library():
+            return (torch._int_mm(xc, col).to(torch.float32) * xs) * scale
+
+        if not torch.equal(library(), fmm.fixedpoint_matmul(xc, codes, xs,
+                                                            scale)):
+            raise SystemExit(f"torch._int_mm + rescale differs from the "
+                             f"kernel ({name}): not the same function")
+        k_ms, q_ms = cuda_ms(call), queued_ms(call)
+        p_ms = cuda_ms(lambda: ops.fixedpoint_matmul(xc, codes, xs, scale,
+                                                     backend="ref"),
+                       reps=5, inner=5)
+        lib_ms = cuda_ms(library)
+        mm_ms = cuda_ms(lambda: torch._int_mm(xc, col))
+        b_ms, b_by = gemm_bound(m, k, n)
+        rows[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=lib_ms)
+        log(f"time fixedpoint_matmul {name} M={m} K={k} N={n}: kernel "
+            f"{k_ms:.4f} ms per call ({q_ms:.4f} ms queued, device only), "
+            f"plain {p_ms:.4f} ms, torch._int_mm {mm_ms:.4f} ms "
+            f"({lib_ms:.4f} ms with the rescale), bound {b_ms:.6f} ms "
+            f"({b_by}); {2 * m * n * k / (k_ms * 1e9):.1f} TOP/s [{card}]")
+    _, k, n = PROJECTIONS["up"]
+    for m in (1, 17):
+        xc, wc, xs, ws = gemm_operands(SEED + m, m, k, n, dev)
+        k_ms = cuda_ms(lambda: fmm.fixedpoint_matmul(xc, wc, xs, ws))
+        q_ms = queued_ms(lambda: fmm.fixedpoint_matmul(xc, wc, xs, ws))
+        b_ms, b_by = gemm_bound(m, k, n)
+        lib = ""
+        if m > 16:
+            col = wc.t().contiguous().t()
+            lib = (f", torch._int_mm + rescale "
+                   f"{cuda_ms(lambda: (torch._int_mm(xc, col).float() * xs) * ws):.4f} ms")
+        log(f"time fixedpoint_matmul decode M={m} K={k} N={n}: kernel "
+            f"{k_ms:.4f} ms per call ({q_ms:.4f} ms queued){lib}, bound "
+            f"{b_ms:.6f} ms ({b_by}) [{card}]")
+    up = rows["up"]
+    gemm = dict(KERNELS["fixedpoint_matmul"],
+                launches=c1c2["launches"]["fixedpoint_matmul"],
+                max_abs_err=worst["fixedpoint_matmul"], **up)
+
+    x_q, coeffs = c1c2["x_q"], c1c2["sig"][5]
+
+    def call():
+        tak.taylor_activation(x_q, coeffs, TAYLOR_FRAC)
+
+    k_ms, q_ms = cuda_ms(call), queued_ms(call)
+    p_ms = cuda_ms(lambda: ops.taylor_activation(x_q, coeffs, TAYLOR_FRAC,
+                                                 backend="ref"),
+                   reps=5, inner=5)
+    b_ms, b_by = bound_ms(8 * x_q.numel(), taylor_ops(x_q.numel(), 5),
+                          INT32_CORE_OPS_PER_S)
+    log(f"time taylor_activation order 5 ({N_TOKENS}, {D_FF}) x_frac "
+        f"{TAYLOR_FRAC}: kernel {k_ms:.4f} ms per call ({q_ms:.4f} ms "
+        f"queued, device only), plain {p_ms:.4f} ms, bound {b_ms:.6f} ms "
+        f"({b_by}); {8 * x_q.numel() / (k_ms * 1e6):.1f} GB/s [{card}]")
+    taylor = dict(KERNELS["taylor_activation"],
+                  launches=c1c2["launches"]["taylor_activation"],
+                  max_abs_err=worst["taylor_activation"], ms=k_ms,
+                  plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                  library_ms=None)
+    return [gemm, taylor]
+
 
 def main() -> int:
     # -- 1. device ----------------------------------------------------------
@@ -1006,6 +1390,10 @@ def main() -> int:
     t0 = time.perf_counter()
     worst["flow_update"] = check_flow_kernels(dev)
     log(f"flow kernel checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    worst["fixedpoint_matmul"] = check_gemm_kernels(dev)
+    worst["taylor_activation"] = check_taylor_kernels(dev)
+    log(f"C1/C2 kernel checks: {time.perf_counter() - t0:.1f} s")
 
     # -- 4. the serving path --------------------------------------------------
     mixed = dict(forests=forests, drifted=drifted)
@@ -1030,6 +1418,7 @@ def main() -> int:
     path["flow"] = flow
     path["flow overflow"] = overflow
     path["flow fused"] = run_fused_path(dev, 50_000, smi, forests)
+    c1c2 = run_c1c2_path(dev, smi)
 
     # -- 5. numbers -----------------------------------------------------------
     rng = np.random.default_rng(SEED + 2)
@@ -1090,6 +1479,7 @@ def main() -> int:
     entry = flow_numbers(dev, flow, worst["flow_update"], smi)
     k_ms["flow_update"] = entry["ms"]
     kernels.append(entry)
+    kernels.extend(c1c2_numbers(dev, c1c2, worst, smi))
     for label, p in path.items():
         kernel_s = sum(n * k_ms[k] * 1e-3 for k, n in p["launches"].items())
         log(f"path {label}: {p['packets_per_s']:.0f} packets/s, engine call "

@@ -1,0 +1,71 @@
+"""Loss functions and their Taylor-series approximations (paper §3.4,
+Table 5).
+
+The paper replaces the logarithms inside the cross-entropy losses with
+3-term Taylor polynomials so that training-side error signals can be
+evaluated in a fixed-point pipeline.  Table 5, verbatim:
+
+  MSE:  (y − ŷ)²                                    (already polynomial)
+  BCE:  −y(ŷ − ŷ²/2 + ŷ³/3) − (1−y)(−ŷ − ŷ²/2 − ŷ³/3)
+  CCE:  −Σᵢ yᵢ (ŷᵢ − ŷᵢ²/2 + ŷᵢ³/3)
+
+Counterpart of the Table-5 part of ``repro.core.losses``: the printed rows,
+their exact references and the normalized MSE of the paper's Figs 3/4.
+Divisions by 3 go through ``fixedpoint.true_divide`` so that they round
+as the reference's on the card too.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .fixedpoint import true_divide
+
+__all__ = ["mse", "bce", "cce", "bce_taylor", "cce_taylor", "log_taylor3",
+           "normalized_mse"]
+
+
+def mse(y: torch.Tensor, y_hat: torch.Tensor) -> torch.Tensor:
+    """Mean Squared Error — Table 5 row 1 (its own Taylor expansion)."""
+    return torch.mean((y - y_hat) ** 2)
+
+
+def log_taylor3(p: torch.Tensor) -> torch.Tensor:
+    """The paper's 3-term log substitute: log(p) → p − p²/2 + p³/3."""
+    return p - p * p / 2.0 + true_divide(p * p * p, 3.0)
+
+
+def bce(y: torch.Tensor, y_hat: torch.Tensor,
+        eps: float = 1e-7) -> torch.Tensor:
+    """Exact binary cross-entropy (reference for Table 5 row 2)."""
+    y_hat = torch.clamp(y_hat, eps, 1.0 - eps)
+    return torch.mean(-(y * torch.log(y_hat) + (1.0 - y) * torch.log1p(-y_hat)))
+
+
+def bce_taylor(y: torch.Tensor, y_hat: torch.Tensor) -> torch.Tensor:
+    """Table 5 row 2, verbatim:
+    −y(ŷ − ŷ²/2 + ŷ³/3) − (1−y)(−ŷ − ŷ²/2 − ŷ³/3)."""
+    cube = true_divide(y_hat ** 3, 3.0)
+    t_pos = y_hat - y_hat ** 2 / 2.0 + cube
+    t_neg = -y_hat - y_hat ** 2 / 2.0 - cube
+    return torch.mean(-y * t_pos - (1.0 - y) * t_neg)
+
+
+def cce(y: torch.Tensor, y_hat: torch.Tensor, eps: float = 1e-7,
+        axis: int = -1) -> torch.Tensor:
+    """Exact categorical cross-entropy (reference for Table 5 row 3)."""
+    y_hat = torch.clamp(y_hat, eps, 1.0)
+    return torch.mean(-torch.sum(y * torch.log(y_hat), dim=axis))
+
+
+def cce_taylor(y: torch.Tensor, y_hat: torch.Tensor,
+               axis: int = -1) -> torch.Tensor:
+    """Table 5 row 3, verbatim: −Σᵢ yᵢ (ŷᵢ − ŷᵢ²/2 + ŷᵢ³/3)."""
+    return torch.mean(-torch.sum(y * log_taylor3(y_hat), dim=axis))
+
+
+def normalized_mse(y_ref: torch.Tensor, y_approx: torch.Tensor) -> torch.Tensor:
+    """The paper's Fig 3/Fig 4 metric: E[(y_ref − y_approx)²] / E[y_ref²]."""
+    num = torch.mean((y_ref - y_approx) ** 2)
+    den = torch.clamp_min(torch.mean(y_ref ** 2), 1e-12)
+    return num / den

@@ -1,0 +1,164 @@
+"""Model-level quantization: the paper's fixed-point encode applied at LM
+scale.  Counterpart of ``repro.core.quantize``, with its three modes:
+
+  * ``fp``        — float path (the paper's CPU/Python reference stage);
+  * ``w8a8_sim``  — fake-quant simulation (fixed-point grid, float ops) with
+                    straight-through gradients, for QAT and accuracy studies;
+  * ``w8a8_int``  — the integer datapath: per-channel symmetric int8
+                    weights, dynamic per-row int8 activations, int32
+                    accumulation (the FPGA stage, C1).
+
+``w8a8_matmul_int`` quantizes ``x`` per row, flattens its leading dims to
+``(M, K)`` and calls ``kernels.ops.fixedpoint_matmul``: the hand-written
+CUDA W8A8 kernel for tensors on the card, its plain version
+(``ref.fixedpoint_matmul_ref``) for tensors on the CPU.  Both give the bits
+of the reference's ``dot_general`` path: the int32 accumulator, then
+``(float32(acc) · x_scale) · w_scale``.  The card path takes int8 codes
+(``bits <= 8``).
+
+Also ``quantize_tree`` (whole-tree weight quantization for serving, with a
+name filter so norms, biases and embeddings stay float) over nested dicts,
+lists and tuples, with the reference's path strings, and
+``QuantizedLinear``, an ``nn.Module`` holding the codes and scale as
+buffers on an explicit device.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from ..kernels import ops
+from .fixedpoint import fake_quant, true_divide
+from .inference import resolve_device
+
+__all__ = [
+    "absmax_quantize",
+    "w8a8_matmul_int",
+    "w8a8_matmul_sim",
+    "matmul",
+    "quantize_tree",
+    "QuantizedLinear",
+]
+
+
+def absmax_quantize(x: torch.Tensor, bits: int = 8, axis: int = -1,
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-slice quantization: ``(codes, scale)`` with
+    ``x ≈ codes * scale``.  ``axis`` is the absmax reduction axis (``-1``:
+    per row for activations; ``0`` or ``-2``: per output channel for
+    weights).  The scale keeps ``x``'s dtype."""
+    qmax = 2.0 ** (bits - 1) - 1
+    absmax = torch.amax(torch.abs(x), dim=axis, keepdim=True)
+    scale = true_divide(torch.clamp_min(absmax, 1e-8), qmax)
+    codes = torch.clamp(torch.round(x / scale), -qmax - 1, qmax)
+    return codes.to(torch.int8 if bits <= 8 else torch.int16), scale
+
+
+def w8a8_matmul_int(x: torch.Tensor, w_codes: torch.Tensor,
+                    w_scale: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """Integer GEMM: dynamic per-row activation quantization, int32
+    accumulate, float32 rescale.  ``w_codes`` (in, out) int8, ``w_scale``
+    (1, out).  Returns float32 of shape ``(*x.shape[:-1], out)`` (``(1, out)``
+    for a 1-D ``x``, as the reference's broadcast gives)."""
+    if w_codes.dim() != 2:
+        raise ValueError(f"2-D weight codes expected, got {tuple(w_codes.shape)}")
+    x_codes, x_scale = absmax_quantize(x, bits=bits, axis=-1)
+    k, n = w_codes.shape
+    out = ops.fixedpoint_matmul(
+        x_codes.reshape(-1, k), w_codes.contiguous(),
+        x_scale.reshape(-1, 1).to(torch.float32).contiguous(),
+        w_scale.reshape(1, n).to(torch.float32).contiguous())
+    return out.reshape(*x.shape[:-1], n) if x.dim() > 1 else out
+
+
+def _calibrated_fake_quant(x: torch.Tensor, bits: int,
+                           axis: Optional[int] = None) -> torch.Tensor:
+    """Snap onto a power-of-two grid whose step is calibrated from the data
+    (the paper's per-tensor Scale field): the smallest step ``2**e`` that
+    still covers absmax; straight-through gradient."""
+    qmax = 2.0 ** (bits - 1) - 1
+    absmax = (torch.amax(torch.abs(x)) if axis is None
+              else torch.amax(torch.abs(x), dim=axis, keepdim=True))
+    absmax = torch.clamp_min(absmax, 1e-12)
+    step = torch.pow(2.0, torch.ceil(torch.log2(true_divide(absmax, qmax))))
+    q = torch.clamp(torch.round(x / step), -qmax - 1, qmax) * step
+    return x + (q - x).detach()  # STE
+
+
+def w8a8_matmul_sim(x: torch.Tensor, w: torch.Tensor,
+                    frac_bits: Optional[int] = None,
+                    bits: int = 8) -> torch.Tensor:
+    """Fake-quant GEMM on the fixed-point grid (QAT / accuracy simulation).
+    ``frac_bits=None`` calibrates a per-tensor power-of-two step for the
+    activations and a per-output-channel step for the weights; an integer
+    pins the fixed grid Q·.frac_bits for both."""
+    if frac_bits is not None:
+        return fake_quant(x, frac_bits, bits) @ fake_quant(w, frac_bits, bits)
+    xq = _calibrated_fake_quant(x, bits)
+    wq = _calibrated_fake_quant(w, bits, axis=-2)  # per output channel
+    return xq @ wq
+
+
+def matmul(x: torch.Tensor, w, mode: str = "fp") -> torch.Tensor:
+    """Mode-dispatched linear: ``w`` is a float tensor in ``fp`` and
+    ``w8a8_sim``, a ``(codes, scale)`` pair (from :func:`quantize_tree`) in
+    ``w8a8_int``."""
+    if mode == "fp":
+        return x @ w
+    if mode == "w8a8_sim":
+        return w8a8_matmul_sim(x, w)
+    if mode == "w8a8_int":
+        codes, scale = w
+        return w8a8_matmul_int(x, codes, scale).to(x.dtype)
+    raise ValueError(f"unknown quant mode: {mode}")
+
+
+# GEMM weight leaves only (whitelist): dense '.../w', MoE expert stacks.
+# Norms, biases, embeddings, conv/recurrence tables stay high-precision.
+_DEFAULT_INCLUDE = re.compile(r"\['w'\]$|\['w_(gate|up|down)'\]$")
+
+
+def quantize_tree(params, bits: int = 8,
+                  skip: Optional[Callable[[str], bool]] = None):
+    """Quantize the GEMM weight leaves of a tree of dicts, lists and tuples
+    to ``(int8 codes, float32 per-channel scale)`` pairs.
+
+    A leaf is quantized when it is a floating tensor of rank ≥ 2 whose path
+    — spelled as the reference's ``jax.tree_util.keystr``, ``['a']['w']``
+    for dict keys and ``[0]`` for sequence indices — matches the weight
+    filter and ``skip`` (optional) does not veto it.  The absmax runs over
+    the input axis (−2), so leading layer-stack dims are kept.  The result
+    has the same structure."""
+    def visit(path: str, node):
+        if isinstance(node, dict):
+            return {k: visit(f"{path}[{k!r}]", v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(visit(f"{path}[{i}]", v)
+                              for i, v in enumerate(node))
+        if (isinstance(node, torch.Tensor) and node.dim() >= 2
+                and node.is_floating_point() and _DEFAULT_INCLUDE.search(path)
+                and not (skip and skip(path))):
+            codes, scale = absmax_quantize(node, bits=bits, axis=-2)
+            return (codes, scale.to(torch.float32))
+        return node
+
+    return visit("", params)
+
+
+class QuantizedLinear(torch.nn.Module):
+    """A linear layer on the integer datapath: the weight ``w`` (in, out) is
+    quantized per output channel once, into ``codes``/``scale`` buffers on
+    ``device`` (the card unless the caller asks for the CPU)."""
+
+    def __init__(self, w, bits: int = 8, *, device="cuda"):
+        super().__init__()
+        w = torch.as_tensor(w).to(resolve_device(device))
+        codes, scale = absmax_quantize(w, bits=bits, axis=0)
+        self.register_buffer("codes", codes)
+        self.register_buffer("scale", scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return w8a8_matmul_int(x, self.codes, self.scale)

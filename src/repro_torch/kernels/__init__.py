@@ -1,5 +1,4 @@
-"""Hand-written Hopper kernels of the serving path and their plain PyTorch
-versions.
+"""Hand-written Hopper kernels and their plain PyTorch versions.
 
   * ``fixedpoint_mlp``   — fused multi-model fixed-point MLP
     (``csrc/fixedpoint_mlp.cu``; weight lanes ``"int16"`` and ``"int8"``)
@@ -8,9 +7,18 @@ versions.
   * ``flow_update``      — the flow engine's per-flow register update,
     count-min sketch and feature emit (``csrc/flow_update.cu``), with its
     numpy rank-round lowering
+  * ``fixedpoint_matmul`` — the paper's W8A8 GEMM (C1) on the int8 tensor
+    cores (``csrc/fixedpoint_matmul.cu``)
+  * ``taylor_activation`` — the paper's integer Horner activation (C2)
+    (``csrc/taylor_activation.cu``)
   * ``ref``              — the plain versions every kernel is held to
-  * ``ops``              — ``fused_mlp``, ``forest_traverse`` and
-    ``flow_update`` with backend dispatch
+  * ``ops``              — ``fused_mlp``, ``forest_traverse``,
+    ``flow_update``, ``fixedpoint_matmul`` and ``taylor_activation`` with
+    backend dispatch
   * ``fused_serve``      — ``serve_lanes``, the lane-dispatch core, and
     ``serve_raw``, the fused raw-packet program
 """
+
+from .ops import fixedpoint_matmul, taylor_activation  # noqa: E402
+
+__all__ = ["fixedpoint_matmul", "taylor_activation"]

@@ -1,14 +1,17 @@
-"""Public wrappers around the serving kernels with backend dispatch.
+"""Public wrappers around the kernels with backend dispatch.
 
 Counterpart of ``repro.kernels.ops`` for the fused MLP, the forest
-traversal and the flow update.  ``backend``:
+traversal, the flow update, the W8A8 GEMM and the Taylor activation.
+``backend``:
 
   * ``"auto"``   — the kernel wrapper: the CUDA kernel for tensors on the
                    card, its plain version (gather form) for CPU tensors;
   * ``"kernel"`` — the CUDA kernel; raises for tensors that are not on the
                    card;
   * ``"ref"``    — the masked (one-hot) plain version (the TPU kernel's
-                   literal formulation) on any device — the cross-check path.
+                   literal formulation) on any device — the cross-check path;
+                   for the GEMM and the Taylor activation, whose plain
+                   versions have one form, that form.
 
 Callers hand over tables exactly as the control plane stores them.
 :func:`flow_update` takes the same three names with its own CPU path (see
@@ -20,13 +23,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import fixedpoint_matmul as fmm
 from . import forest_traversal as ft
 from . import ref
+from . import taylor_activation as tak
 from .fixedpoint_mlp import KERNEL_VARIANTS, fixedpoint_mlp
 from .flow_update import flow_update_gather, flow_update_kernel
 from .forest_traversal import FOREST_VARIANTS
 
-__all__ = ["fused_mlp", "forest_traverse", "flow_update", "KERNEL_VARIANTS",
+__all__ = ["fixedpoint_matmul", "taylor_activation", "fused_mlp",
+           "forest_traverse", "flow_update", "KERNEL_VARIANTS",
            "FOREST_VARIANTS"]
 
 
@@ -36,6 +42,28 @@ def _check_backend(backend: str, x_q: torch.Tensor) -> None:
     if backend == "kernel" and x_q.device.type != "cuda":
         raise ValueError("backend='kernel' needs tensors on the card, got "
                          f"{x_q.device}")
+
+
+def fixedpoint_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor,
+                      x_scale: torch.Tensor, w_scale: torch.Tensor,
+                      backend: str = "auto") -> torch.Tensor:
+    """W8A8 GEMM: (M, K) int8 · (K, N) int8 with per-row (M, 1) and
+    per-column (1, N) float32 scales → (M, N) float32."""
+    _check_backend(backend, x_codes)
+    if backend == "ref":
+        return ref.fixedpoint_matmul_ref(x_codes, w_codes, x_scale, w_scale)
+    return fmm.fixedpoint_matmul(x_codes, w_codes, x_scale, w_scale)
+
+
+def taylor_activation(x_q: torch.Tensor, coeffs, x_frac: int,
+                      backend: str = "auto") -> torch.Tensor:
+    """Integer-Horner polynomial activation on int32 codes (any shape),
+    clamped to ±(2**14 - 1) first."""
+    _check_backend(backend, x_q)
+    if backend == "ref":
+        return ref.taylor_activation_ref(
+            torch.clamp(x_q, -tak.CLAMP, tak.CLAMP), coeffs, x_frac)
+    return tak.taylor_activation(x_q, coeffs, x_frac)
 
 
 def fused_mlp(x_q: torch.Tensor, slot: torch.Tensor, w: torch.Tensor,

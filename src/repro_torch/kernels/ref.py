@@ -9,7 +9,11 @@ the MLP lane, and ``forest_traverse_ref``, ``forest_traverse_gather_ref``,
 the tree-ensemble lane, and the flow engine's register-file constants,
 ``rounding_rshift_np``, ``sat_shl_np`` and the pure-Python per-packet
 oracle ``flow_update_numpy`` (numpy, copied verbatim) beside its plain
-PyTorch version ``flow_update_ref``.  Every product and sum is int32 with
+PyTorch version ``flow_update_ref``; and the paper's two standalone
+primitives, ``fixedpoint_matmul_ref`` (the W8A8 GEMM, C1) and
+``taylor_activation_ref`` (the integer Horner chain, C2), with
+``int32_matmul``, the exact wrapped int32 accumulator they and
+``core.fixedpoint.qmatmul`` share.  Every product and sum is int32 with
 two's-complement wraparound, as in the reference: products are int32
 tensor multiplies, and reductions use ``sum(..., dtype=torch.int32)`` so
 the accumulator wraps to int32 *before* the rounding shift (a plain
@@ -39,7 +43,8 @@ __all__ = ["rounding_rshift", "lane_clamp", "fused_mlp_ref",
            "REG_EWMA_IAT", "REG_EWMA_LEN", "REG_MIN_LEN", "REG_MAX_LEN",
            "N_FLOW_REGISTERS", "FLOW_FEATURE_NAMES", "N_FLOW_FEATURES",
            "FLOW_CODE_MAX", "rounding_rshift_np", "sat_shl_np",
-           "flow_update_numpy", "flow_update_ref"]
+           "flow_update_numpy", "flow_update_ref", "int32_matmul",
+           "fixedpoint_matmul_ref", "taylor_activation_ref", "int32_coeffs"]
 
 
 def rounding_rshift(x: torch.Tensor, shift: int) -> torch.Tensor:
@@ -595,3 +600,95 @@ def flow_update_ref(state: torch.Tensor, cms: torch.Tensor,
                                  FLOW_CODE_MAX).to(i32)
     feats[idx, N_FLOW_FEATURES - 1] = _sat_shl(est.to(i32), frac)
     return state, cms, feats
+
+
+# ---------------------------------------------------------------------------
+# The paper's standalone primitives: the W8A8 GEMM (C1) and the integer
+# Taylor activation (C2)
+# ---------------------------------------------------------------------------
+
+_F64_EXACT = 1 << 53  # every integer below this is exact in float64
+
+
+def _wrap_i32(v: torch.Tensor) -> torch.Tensor:
+    """int64 → int32 with two's-complement wraparound (explicitly, rather
+    than trusting the cast)."""
+    return (((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
+def _f64_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(
+        torch.int64)
+
+
+def int32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a (..., K) · b (K, N)`` on integer codes → ``(..., N)`` int32: the
+    accumulator of the reference's ``dot_general(...,
+    preferred_element_type=int32)``, which wraps in int32.
+
+    PyTorch has no integer ``matmul`` on the card, so the products are summed
+    in float64, which is exact while every partial sum stays below 2**53:
+    directly for codes of up to 16 bits, and for wider codes (int32) after
+    splitting each operand into 16-bit halves, of which only the terms that
+    survive modulo 2**32 are formed.  The same code runs on the CPU and on
+    the card."""
+    if a.is_floating_point() or b.is_floating_point():
+        raise TypeError(f"integer codes expected, got {a.dtype} and {b.dtype}")
+    k = a.shape[-1]
+    bits = max(torch.iinfo(a.dtype).bits, torch.iinfo(b.dtype).bits)
+    if bits <= 16 and k * (1 << 30) < _F64_EXACT:
+        return _wrap_i32(_f64_matmul(a, b))
+    if bits > 32 or k * (1 << 33) >= _F64_EXACT:
+        raise ValueError(f"K={k} of {a.dtype} · {b.dtype} codes is beyond "
+                         "the exact int32 accumulator")
+    a64, b64 = a.to(torch.int64), b.to(torch.int64)
+    a_lo, a_hi = a64 & 0xFFFF, a64 >> 16
+    b_lo, b_hi = b64 & 0xFFFF, b64 >> 16
+    low = _f64_matmul(a_lo, b_lo) & 0xFFFFFFFF
+    cross = (_f64_matmul(a_hi, b_lo) + _f64_matmul(a_lo, b_hi)) & 0xFFFF
+    return _wrap_i32(low + (cross << 16))
+
+
+def fixedpoint_matmul_ref(x_codes: torch.Tensor, w_codes: torch.Tensor,
+                          x_scale: torch.Tensor, w_scale: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """W8A8 GEMM: int8 × int8 → int32 accumulate → float rescale.
+
+    x_codes (M, K) int8 with per-row scale (M, 1) float32; w_codes (K, N)
+    int8 with per-column scale (1, N) float32.  Returns float32 (M, N):
+    ``acc * x_scale * w_scale (+ bias)``, in that order."""
+    acc = int32_matmul(x_codes, w_codes)
+    out = acc.to(torch.float32) * x_scale * w_scale
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def int32_coeffs(coeffs_q) -> list:
+    """Taylor constants as Python ints; raises ``OverflowError`` on one
+    outside int32, as the reference's ``jnp.int32(c)`` does (a PyTorch
+    int32 add would wrap it silently)."""
+    coeffs = [int(c) for c in np.asarray(coeffs_q).reshape(-1).tolist()]
+    if not coeffs:
+        raise ValueError("at least one Taylor constant is needed")
+    for c in coeffs:
+        if not -(1 << 31) <= c < (1 << 31):
+            raise OverflowError(f"Taylor constant {c} outside int32")
+    return coeffs
+
+
+def taylor_activation_ref(x_q: torch.Tensor, coeffs_q,
+                          x_frac: int) -> torch.Tensor:
+    """Integer Horner (paper Table 3 × Table 4): ``acc = c_n``, then
+    ``acc = rounding_rshift(acc · x, x_frac) + c_k`` for each lower constant,
+    in int32 with wraparound.  ``x_q`` carries ``x_frac`` fractional bits
+    (the caller clamps it); ``coeffs_q`` are ascending int codes at the
+    coefficient scale, which the result carries.  ``x_frac <= 0`` shifts
+    nothing."""
+    x = x_q.to(torch.int32)
+    coeffs = int32_coeffs(coeffs_q)
+    acc = torch.full_like(x, coeffs[-1])
+    for c in coeffs[-2::-1]:
+        acc = rounding_rshift(acc * x, x_frac) + c
+    return acc

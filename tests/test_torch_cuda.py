@@ -7,10 +7,13 @@ imports the JAX package, which this file does not need):
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import quantize as tq
 from repro_torch.core.packet import HEADER_BYTES, encode_packets_np
 from repro_torch.core.taylor import scaled_constants
 from repro_torch.data.packets import anomaly_dataset, qos_dataset, raw_trace
@@ -25,6 +28,11 @@ from repro_torch.kernels.ref import (FLOW_CODE_MAX, flow_update_ref,
                                      forest_traverse_gather_ref,
                                      fused_mlp_gather_ref)
 from repro_torch.launch.serve import PacketServer
+
+# the kernel modules (``repro_torch.kernels`` exports their wrappers, which
+# share the modules' names)
+fmm = importlib.import_module("repro_torch.kernels.fixedpoint_matmul")
+tak = importlib.import_module("repro_torch.kernels.taylor_activation")
 
 torch.set_num_threads(1)
 
@@ -391,3 +399,182 @@ def test_serve_raw_fused_on_card_matches_staged_path(card):
         np.testing.assert_array_equal(got[:, : want.shape[1]], want)
     np.testing.assert_array_equal(fused.flow.table.registers,
                                   staged.flow.table.registers)
+
+
+# ---------------------------------------------------------------------------
+# the W8A8 GEMM and the Taylor activation (C1/C2)
+# ---------------------------------------------------------------------------
+
+
+def _gemm_case(rng, m, k, n, dev):
+    if k == 0:  # nothing to take an absmax over: zero-depth codes, unit scales
+        return (torch.zeros((m, 0), dtype=torch.int8, device=dev),
+                torch.zeros((0, n), dtype=torch.int8, device=dev),
+                torch.ones((m, 1), device=dev), torch.ones((1, n), device=dev))
+    x = torch.as_tensor(rng.normal(size=(m, k)).astype(np.float32), device=dev)
+    w = torch.as_tensor(rng.normal(size=(k, n)).astype(np.float32), device=dev)
+    xc, xs = tq.absmax_quantize(x, axis=-1)
+    wc, ws = tq.absmax_quantize(w, axis=0)
+    return xc, wc, xs, ws
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1536, 1536), (17, 1536, 256),
+                                   (255, 1536, 8960), (2048, 8960, 1536),
+                                   (100, 300, 50), (257, 513, 129),
+                                   (1, 512, 7), (0, 64, 32), (5, 0, 7),
+                                   (3, 16, 0)])
+def test_fixedpoint_matmul_kernel_equals_plain_version(card, m, k, n):
+    xc, wc, xs, ws = _gemm_case(np.random.default_rng(m + k + n), m, k, n,
+                                card)
+    before = fmm.launches["fixedpoint_matmul"]
+    got = fmm.fixedpoint_matmul(xc, wc, xs, ws)
+    launched = m > 0 and n > 0
+    assert fmm.launches["fixedpoint_matmul"] == before + launched
+    want = ops.fixedpoint_matmul(xc, wc, xs, ws, backend="ref")
+    torch.cuda.synchronize()
+    assert got.shape == (m, n) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [512, 1536, 8960])
+def test_fixedpoint_matmul_int32_accumulator_exact(card, k):
+    """Raw codes over the whole int8 range at unit scales: the output is
+    the int32 accumulator rounded to float32, equal to the int64 product's."""
+    rng = np.random.default_rng(k)
+    xc = rng.integers(-128, 128, (255, k)).astype(np.int8)
+    wc = rng.integers(-128, 128, (k, 129)).astype(np.int8)
+    xc[0] = -128
+    wc[:, 0] = -128
+    exact = torch.as_tensor(xc.astype(np.int64) @ wc.astype(np.int64))
+    got = fmm.fixedpoint_matmul(
+        torch.as_tensor(xc, device=card), torch.as_tensor(wc, device=card),
+        torch.ones((255, 1), device=card), torch.ones((1, 129), device=card))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), exact.to(torch.float32))
+
+
+def test_w8a8_layer_path_on_card_matches_cpu_port(card):
+    rng = np.random.default_rng(7)
+    params = {"attn": {"wq": {"w": rng.normal(size=(96, 64)).astype(np.float32),
+                              "b": np.zeros(64, np.float32)}},
+              "mlp": [{"w": rng.normal(size=(96, 40)).astype(np.float32)}],
+              "norm": {"scale": np.ones(96, np.float32)}}
+    x = rng.normal(size=(3, 17, 96)).astype(np.float32)
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        tree = _to(params, dev)
+        q = tq.quantize_tree(tree)
+        assert q["norm"]["scale"].is_floating_point()
+        xt = torch.as_tensor(x, device=dev)
+        before = fmm.launches["fixedpoint_matmul"]
+        ys = [tq.matmul(xt, q["attn"]["wq"]["w"], "w8a8_int"),
+              tq.matmul(xt.to(torch.bfloat16), q["mlp"][0]["w"], "w8a8_int"),
+              tq.QuantizedLinear(tree["mlp"][0]["w"], device=dev)(xt)]
+        assert fmm.launches["fixedpoint_matmul"] == before + 3 * (dev == card)
+        outs.append([y.cpu() for y in ys])
+    for a, b in zip(*outs):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return torch.as_tensor(tree, device=dev)
+
+
+def test_fixedpoint_matmul_rejects_bad_arguments(card):
+    xc, wc, xs, ws = _gemm_case(np.random.default_rng(0), 4, 32, 8, card)
+    before = fmm.launches["fixedpoint_matmul"]
+    with pytest.raises(TypeError):
+        fmm.fixedpoint_matmul(xc.to(torch.int16), wc, xs, ws)
+    with pytest.raises(ValueError):
+        fmm.fixedpoint_matmul(xc, wc.cpu(), xs, ws)
+    with pytest.raises(ValueError):
+        fmm.fixedpoint_matmul(xc, wc[:16], xs, ws)
+    with pytest.raises(ValueError):
+        fmm.fixedpoint_matmul(xc, wc.t().contiguous().t(), xs, ws)
+    with pytest.raises(ValueError, match="card"):
+        ops.fixedpoint_matmul(xc.cpu(), wc.cpu(), xs.cpu(), ws.cpu(),
+                              backend="kernel")
+    assert fmm.launches["fixedpoint_matmul"] == before
+
+
+@pytest.mark.parametrize("order", [1, 3, 5, 7])
+@pytest.mark.parametrize("x_frac", [0, 8, 12, 16])
+@pytest.mark.parametrize("size", [1, 17, 2048 * 8960 + 3])
+def test_taylor_kernel_equals_plain_version(card, order, x_frac, size):
+    rng = np.random.default_rng(order * 100 + x_frac + size % 97)
+    coeffs = scaled_constants("sigmoid", order, 16)
+    x = torch.as_tensor(rng.integers(-2 ** 15, 2 ** 15, size).astype(np.int32),
+                        device=card)  # straddles the ±(2**14 - 1) clamp
+    before = tak.launches["taylor_activation"]
+    got = tak.taylor_activation(x, coeffs, x_frac)
+    assert tak.launches["taylor_activation"] == before + 1
+    want = ops.taylor_activation(x, coeffs, x_frac, backend="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_taylor_kernel_wraps_and_takes_any_layout(card):
+    """exp constants at s=16 on x at 8 fractional bits: the Horner products
+    wrap int32 (the int64 chain differs); offsets make the tensor unaligned
+    for 16-byte loads, so the scalar path runs too."""
+    coeffs = scaled_constants("exp", 5, 16)
+    x = torch.arange(-20000, 20001, dtype=torch.int32, device=card)
+    for t in (x, x[1:], x[3:-2]):
+        got = tak.taylor_activation(t, coeffs, 8)
+        want = ops.taylor_activation(t, coeffs, 8, backend="ref")
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    xc = torch.clamp(x.cpu(), -tak.CLAMP, tak.CLAMP).long()
+    wide = torch.full_like(xc, int(coeffs[-1]))
+    for c in coeffs[-2::-1]:
+        p = wide * xc
+        wide = ((p + torch.where(p >= 0, 128, 127)) >> 8) + int(c)
+    assert not torch.equal(wide, tak.taylor_activation(x, coeffs, 8).cpu()
+                           .long())
+
+
+def test_taylor_kernel_empty_and_bad_arguments(card):
+    coeffs = scaled_constants("sigmoid", 3, 12)
+    before = tak.launches["taylor_activation"]
+    out = tak.taylor_activation(torch.zeros((0, 5), dtype=torch.int32,
+                                            device=card), coeffs, 12)
+    assert out.shape == (0, 5) and tak.launches["taylor_activation"] == before
+    x = torch.zeros(8, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        tak.taylor_activation(x.long(), coeffs, 12)
+    with pytest.raises(OverflowError):
+        tak.taylor_activation(x, [1, 2 ** 31], 12)
+    with pytest.raises(ValueError):
+        tak.taylor_activation(x, coeffs, 32)
+    with pytest.raises(ValueError, match="card"):
+        ops.taylor_activation(x.cpu(), coeffs, 12, backend="kernel")
+    assert tak.launches["taylor_activation"] == before
+
+
+def test_float_helpers_on_card_match_cpu(card):
+    """The elementwise float code of the C1/C2 modules gives the CPU's bits
+    on the card (a Python-scalar divisor there would be multiplied by its
+    reciprocal instead)."""
+    from repro_torch.core import losses as tl
+    from repro_torch.core import taylor as tt
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(4096, 301)).astype(np.float32) * 3
+    for dtype in (torch.float32, torch.bfloat16):
+        for axis in (-1, 0):
+            got = tq.absmax_quantize(torch.as_tensor(x, device=card).to(dtype),
+                                     axis=axis)
+            want = tq.absmax_quantize(torch.as_tensor(x).to(dtype), axis=axis)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w)
+    p = torch.as_tensor(rng.random(100_000).astype(np.float32))
+    assert torch.equal(tl.log_taylor3(p.to(card)).cpu(), tl.log_taylor3(p))
+    v = torch.as_tensor(x[:64, :8])
+    for g, w in zip(tt.taylor_attention_kernel(v.to(card), v.to(card)),
+                    tt.taylor_attention_kernel(v, v)):
+        assert torch.equal(g.cpu(), w)
+    s = torch.as_tensor(x[0] * 4)
+    assert torch.equal(tt.segmented_taylor(s.to(card), "sigmoid", 3).cpu(),
+                       tt.segmented_taylor(s, "sigmoid", 3))

@@ -41,6 +41,10 @@ def _run(imports: str):
     "repro_torch.data, repro_torch.kernels.forest_traversal",
     "import repro_torch.flow, repro_torch.flow.table, "
     "repro_torch.flow.frontend, repro_torch.kernels.flow_update",
+    "import repro_torch.core.quantize, repro_torch.core.taylor, "
+    "repro_torch.core.losses, repro_torch.core.fixedpoint, "
+    "repro_torch.kernels.fixedpoint_matmul, "
+    "repro_torch.kernels.taylor_activation",
     "sys.path.insert(0, '.'); import chip_smoke",
 ])
 def test_port_imports_no_jax_and_no_reference(imports):

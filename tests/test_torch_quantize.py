@@ -1,0 +1,394 @@
+"""The port's C1 surface — W8A8 quantization, the integer GEMM, quantize_tree,
+QuantizedLinear and the QTensor arithmetic — against the JAX reference,
+bit for bit, on the CPU.  The same seeded numpy inputs go through both
+packages.  The W8A8 GEMM's plain version is also held to the Pallas kernel
+in interpret mode, as the reference's own tests run it on the CPU."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import fixedpoint as jfp
+from repro.core import quantize as jq
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.fixedpoint_matmul import fixedpoint_matmul_pallas
+from repro_torch.core import fixedpoint as tfp
+from repro_torch.core import quantize as tq
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+torch.set_num_threads(1)
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a))
+
+
+def _eq(got, want):
+    """Exact equality of a port tensor and a JAX array, dtype included."""
+    want = np.asarray(want)
+    got = got.detach().float().numpy() if got.dtype == torch.bfloat16 else \
+        got.detach().numpy()
+    if want.dtype == jnp.bfloat16:
+        want = want.astype(np.float32)
+    assert got.shape == want.shape
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    np.testing.assert_array_equal(got, want)
+
+
+def _data(seed, *shape, scale=1.0):
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    return x * np.float32(scale)
+
+
+# ---------------------------------------------------------------------------
+# absmax quantization and the integer GEMM
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bits", [4, 8, 12])
+@pytest.mark.parametrize("shape,axis", [((5, 33), -1), ((5, 33), 0),
+                                        ((2, 3, 40), -1), ((2, 3, 40), -2)])
+def test_absmax_quantize_matches(bits, shape, axis):
+    x = _data(bits + len(shape), *shape, scale=3.0)
+    x[0] = 0.0  # an all-zero slice takes the 1e-8 floor
+    want_c, want_s = jq.absmax_quantize(jnp.asarray(x), bits=bits, axis=axis)
+    got_c, got_s = tq.absmax_quantize(_t(x), bits=bits, axis=axis)
+    _eq(got_c, want_c)
+    _eq(got_s, want_s)
+
+
+@pytest.mark.parametrize("shape", [(7, 33), (2, 5, 64), (64,), (1, 1, 200)])
+def test_w8a8_matmul_int_matches(shape):
+    x = _data(sum(shape), *shape)
+    w = _data(1, shape[-1], 19)
+    wc, ws = jq.absmax_quantize(jnp.asarray(w), axis=0)
+    want = jq.w8a8_matmul_int(jnp.asarray(x), wc, ws)
+    _eq(tq.w8a8_matmul_int(_t(x), _t(wc), _t(ws)), want)
+
+
+@pytest.mark.parametrize("mode", ["fp", "w8a8_sim", "w8a8_int"])
+@pytest.mark.parametrize("shape", [(6, 48), (2, 3, 48)])
+def test_matmul_modes_match(mode, shape):
+    """``fp`` is a float product whose summation order is each library's
+    own; its inputs are on a dyadic grid (k/8, |k| <= 16) so that every
+    partial sum is exact and the comparison can be bit for bit.  The
+    fake-quant and integer modes are exact on any input."""
+    rng = np.random.default_rng(len(shape))
+    if mode == "fp":
+        x = (rng.integers(-16, 17, shape) / 8).astype(np.float32)
+        w = (rng.integers(-16, 17, (48, 24)) / 8).astype(np.float32)
+    else:
+        x, w = _data(2, *shape, scale=2.0), _data(3, 48, 24)
+    if mode == "w8a8_int":
+        wc, ws = jq.absmax_quantize(jnp.asarray(w), axis=0)
+        jw, tw = (wc, ws), (_t(wc), _t(ws))
+    else:
+        jw, tw = jnp.asarray(w), _t(w)
+    _eq(tq.matmul(_t(x), tw, mode), jq.matmul(jnp.asarray(x), jw, mode))
+
+
+def test_matmul_unknown_mode_raises():
+    with pytest.raises(ValueError, match="unknown quant mode"):
+        tq.matmul(torch.zeros(2, 2), torch.zeros(2, 2), "int4")
+
+
+@pytest.mark.parametrize("shape", [(9, 40), (2, 4, 40)])
+def test_bfloat16_inputs_match(shape):
+    """A bfloat16 activation through absmax_quantize and the w8a8_int
+    linear (codes, scales in bfloat16, the float32 rescale, the cast
+    back)."""
+    x = _data(11, *shape, scale=4.0)
+    w = _data(12, 40, 16)
+    jx, tx = jnp.asarray(x).astype(jnp.bfloat16), _t(x).to(torch.bfloat16)
+    for axis in (-1, 0):
+        want_c, want_s = jq.absmax_quantize(jx, axis=axis)
+        got_c, got_s = tq.absmax_quantize(tx, axis=axis)
+        _eq(got_c, want_c)
+        _eq(got_s, want_s)
+    wc, ws = jq.absmax_quantize(jnp.asarray(w), axis=0)
+    _eq(tq.matmul(tx, (_t(wc), _t(ws)), "w8a8_int"),
+        jq.matmul(jx, (wc, ws), "w8a8_int"))
+    _eq(tq.w8a8_matmul_int(tx, _t(wc), _t(ws)),
+        jq.w8a8_matmul_int(jx, wc, ws))
+
+
+@pytest.mark.parametrize("shape", [(5, 32), (2, 3, 32)])
+def test_quantized_linear_matches(shape):
+    w, x = _data(20, 32, 12), _data(21, *shape)
+    want_l = jq.QuantizedLinear(jnp.asarray(w))
+    got_l = tq.QuantizedLinear(w, device="cpu")
+    _eq(got_l.codes, want_l.codes)
+    _eq(got_l.scale, want_l.scale)
+    assert set(dict(got_l.named_buffers())) == {"codes", "scale"}
+    _eq(got_l(_t(x)), want_l(jnp.asarray(x)))
+
+
+def test_quantized_linear_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default device works here")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tq.QuantizedLinear(np.ones((4, 4), np.float32))
+
+
+def _tree(seed):
+    """A nested dict / list / tuple parameter tree with weight leaves the
+    filter takes (``['w']``, ``['w_up']`` …) and leaves it leaves alone (a
+    bias, a norm scale, a 1-D ``w``, an int ``w``, a stacked ``w``)."""
+    r = np.random.default_rng(seed)
+
+    def f(*s):
+        return r.normal(size=s).astype(np.float32)
+
+    return {
+        "embed": f(10, 8),
+        "layers": [
+            {"attn": {"wq": {"w": f(8, 8), "b": f(8)},
+                      "wo": {"w": f(8, 8)}},
+             "mlp": {"w_up": f(8, 16), "w_gate": f(8, 16),
+                     "w_down": f(16, 8)},
+             "norm": {"scale": f(8)}},
+            ({"w": f(3, 8, 4)}, {"w": f(8)},
+             {"w": r.integers(-5, 5, (4, 4)).astype(np.int32)}),
+        ],
+        "head": {"w": f(8, 6)},
+    }
+
+
+def _flat(tree, path=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{path}[{k!r}]"))
+        return out
+    if isinstance(tree, (list, tuple)) and not (
+            len(tree) == 2 and all(hasattr(a, "dtype") for a in tree)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flat(v, f"{path}[{i}]"))
+        return out
+    return {path: tree}
+
+
+def _to_torch(tree):
+    if isinstance(tree, dict):
+        return {k: _to_torch(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_torch(v) for v in tree)
+    return _t(tree)
+
+
+@pytest.mark.parametrize("veto", [None, "wo", "layers'][1"])
+def test_quantize_tree_matches(veto):
+    params = _tree(5)
+    seen = {"jax": [], "torch": []}
+
+    def skip(who):
+        def fn(name):
+            seen[who].append(name)
+            return veto is not None and veto in name
+        return fn
+
+    want = jq.quantize_tree(jax.tree_util.tree_map(jnp.asarray, params),
+                            skip=skip("jax"))
+    got = tq.quantize_tree(_to_torch(params), skip=skip("torch"))
+    assert sorted(seen["torch"]) == sorted(seen["jax"])
+    assert isinstance(got["layers"], list)
+    assert isinstance(got["layers"][1], tuple)
+    gf, wf = _flat(got), _flat(want)
+    assert sorted(gf) == sorted(wf)
+    n_quantized = 0
+    for path, w in wf.items():
+        g = gf[path]
+        assert isinstance(g, tuple) == isinstance(w, tuple), path
+        if isinstance(w, tuple):
+            n_quantized += 1
+            _eq(g[0], w[0])
+            _eq(g[1], w[1])
+        else:
+            _eq(g, w)
+    assert n_quantized == {None: 7, "wo": 6, "layers'][1": 6}[veto]
+
+
+# ---------------------------------------------------------------------------
+# the W8A8 GEMM's plain version (the kernel's oracle on the card)
+# ---------------------------------------------------------------------------
+
+
+def _qdata(seed, m, k, n):
+    x, w = _data(seed, m, k), _data(seed + 1, k, n)
+    xc, xs = jq.absmax_quantize(jnp.asarray(x), axis=-1)
+    wc, ws = jq.absmax_quantize(jnp.asarray(w), axis=0)
+    return xc, wc, xs, ws
+
+
+@pytest.mark.parametrize("m,k,n", [(100, 300, 50), (1, 512, 7), (17, 96, 33),
+                                   (257, 513, 129)])
+@pytest.mark.parametrize("backend", ["ref", "auto"])
+def test_fixedpoint_matmul_ref_matches(m, k, n, backend):
+    xc, wc, xs, ws = _qdata(m + n, m, k, n)
+    want = jref.fixedpoint_matmul_ref(xc, wc, xs, ws)
+    got = tops.fixedpoint_matmul(_t(xc), _t(wc), _t(xs), _t(ws),
+                                 backend=backend)
+    _eq(got, want)
+    _eq(got, jops.fixedpoint_matmul(xc, wc, xs, ws, backend="ref"))
+
+
+def test_fixedpoint_matmul_ref_bias_matches():
+    xc, wc, xs, ws = _qdata(3, 9, 40, 11)
+    bias = jnp.asarray(_data(4, 11))
+    _eq(tref.fixedpoint_matmul_ref(_t(xc), _t(wc), _t(xs), _t(ws),
+                                   bias=_t(bias)),
+        jref.fixedpoint_matmul_ref(xc, wc, xs, ws, bias=bias))
+
+
+def test_fixedpoint_matmul_ref_matches_pallas_interpret():
+    """One (256, 512, 256) block of the Pallas kernel, in interpret mode."""
+    xc, wc, xs, ws = _qdata(0, 256, 512, 256)
+    want = fixedpoint_matmul_pallas(xc, wc, xs, ws, interpret=True)
+    _eq(tops.fixedpoint_matmul(_t(xc), _t(wc), _t(xs), _t(ws),
+                               backend="ref"), want)
+
+
+def test_fixedpoint_matmul_int32_accumulator_exact():
+    """Raw codes over the whole int8 range at unit scales: the int32
+    accumulator is exact against an int64 product."""
+    rng = np.random.default_rng(0)
+    xc = rng.integers(-128, 128, (64, 512)).astype(np.int8)
+    wc = rng.integers(-128, 128, (512, 48)).astype(np.int8)
+    got = tref.fixedpoint_matmul_ref(_t(xc), _t(wc), torch.ones(64, 1),
+                                     torch.ones(1, 48))
+    np.testing.assert_array_equal(got.numpy().astype(np.int64),
+                                  xc.astype(np.int64) @ wc.astype(np.int64))
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32])
+def test_int32_matmul_wraps_as_the_reference(dtype):
+    info = np.iinfo(dtype)
+    rng = np.random.default_rng(info.bits)
+    a = rng.integers(info.min, info.max, (6, 70), endpoint=True).astype(dtype)
+    b = rng.integers(info.min, info.max, (70, 5), endpoint=True).astype(dtype)
+    a[0] = info.min
+    b[:, 0] = info.min
+    want = jax.lax.dot_general(jnp.asarray(a), jnp.asarray(b),
+                               (((1,), (0,)), ((), ())),
+                               preferred_element_type=jnp.int32)
+    _eq(tref.int32_matmul(_t(a), _t(b)), want)
+
+
+# ---------------------------------------------------------------------------
+# QTensor arithmetic, fake quantization and calibration
+# ---------------------------------------------------------------------------
+
+
+def _qt_pair(q, jqt):
+    """The port's QTensor of the same codes and format as ``jqt``."""
+    cs = None if jqt.channel_scale is None else _t(jqt.channel_scale)
+    return tfp.QTensor(q=_t(q), frac_bits=jqt.frac_bits, offset=jqt.offset,
+                       channel_scale=cs, channel_axis=jqt.channel_axis)
+
+
+@pytest.mark.parametrize("fmt_name", ["INT8", "INT16", "INT32"])
+@pytest.mark.parametrize("channel_axis", [None, 0, 1])
+def test_quantize_and_dequantize_match(fmt_name, channel_axis):
+    x = _data(7, 6, 10, scale=1.5)
+    want = jfp.quantize(jnp.asarray(x), getattr(jfp, fmt_name),
+                        channel_axis=channel_axis)
+    got = tfp.quantize(_t(x), getattr(tfp, fmt_name),
+                       channel_axis=channel_axis)
+    assert got.frac_bits == want.frac_bits and got.offset == want.offset
+    assert got.channel_axis == want.channel_axis
+    assert tuple(got.shape) == tuple(want.shape)
+    _eq(got.q, want.q)
+    if want.channel_scale is None:
+        assert got.channel_scale is None
+    else:
+        _eq(got.channel_scale, want.channel_scale)
+    _eq(tfp.dequantize(got), jfp.dequantize(want))
+
+
+@pytest.mark.parametrize("a_fmt,w_fmt,out_fmt", [
+    ("INT8", "INT8", "INT32"), ("INT16", "INT8", "INT16"),
+    ("INT32", "INT32", "INT32"), ("INT16", "INT16", "INT8")])
+@pytest.mark.parametrize("bias", [False, True])
+def test_qmatmul_matches(a_fmt, w_fmt, out_fmt, bias):
+    """Codes over their whole range: int16 and int32 operands wrap the
+    int32 accumulator, as the reference's ``dot_general`` does."""
+    rng = np.random.default_rng(len(a_fmt) + len(w_fmt) + bias)
+    fa, fw, fo = (getattr(jfp, f) for f in (a_fmt, w_fmt, out_fmt))
+    qa = rng.integers(fa.qmin, fa.qmax, (5, 24), endpoint=True).astype(
+        np.dtype(fa.dtype))
+    qw = rng.integers(fw.qmin, fw.qmax, (24, 7), endpoint=True).astype(
+        np.dtype(fw.dtype))
+    ja = jfp.QTensor(q=jnp.asarray(qa), frac_bits=fa.frac_bits)
+    jw = jfp.quantize(jnp.asarray(_data(1, 24, 7)), fw, channel_axis=1)
+    jw = jfp.QTensor(q=jnp.asarray(qw), frac_bits=fw.frac_bits,
+                     channel_scale=jw.channel_scale, channel_axis=1)
+    b = rng.integers(-2 ** 31, 2 ** 31, 7).astype(np.int32) if bias else None
+    want = jfp.qmatmul(ja, jw, out_fmt=fo,
+                       bias_q=None if b is None else jnp.asarray(b))
+    got = tfp.qmatmul(_qt_pair(qa, ja), _qt_pair(qw, jw),
+                      out_fmt=getattr(tfp, out_fmt),
+                      bias_q=None if b is None else _t(b))
+    _eq(got.q, want.q)
+    assert got.frac_bits == want.frac_bits
+    assert got.channel_axis == want.channel_axis
+    _eq(got.channel_scale, want.channel_scale)
+
+
+def test_qmatmul_rejects_offsets():
+    a = tfp.QTensor(q=torch.zeros(2, 2, dtype=torch.int8), frac_bits=4,
+                    offset=1)
+    with pytest.raises(ValueError, match="symmetric"):
+        tfp.qmatmul(a, a)
+
+
+@pytest.mark.parametrize("op", ["qadd", "qmul"])
+@pytest.mark.parametrize("fracs", [(6, 12, "INT32"), (12, 6, "INT16"),
+                                   (16, 16, "INT8")])
+def test_qadd_qmul_match(op, fracs):
+    fa, fb, out = fracs
+    rng = np.random.default_rng(fa * 10 + fb)
+    qa = rng.integers(-2 ** 15, 2 ** 15, (4, 9)).astype(np.int16)
+    qb = rng.integers(-2 ** 15, 2 ** 15, (4, 9)).astype(np.int16)
+    ja = jfp.QTensor(q=jnp.asarray(qa), frac_bits=fa)
+    jb = jfp.QTensor(q=jnp.asarray(qb), frac_bits=fb)
+    want = getattr(jfp, op)(ja, jb, out_fmt=getattr(jfp, out))
+    got = getattr(tfp, op)(_qt_pair(qa, ja), _qt_pair(qb, jb),
+                           out_fmt=getattr(tfp, out))
+    _eq(got.q, want.q)
+    assert got.frac_bits == want.frac_bits
+
+
+@pytest.mark.parametrize("frac_bits,total_bits", [(4, 8), (6, 8), (8, 16)])
+def test_fake_quant_and_its_gradient_match(frac_bits, total_bits):
+    """Values and the straight-through gradient (zero outside the code
+    range) against ``jax.grad`` of the reference's custom VJP."""
+    qmax = 2 ** (total_bits - 1)
+    x = _data(frac_bits, 200, scale=qmax / 2 ** frac_bits)
+    x[:4] = np.asarray([-qmax, qmax - 1, -qmax - 0.5, qmax - 0.5],
+                       np.float32) / 2 ** frac_bits  # on and past the edges
+    g = _data(9, 200)
+    _eq(tfp.fake_quant(_t(x), frac_bits, total_bits),
+        jfp.fake_quant(jnp.asarray(x), frac_bits, total_bits))
+    want = jax.grad(lambda v: jnp.sum(
+        jfp.fake_quant(v, frac_bits, total_bits) * g))(jnp.asarray(x))
+    tx = _t(x).requires_grad_(True)
+    (tfp.fake_quant(tx, frac_bits, total_bits) * _t(g)).sum().backward()
+    _eq(tx.grad, want)
+    assert (np.asarray(want) == 0).any() and (np.asarray(want) != 0).any()
+
+
+@pytest.mark.parametrize("percentile", [100.0, 99.0])
+@pytest.mark.parametrize("total_bits", [8, 16])
+@pytest.mark.parametrize("scale", [0.0, 0.01, 3.0, 700.0])
+def test_calibrate_scale_matches(percentile, total_bits, scale):
+    x = _data(int(scale), 300, scale=scale)
+    want = jfp.calibrate_scale(x, total_bits, percentile=percentile)
+    assert tfp.calibrate_scale(_t(x), total_bits,
+                               percentile=percentile) == want
+    fmt = tfp.choose_format(x, total_bits, percentile=percentile)
+    assert (fmt.total_bits, fmt.frac_bits) == (total_bits, want)
