@@ -26,7 +26,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                and a bfloat16 activation; the Taylor activation against
                its plain version at orders 1/3/5/7 × x_frac 0/8/12/16 over
                1 to 2048·8960 codes that straddle its clamp, and a case
-               whose Horner products wrap int32.
+               whose Horner products wrap int32; the WKV chunk scan (float,
+               so within rtol = atol = 2e-5, the reference's tolerance)
+               against ref.wkv_scan_ref at the reference's three test
+               shapes, the rwkv6-3b prefill geometry (B·H = 160, 32 chunks
+               of 64, D = 64), C = 16 and C = 256, one row of one chunk and
+               a ragged C and D, plus its state carry across chunks and an
+               empty input that must launch nothing.
   4. serve   — PacketServer() at its defaults on the card serves seeded
                traces of ragged chunks with duplicates and unknown Model IDs;
                its egress must be byte-identical, in submission order, to
@@ -63,7 +69,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                1e-3), and ops.taylor_activation on the 2048×8960 gate
                output at orders 1/3/5 (equal to the plain version; NMSE
                against the float sigmoid, order 5 below 1e-4 on
-               [-1.5, 1.5]).
+               [-1.5, 1.5]).  Then the RWKV-6 LM path at rwkv6-3b's full
+               width and depth (32 layers, d_model 2560, seeded float32
+               parameters): build_model(cfg).prefill on 4 × 2048 seeded
+               tokens, one wkv_scan launch per layer; the kernel's float32
+               form ("scan") against the reference model's bf16 chunked
+               form at every depth from 1 to 32 layers (held at one layer,
+               where the reference's 3e-2 applies); at all 32 layers the
+               kernel against its plain version inside the model (the
+               float32 prefill and forward with only ops.wkv_scan's backend
+               changed, 1e-4) and each prefill WKV call on its own
+               operands against the float64 plain version (2e-6), with the
+               model's sensitivity to a 1e-6 nudge printed; decode_step
+               against forward at 2 layers (0.08, the reference's); LMServer at
+               batch 8 generating 16 greedy tokens, then 4 after a
+               same-structure install with trace_count flat; the quantized
+               prefill (quantize_tree, 2 layers: 16 fixedpoint_matmul and 2
+               wkv_scan launches, NMSE against the float logits); and two
+               layers at full width in float32 on the card against the CPU
+               port (forward and prefill logits).
   5. numbers — per-kernel time (CUDA events: per call as the path issues
                it, and queued behind a device sleep, device only), the
                plain version's time, the least time the card could take
@@ -71,7 +95,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                per second with its engine-call and kernel shares of the wall
                time; for the flow path also the longest flow chain of the
                timed batch, the register file's host↔card round trip and
-               the share of the wall inside FlowFrontend.extract.
+               the share of the wall inside FlowFrontend.extract; for the
+               LM path prefill and generate tokens per second and the WKV
+               kernel's share of the prefill.
 
 Output: a JSON line of per-kernel numbers, the card's name and power limit,
 and, as the last line, {"ok": true, "device": {...}}.  Imports nothing of
@@ -80,6 +106,8 @@ JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import importlib
 import json
 import math
@@ -117,13 +145,17 @@ from repro_torch.kernels.ref import (FLOW_CODE_MAX,  # noqa: E402
                                      flow_update_ref,
                                      forest_range_gather_ref,
                                      forest_traverse_gather_ref,
-                                     fused_mlp_gather_ref)
-from repro_torch.launch.serve import PacketServer  # noqa: E402
+                                     fused_mlp_gather_ref, wkv_scan_ref)
+from repro_torch.launch.serve import LMServer, PacketServer  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import rwkv6  # noqa: E402
 
 # the C1/C2 kernel modules (``repro_torch.kernels`` exports their wrappers,
 # which share the modules' names)
 fmm = importlib.import_module("repro_torch.kernels.fixedpoint_matmul")
 tak = importlib.import_module("repro_torch.kernels.taylor_activation")
+wk = importlib.import_module("repro_torch.kernels.wkv_scan")
 
 SEED = 0
 FRAC = 8
@@ -170,9 +202,13 @@ KERNELS = {
         name="taylor_activation", route="cuda",
         source="src/repro_torch/kernels/csrc/taylor_activation.cu",
         replaces="src/repro/kernels/taylor_activation.py:52"),
+    "wkv_scan": dict(
+        name="wkv_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/wkv_scan.cu",
+        replaces="src/repro/kernels/wkv_scan.py:67"),
 }
 SOURCES = ["fixedpoint_mlp", "forest_traversal", "flow_update",
-           "fixedpoint_matmul", "taylor_activation"]
+           "fixedpoint_matmul", "taylor_activation", "wkv_scan"]
 
 # one qwen2-1.5b decoder layer (src/repro/configs/qwen2_1_5b.py): d_model
 # 1536, q_dim 12·128, kv_dim 2·128, d_ff 8960; leaf names as
@@ -189,6 +225,37 @@ PROJECTIONS = {  # name: (path in the layer, K, N)
     "down": (("mlp", "down"), D_FF, D_MODEL),
 }
 TAYLOR_FRAC = 12  # x_frac of the Taylor pass, and the constants' scale
+
+# the RWKV-6 LM family at rwkv6-3b's own width and depth
+# (src/repro/configs/rwkv6_3b.py: 32 layers, d_model 2560, 40 heads of 64,
+# d_ff 8960, vocab 65536, bf16 activations, float32 parameters); prefill on
+# B sequences of T seeded tokens, so the WKV kernel runs at B·H = 160 rows
+# of T / 64 = 32 chunks
+LM_ARCH = "rwkv6-3b"
+LM_BATCH, LM_SEQ = 4, 2048
+# the WKV checks: the reference's three shapes (tests/test_wkv_kernel.py:
+# 23-27), the prefill geometry, C = 16 and C = 256, one row of one chunk,
+# and a ragged chunk and head dim
+WKV_SHAPES = [(2, 4, 64, 64), (1, 8, 128, 64), (4, 2, 64, 32),
+              (160, 32, 64, 64), (1, 3, 16, 64), (2, 2, 256, 64),
+              (1, 1, 64, 64), (2, 3, 37, 48)]
+WKV_TOL = 2e-5  # rtol = atol, the reference's (tests/test_wkv_kernel.py:33-34)
+# relative error (max |Δ| / max |ref|) bounds of the LM path's comparisons
+# the kernel's float32 form vs the bf16 chunked one at one layer, where the
+# reference holds its kernel to 3e-2 (tests/test_wkv_kernel.py:81-83); the
+# first full run measured 1.02e-2 there.  Deeper, random layers amplify the
+# difference (0.22 at 32 layers), so the sweep by depth is printed, not held.
+LM_SCAN_VS_CHUNKED = 2e-2
+LM_CARD_VS_CPU = 1e-3      # 2 layers, float32 config: summation order only
+# the kernel against its plain version at full depth, float32 activations:
+# the same prefill and forward with only the WKV backend changed (the first
+# measurement read 3.6e-5 and 2.2e-5)
+LM_KERNEL_VS_REF = 1e-4
+# each of the prefill's 32 WKV calls on its own operands against the plain
+# version in float64: max |Δ| / max |exact|, about 16 float32 ulps of the
+# largest output (the float32 plain version itself reads up to 3.9e-7)
+LM_WKV_VS_EXACT = 2e-6
+LM_DECODE_VS_PREFILL = 0.08  # the reference's (tests/test_arch_smoke.py:139)
 
 # the flow engine at the server's defaults: flow_capacity_pow2=14, a 2 x 4096
 # count-min sketch, and the FlowParams shifts
@@ -207,13 +274,13 @@ def log(msg: str) -> None:
 
 
 def reset_launches() -> None:
-    for mod in (fmlp, ftk, fuk, fmm, tak):
+    for mod in (fmlp, ftk, fuk, fmm, tak, wk):
         mod.reset_launches()
 
 
 def read_launches() -> dict:
     return {**fmlp.launches, **ftk.launches, **fuk.launches, **fmm.launches,
-            **tak.launches}
+            **tak.launches, **wk.launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1352,6 +1419,386 @@ def c1c2_numbers(dev, c1c2: dict, worst: dict, card: str) -> list:
     return [gemm, taylor]
 
 
+# ---------------------------------------------------------------------------
+# the RWKV-6 LM path: the WKV chunk-scan kernel, prefill, decode, serving
+# ---------------------------------------------------------------------------
+
+
+def wkv_operands(seed: int, bh: int, nc: int, c: int, d: int, dev):
+    """Seeded operands as the reference's kernel test makes them: a, b ~
+    0.4·N(0, 1), v ~ N(0, 1), tot ~ U(0.2, 0.95) (so that scaling S's
+    columns instead of its rows shows), diag ~ 0.2·N(0, 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    tot = torch.rand((bh, nc, 1, d), generator=g, device=dev) * 0.75 + 0.2
+    return (normal(bh, nc, c, d, scale=0.4), normal(bh, nc, c, d, scale=0.4),
+            normal(bh, nc, c, d), tot, normal(bh, nc, c, 1, scale=0.2))
+
+
+def check_wkv(label: str, args) -> float:
+    """The WKV kernel against ref.wkv_scan_ref on the same card inputs:
+    |Δ| ≤ WKV_TOL + WKV_TOL·|ref| everywhere; returns the largest |Δ|."""
+    got = wk.wkv_scan(*args)
+    want = ops.wkv_scan(*args, backend="ref")
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    ok = bool((diff <= WKV_TOL + WKV_TOL * want.abs()).all())
+    err = float(diff.max()) if diff.numel() else 0.0
+    log(f"kernel wkv_scan {label} (BH, NC, C, D) = {tuple(args[0].shape)}: "
+        f"{'within' if ok else 'OUTSIDE'} rtol = atol = {WKV_TOL} of its "
+        f"plain version (max_abs_err {err:.3e}, max |ref| "
+        f"{float(want.abs().max()):.3f})")
+    if not ok:
+        raise SystemExit(f"wkv_scan differs from its plain version ({label})")
+    return err
+
+
+def check_wkv_kernels(dev) -> float:
+    torch.backends.cuda.matmul.allow_tf32 = False  # full float32 plain version
+    worst = 0.0
+    for i, shape in enumerate(WKV_SHAPES):
+        label = "prefill geometry" if shape == (160, 32, 64, 64) else "case"
+        worst = max(worst, check_wkv(label,
+                                     wkv_operands(SEED + 40 + i, *shape, dev)))
+    a, b, v, tot, diag = wkv_operands(SEED + 50, 1, 3, 64, 32, dev)
+    base = wk.wkv_scan(a, b, v, tot, diag)
+    b2 = b.clone()
+    b2[:, 0] = 0.0  # chunk 0's keys no longer reach the state
+    moved = float((base[:, 1:] - wk.wkv_scan(a, b2, v, tot, diag)[:, 1:])
+                  .abs().max())
+    log(f"kernel wkv_scan state carry: zeroing chunk 0's b moves chunks 1+ "
+        f"by {moved:.3e} (must exceed 1e-4)")
+    if not moved > 1e-4:
+        raise SystemExit("wkv_scan: the state does not carry across chunks")
+    before = wk.launches["wkv_scan"]
+    out = wk.wkv_scan(*wkv_operands(SEED + 51, 0, 2, 64, 64, dev))
+    if out.shape != (0, 2, 64, 64) or wk.launches["wkv_scan"] != before:
+        raise SystemExit("wkv_scan: an empty input must launch nothing")
+    log("kernel wkv_scan BH=0: no launch")
+    return worst
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got − want| / max |want|, in float32."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-6))
+
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+def tree_numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_numel(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_numel(v) for v in tree)
+    return tree.numel()
+
+
+def layer_slice(params, n: int):
+    """The first ``n`` layers of an RWKV-6 parameter tree."""
+    blocks = params["blocks"]
+
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return tree[:n]
+
+    return {**params, "blocks": cut(blocks)}
+
+
+def check_logits(label: str, logits: torch.Tensor, shape: tuple) -> None:
+    if tuple(logits.shape) != shape or not bool(torch.isfinite(logits).all()):
+        raise SystemExit(f"{label}: logits of shape {tuple(logits.shape)} "
+                         f"(expected {shape}), finite "
+                         f"{bool(torch.isfinite(logits).all())}")
+
+
+def scan_vs_chunked(params, tokens, cfg, dev) -> float:
+    """max |Δ| / max |ref| of the last-position logits, the kernel's
+    float32 WKV (``"scan"``) against the reference's bf16 chunked form."""
+    scan = build_model(cfg, device=dev).prefill(params, tokens=tokens)
+    chunked = build_model(cfg, wkv="chunked", device=dev).prefill(
+        params, tokens=tokens)
+    return rel_err(scan, chunked)
+
+
+@contextlib.contextmanager
+def wkv_route(fn):
+    """Send the model's WKV calls (``rwkv6._wkv_scan`` → ``ops.wkv_scan``)
+    to ``fn`` instead, for the comparisons of the full-depth check."""
+    orig = ops.wkv_scan
+    ops.wkv_scan = fn
+    try:
+        yield orig
+    finally:
+        ops.wkv_scan = orig
+
+
+def check_rwkv6_depth(params, tokens, cfg) -> None:
+    """The WKV kernel inside the full-depth model.  (1) The float32 prefill
+    (B=4, T=2048) and forward (B=1, T=150) through ``_wkv_scan`` twice,
+    with ``ops.wkv_scan`` on backend "kernel" and then "ref": the inputs
+    are identical and only the kernel differs, held at LM_KERNEL_VS_REF.
+    (2) Each of the bf16 prefill's WKV calls, on its own operands, against
+    the plain version in float64, held at LM_WKV_VS_EXACT.  Printed, not
+    held: the bf16 prefill kernel vs "ref", and how far a relative 1e-6
+    nudge of one position's embedding moves the float32 logits (the
+    random-weight model's own sensitivity)."""
+    cfg32 = cfg.replace(dtype="float32")
+    tok = tokens[:1, :150]
+    runs = {"prefill": lambda c: rwkv6.prefill(params, tokens, c),
+            "forward": lambda c: rwkv6.forward(params, tok, c)[0]}
+    got = {}
+    for backend in ("kernel", "ref"):
+        with wkv_route(functools.partial(ops.wkv_scan, backend=backend)):
+            for name, run in runs.items():
+                got[name, backend] = run(cfg32)
+            got["bf16", backend] = runs["prefill"](cfg)
+    errs = {k: rel_err(got[k, "kernel"], got[k, "ref"])
+            for k in ("prefill", "forward", "bf16")}
+    fk, fr = got["forward", "kernel"].float(), got["forward", "ref"].float()
+    per_pos = (fk - fr).abs().amax(-1)[0] / fr.abs().max()
+    log(f"path rwkv6 full depth ({cfg.n_layers} layers), kernel vs plain "
+        f"version inside the model, float32: prefill B={LM_BATCH} "
+        f"T={LM_SEQ} {errs['prefill']:.3e}, forward B=1 T=150 "
+        f"{errs['forward']:.3e} (worst position {int(per_pos.argmax())}, "
+        f"position 0 {float(per_pos[0]):.3e}) (bound {LM_KERNEL_VS_REF}); "
+        f"bfloat16 prefill {errs['bf16']:.3e} (not held: every activation "
+        f"rounds to bf16)")
+    if not max(errs["prefill"], errs["forward"]) < LM_KERNEL_VS_REF:
+        raise SystemExit(f"rwkv6 full depth, kernel vs plain version: {errs}")
+    del got, fk, fr
+
+    worst = []
+
+    def against_exact(a, b, v, tot, diag, backend="auto"):
+        o = plain(a, b, v, tot, diag, backend="kernel")
+        exact = wkv_scan_ref(*(t.double() for t in (a, b, v, tot, diag)))
+        top = exact.abs().max()
+        worst.append((float((o.double() - exact).abs().max() / top),
+                      float((wkv_scan_ref(a, b, v, tot, diag).double()
+                             - exact).abs().max() / top)))
+        return o
+
+    with wkv_route(against_exact) as plain:
+        runs["prefill"](cfg)
+    kernel_err = max(w[0] for w in worst)
+    log(f"path rwkv6 prefill's {len(worst)} WKV calls (bf16, B={LM_BATCH} "
+        f"T={LM_SEQ}) on their own operands against the float64 plain "
+        f"version: kernel max |Δ| / max |exact| {kernel_err:.3e} (worst "
+        f"layer {max(range(len(worst)), key=lambda i: worst[i][0])}; bound "
+        f"{LM_WKV_VS_EXACT}), float32 plain version "
+        f"{max(w[1] for w in worst):.3e}")
+    if len(worst) != cfg.n_layers or not kernel_err < LM_WKV_VS_EXACT:
+        raise SystemExit(f"rwkv6 prefill's WKV calls against float64: "
+                         f"{len(worst)} calls, worst {kernel_err}")
+
+    base = runs["forward"](cfg32).float()
+    embed = rwkv6._embed
+    moved = {}
+    for pos in (0, 1, 149):
+        def nudged(p, tk, c, pos=pos):
+            x = embed(p, tk, c).clone()
+            x[:, pos] *= 1 + 1e-6
+            return x
+
+        rwkv6._embed = nudged
+        try:
+            moved[pos] = rel_err(runs["forward"](cfg32), base)
+        finally:
+            rwkv6._embed = embed
+    log(f"path rwkv6 sensitivity, float32 forward B=1 T=150, "
+        f"{cfg.n_layers} layers: a relative 1e-6 nudge of one position's "
+        f"embedding moves the logits by " + ", ".join(
+            f"{v:.3e} (position {p})" for p, v in moved.items()))
+
+
+def run_rwkv6_path(dev, card: str) -> dict:
+    """rwkv6-3b at full width and depth with seeded float32 parameters:
+    ``build_model(cfg).prefill`` on 4 × 2048 seeded tokens (launch counters
+    zeroed right before and read right after: one WKV launch per layer);
+    the two WKV forms against each other at every depth from 1 to 32
+    layers; decode against prefill; ``LMServer`` greedy generation with a
+    same-structure hot swap; the quantized prefill through the W8A8
+    kernel; and two layers at full width in float32 on the card against
+    the CPU port."""
+    cfg = get_config(LM_ARCH)
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    params = rwkv6.init(g, cfg, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ), generator=g,
+                           device=dev)
+    n_params = tree_numel(params)
+    model = build_model(cfg, device=dev)
+
+    torch.cuda.synchronize()
+    reset_launches()
+    logits = model.prefill(params, tokens=tokens)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_launches().items() if v}
+    if launches != {"wkv_scan": cfg.n_layers}:
+        raise SystemExit(f"rwkv6 prefill launches {launches}, expected "
+                         f"wkv_scan {cfg.n_layers} (one per layer) and no other")
+    check_logits("rwkv6 prefill", logits, (LM_BATCH, 1, cfg.vocab_size))
+    log(f"path rwkv6 prefill {LM_ARCH} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params / 1e9:.3f}e9 float32 parameters) on "
+        f"B={LM_BATCH} T={LM_SEQ}: launches {launches}; last-position logits "
+        f"{tuple(logits.shape)} {logits.dtype}, finite")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(params, tokens=tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    log(f"path rwkv6 prefill: {prefill_s:.4f} s for {LM_BATCH * LM_SEQ} "
+        f"tokens, {LM_BATCH * LM_SEQ / prefill_s:.0f} tokens/s (warm, host "
+        f"wall with the card synchronised) [{card}]")
+
+    # the kernel's form against the reference model's, by depth: the first
+    # n layers of the same parameters (held at one layer, printed for all)
+    sweep = {}
+    depths = [n for n in (1, 2, 4, 8, 16, 32) if n <= cfg.n_layers]
+    for dtype in ("bfloat16", "float32"):
+        for n in depths:
+            sweep[dtype, n] = scan_vs_chunked(
+                params, tokens, cfg.replace(n_layers=n, dtype=dtype), dev)
+        log(f"path rwkv6 prefill, \"scan\" vs \"chunked\", {dtype} "
+            f"activations, B={LM_BATCH} T={LM_SEQ}, by depth: " + ", ".join(
+                f"{n} layers {sweep[dtype, n]:.3e}" for n in depths))
+    if not sweep["bfloat16", 1] < LM_SCAN_VS_CHUNKED:
+        raise SystemExit(f"rwkv6 prefill: scan vs chunked at one layer "
+                         f"{sweep['bfloat16', 1]} (bound {LM_SCAN_VS_CHUNKED})")
+    check_rwkv6_depth(params, tokens, cfg)
+    p2 = layer_slice(params, 2)
+
+    # decode against prefill, 2 layers at the config's bf16
+    cfg_b = cfg.replace(n_layers=2)
+    model_b = build_model(cfg_b, device=dev)
+    tok_b = tokens[:2, :16]
+    full, _ = rwkv6.forward(p2, tok_b, cfg_b)
+    caches = model_b.init_caches(2, 16)
+    steps = []
+    for t in range(16):
+        step, caches = model_b.decode_step(
+            p2, caches, tok_b[:, t:t + 1],
+            torch.full((2,), t, dtype=torch.int32, device=dev))
+        steps.append(step[:, 0])
+    dec_err = rel_err(torch.stack(steps, dim=1), full)
+    log(f"path rwkv6 decode vs prefill, 2 layers, bfloat16, B=2 T=16: "
+        f"relative error {dec_err:.3e} (bound {LM_DECODE_VS_PREFILL})")
+    if not dec_err < LM_DECODE_VS_PREFILL:
+        raise SystemExit(f"rwkv6 decode vs prefill: {dec_err}")
+
+    # LMServer at full width and depth, with a same-structure hot swap
+    srv = LMServer(cfg, batch=8, max_seq=64, device=dev)
+    srv.install(LM_ARCH, params)
+    prompt = np.random.default_rng(SEED + 23).integers(0, cfg.vocab_size,
+                                                       (8, 16))
+    out = srv.generate(LM_ARCH, prompt, 16)
+    gen_tps = srv.tokens_per_second()
+    traces = srv.trace_count
+    params_b = rwkv6.init(torch.Generator(device=dev).manual_seed(SEED + 22),
+                          cfg, device=dev)
+    srv.install(LM_ARCH, params_b)
+    out_b = srv.generate(LM_ARCH, prompt, 4)
+    traces_b = srv.trace_count
+    del params_b, srv
+    ok = (out.shape == (8, 16) and out_b.shape == (8, 4)
+          and out.min() >= 0 and out.max() < cfg.vocab_size)
+    log(f"path rwkv6 LMServer(batch=8, max_seq=64) at full width and depth: "
+        f"16-token prompt + 16 greedy tokens, then 4 after a same-structure "
+        f"install: trace_count {traces} then {traces_b}; {gen_tps:.1f} "
+        f"tokens/s (prompt and new tokens, host wall with the card "
+        f"synchronised) [{card}]")
+    if not ok or traces != 1 or traces_b != 1:
+        raise SystemExit(f"LMServer: tokens {out.shape} {out_b.shape}, "
+                         f"trace_count {traces} then {traces_b}")
+
+    # quantized prefill: quantize_tree, then every projection on the W8A8
+    # kernel (8 per layer) and the WKV kernel
+    q2 = tq.quantize_tree(p2)
+    model_q = build_model(cfg_b, device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    lq = model_q.prefill(q2, tokens=tokens)
+    torch.cuda.synchronize()
+    q_launches = {k: v for k, v in read_launches().items() if v}
+    if q_launches != {"fixedpoint_matmul": 8 * 2, "wkv_scan": 2}:
+        raise SystemExit(f"quantized rwkv6 prefill launches {q_launches}, "
+                         "expected fixedpoint_matmul 16 and wkv_scan 2")
+    check_logits("quantized rwkv6 prefill", lq, (LM_BATCH, 1, cfg.vocab_size))
+    q_nmse = nmse(model_q.prefill(p2, tokens=tokens).float(), lq.float())
+    log(f"path rwkv6 quantized prefill (quantize_tree, 2 layers, bf16, "
+        f"B={LM_BATCH} T={LM_SEQ}): launches {q_launches}; NMSE of the "
+        f"last-position logits against the float prefill {q_nmse:.3e}")
+    if not math.isfinite(q_nmse):
+        raise SystemExit("quantized rwkv6 prefill: NMSE not finite")
+
+    # two layers at full width in float32: the card against the CPU port
+    cfg32 = cfg.replace(n_layers=2, dtype="float32")
+    tok32 = tokens[:1, :150]  # 3 chunks, the last one padded
+    on_cpu = tree_to(p2, "cpu")
+    errs = {}
+    for name, fn in (("forward", lambda p, t: rwkv6.forward(p, t, cfg32)[0]),
+                     ("prefill", lambda p, t: rwkv6.prefill(p, t, cfg32))):
+        on_card = fn(p2, tok32)
+        check_logits(f"rwkv6 {name} float32", on_card,
+                     (1, 150 if name == "forward" else 1, cfg.vocab_size))
+        errs[name] = rel_err(on_card.cpu(), fn(on_cpu, tok32.cpu()))
+    log(f"path rwkv6 card vs CPU port, 2 layers at full width, float32, B=1 "
+        f"T=150 (3 chunks, the last padded): relative error forward "
+        f"{errs['forward']:.3e}, prefill {errs['prefill']:.3e} (bound "
+        f"{LM_CARD_VS_CPU})")
+    if not max(errs.values()) < LM_CARD_VS_CPU:
+        raise SystemExit(f"rwkv6 card vs CPU port: {errs}")
+
+    heads, chunk = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_chunk
+    return dict(launches=launches, prefill_s=prefill_s,
+                prefill_tokens_per_s=LM_BATCH * LM_SEQ / prefill_s,
+                generate_tokens_per_s=gen_tps, n_layers=cfg.n_layers,
+                wkv_shape=(LM_BATCH * heads, -(-LM_SEQ // chunk), chunk,
+                           cfg.rwkv_head_dim))
+
+
+def wkv_numbers(dev, lm: dict, worst: float, card: str) -> dict:
+    """Phase 5 for the WKV kernel at the prefill geometry (its work does not
+    depend on the data, so seeded operands of the path's shape stand for
+    the path's own)."""
+    bh, nc, c, d = lm["wkv_shape"]
+    args = wkv_operands(SEED + 60, bh, nc, c, d, dev)
+
+    def call():
+        wk.wkv_scan(*args)
+
+    k_ms, q_ms = cuda_ms(call), queued_ms(call)
+    p_ms = cuda_ms(lambda: ops.wkv_scan(*args, backend="ref"), reps=5,
+                   inner=5)
+    # per chunk: the strictly lower triangles of a·bᵀ and scores·v
+    # (C(C−1)/2 dot products of length D each), a·S and (b ⊙ tot)ᵀ·v, and
+    # the elementwise diag ⊙ v (+ its add), b ⊙ tot and S ⊙ totᵀ (+ its add)
+    n_ops = bh * nc * (2 * c * (c - 1) * d + 4 * c * d * d + 3 * c * d
+                       + 2 * d * d)
+    n_bytes = 4 * bh * nc * (4 * c * d + c + d)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, CUDA_CORE_OPS_PER_S)
+    share = lm["n_layers"] * k_ms / (lm["prefill_s"] * 1e3)
+    log(f"time wkv_scan (BH, NC, C, D) = ({bh}, {nc}, {c}, {d}): kernel "
+        f"{k_ms:.4f} ms per call ({q_ms:.4f} ms queued, device only), plain "
+        f"{p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {n_ops / 1e9:.2f} GFLOP, "
+        f"{n_bytes / 1e6:.1f} MB); {n_ops / (k_ms * 1e9):.2f} TFLOP/s; "
+        f"{lm['launches']['wkv_scan']} launches per prefill, "
+        f"{share:.4f} of the prefill's wall time [{card}]")
+    return dict(KERNELS["wkv_scan"], launches=lm["launches"]["wkv_scan"],
+                max_abs_err=worst, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
 def main() -> int:
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1394,6 +1841,9 @@ def main() -> int:
     worst["fixedpoint_matmul"] = check_gemm_kernels(dev)
     worst["taylor_activation"] = check_taylor_kernels(dev)
     log(f"C1/C2 kernel checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    worst["wkv_scan"] = check_wkv_kernels(dev)
+    log(f"WKV kernel checks: {time.perf_counter() - t0:.1f} s")
 
     # -- 4. the serving path --------------------------------------------------
     mixed = dict(forests=forests, drifted=drifted)
@@ -1419,6 +1869,9 @@ def main() -> int:
     path["flow overflow"] = overflow
     path["flow fused"] = run_fused_path(dev, 50_000, smi, forests)
     c1c2 = run_c1c2_path(dev, smi)
+    t0 = time.perf_counter()
+    lm = run_rwkv6_path(dev, smi)
+    log(f"rwkv6 path: {time.perf_counter() - t0:.1f} s")
 
     # -- 5. numbers -----------------------------------------------------------
     rng = np.random.default_rng(SEED + 2)
@@ -1480,6 +1933,7 @@ def main() -> int:
     k_ms["flow_update"] = entry["ms"]
     kernels.append(entry)
     kernels.extend(c1c2_numbers(dev, c1c2, worst, smi))
+    kernels.append(wkv_numbers(dev, lm, worst["wkv_scan"], smi))
     for label, p in path.items():
         kernel_s = sum(n * k_ms[k] * 1e-3 for k, n in p["launches"].items())
         log(f"path {label}: {p['packets_per_s']:.0f} packets/s, engine call "
@@ -1490,7 +1944,11 @@ def main() -> int:
         "device check")
     print(json.dumps({"kernels": kernels,
                       "path_packets_per_s": {v: path[v]["packets_per_s"]
-                                             for v in path}}), flush=True)
+                                             for v in path},
+                      "rwkv6_tokens_per_s": {
+                          "prefill": lm["prefill_tokens_per_s"],
+                          "generate": lm["generate_tokens_per_s"]}}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

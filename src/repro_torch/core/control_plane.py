@@ -20,6 +20,10 @@ compilation (:class:`RangeTables`).  The feature-spec family
 (:class:`FeatureSpec`) is host-only state the flow frontend reads, swapped
 under the same discipline.  The SLO and reflex families arrive with their
 slices; until then their ``*_active`` latches read ``False``.
+
+At LM scale, :class:`WeightRegistry` holds named parameter trees with the
+same hot-swap rule: a checkpoint of the installed structure swaps in, a
+structure change raises.
 """
 
 from __future__ import annotations
@@ -49,6 +53,8 @@ __all__ = [
     "tables_from_numpy",
     "forest_tables_from_numpy",
     "range_tables_from_numpy",
+    "WeightRegistry",
+    "tree_structure",
 ]
 
 # Activation opcodes stored per (model, layer) in the action table.
@@ -756,3 +762,50 @@ class ControlPlane:
     def version(self) -> int:
         """Table generation — bumped by every install/remove swap."""
         return self._version
+
+
+def tree_structure(tree):
+    """The structure of a tree of dicts, lists and tuples, in place of
+    JAX's treedef: each dict's (sorted) keys, each sequence's type and
+    arity, leaves as ``None``."""
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, tree_structure(tree[k]))
+                              for k in sorted(tree)))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__, tuple(tree_structure(v) for v in tree))
+    return None
+
+
+class WeightRegistry:
+    """LM-scale control plane: named parameter trees with hot-swap.
+
+    Counterpart of ``repro.core.control_plane.WeightRegistry``.  Installing
+    a checkpoint of the same structure swaps it in; the server's serving
+    configurations stay as they were.  A structure change (other key paths,
+    or a ``(codes, scale)`` pair where a tensor was) raises.
+    """
+
+    def __init__(self):
+        self._models: Dict[str, object] = {}
+        self._structs: Dict[str, object] = {}
+        self._lock = threading.Lock()
+        self.swaps = 0
+
+    def install(self, name: str, params) -> None:
+        with self._lock:
+            struct = tree_structure(params)
+            if name in self._structs and struct != self._structs[name]:
+                raise ValueError(
+                    f"hot-swap for '{name}' changed parameter structure; "
+                    "a structure change is a data-plane re-synthesis")
+            self._models[name] = params
+            self._structs[name] = struct
+            self.swaps += 1
+
+    def get(self, name: str):
+        with self._lock:
+            return self._models[name]
+
+    def names(self) -> List[str]:
+        with self._lock:
+            return sorted(self._models)

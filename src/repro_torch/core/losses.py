@@ -9,20 +9,24 @@ evaluated in a fixed-point pipeline.  Table 5, verbatim:
   BCE:  −y(ŷ − ŷ²/2 + ŷ³/3) − (1−y)(−ŷ − ŷ²/2 − ŷ³/3)
   CCE:  −Σᵢ yᵢ (ŷᵢ − ŷᵢ²/2 + ŷᵢ³/3)
 
-Counterpart of the Table-5 part of ``repro.core.losses``: the printed rows,
-their exact references and the normalized MSE of the paper's Figs 3/4.
+Counterpart of ``repro.core.losses``: the printed rows, their exact
+references, the normalized MSE of the paper's Figs 3/4, and the exact LM
+losses (``cross_entropy_logits``, ``chunked_cross_entropy``; forward only).
 Divisions by 3 go through ``fixedpoint.true_divide`` so that they round
 as the reference's on the card too.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 
 from .fixedpoint import true_divide
 
 __all__ = ["mse", "bce", "cce", "bce_taylor", "cce_taylor", "log_taylor3",
-           "normalized_mse"]
+           "normalized_mse", "cross_entropy_logits", "chunked_cross_entropy"]
 
 
 def mse(y: torch.Tensor, y_hat: torch.Tensor) -> torch.Tensor:
@@ -69,3 +73,53 @@ def normalized_mse(y_ref: torch.Tensor, y_approx: torch.Tensor) -> torch.Tensor:
     num = torch.mean((y_ref - y_approx) ** 2)
     den = torch.clamp_min(torch.mean(y_ref ** 2), 1e-12)
     return num / den
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token negative log-likelihood of float32 ``logits``."""
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return logz - ll
+
+
+def cross_entropy_logits(logits: torch.Tensor, labels: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Standard LM loss (exact, log-sum-exp), as the training substrate uses
+    it; the Table-5 polynomial form is for paper-scale models only."""
+    nll = _nll(logits.to(torch.float32), labels)
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)
+
+
+def chunked_cross_entropy(h: torch.Tensor, w_unembed: torch.Tensor,
+                          labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None,
+                          chunk: Optional[int] = None) -> torch.Tensor:
+    """LM loss without materializing the full (B, S, V) logits: the
+    sequence is cut into chunks whose (B, chunk, V) logits are made one at
+    a time.  h: (B, S, D) final hidden states; w_unembed: (D, V).  The
+    chunk size follows the reference's formula (≈2^31 logits per chunk,
+    a power of two in [32, 512], at most S)."""
+    b, s, d = h.shape
+    if chunk is None:
+        v = w_unembed.shape[-1]
+        chunk = int(min(512, max(32, (1 << 31) // max(b * v, 1))))
+        chunk = 1 << (chunk.bit_length() - 1)  # round down to a power of two
+        chunk = min(chunk, s) if s >= 32 else s
+    pad = (-s) % chunk
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    w = w_unembed.to(h.dtype)
+    nll_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    m_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, h.shape[1], chunk):
+        logits = (h[:, i:i + chunk] @ w).to(torch.float32)
+        m_i = mask[:, i:i + chunk]
+        nll_sum = nll_sum + (_nll(logits, labels[:, i:i + chunk]) * m_i).sum()
+        m_sum = m_sum + m_i.sum()
+    return nll_sum / torch.clamp_min(m_sum, 1.0)

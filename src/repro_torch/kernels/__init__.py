@@ -11,14 +11,16 @@
     cores (``csrc/fixedpoint_matmul.cu``)
   * ``taylor_activation`` — the paper's integer Horner activation (C2)
     (``csrc/taylor_activation.cu``)
+  * ``wkv_scan``          — RWKV-6's chunked WKV recurrence in float32
+    (``csrc/wkv_scan.cu``), the LM prefill's one kernel
   * ``ref``              — the plain versions every kernel is held to
   * ``ops``              — ``fused_mlp``, ``forest_traverse``,
-    ``flow_update``, ``fixedpoint_matmul`` and ``taylor_activation`` with
-    backend dispatch
+    ``flow_update``, ``fixedpoint_matmul``, ``taylor_activation`` and
+    ``wkv_scan`` with backend dispatch
   * ``fused_serve``      — ``serve_lanes``, the lane-dispatch core, and
     ``serve_raw``, the fused raw-packet program
 """
 
-from .ops import fixedpoint_matmul, taylor_activation  # noqa: E402
+from .ops import fixedpoint_matmul, taylor_activation, wkv_scan  # noqa: E402
 
-__all__ = ["fixedpoint_matmul", "taylor_activation"]
+__all__ = ["fixedpoint_matmul", "taylor_activation", "wkv_scan"]

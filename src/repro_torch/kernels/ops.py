@@ -1,7 +1,8 @@
 """Public wrappers around the kernels with backend dispatch.
 
 Counterpart of ``repro.kernels.ops`` for the fused MLP, the forest
-traversal, the flow update, the W8A8 GEMM and the Taylor activation.
+traversal, the flow update, the W8A8 GEMM, the Taylor activation and the
+WKV chunk scan.
 ``backend``:
 
   * ``"auto"``   — the kernel wrapper: the CUDA kernel for tensors on the
@@ -10,8 +11,8 @@ traversal, the flow update, the W8A8 GEMM and the Taylor activation.
                    card;
   * ``"ref"``    — the masked (one-hot) plain version (the TPU kernel's
                    literal formulation) on any device — the cross-check path;
-                   for the GEMM and the Taylor activation, whose plain
-                   versions have one form, that form.
+                   for the GEMM, the Taylor activation and the WKV scan,
+                   whose plain versions have one form, that form.
 
 Callers hand over tables exactly as the control plane stores them.
 :func:`flow_update` takes the same three names with its own CPU path (see
@@ -27,11 +28,12 @@ from . import fixedpoint_matmul as fmm
 from . import forest_traversal as ft
 from . import ref
 from . import taylor_activation as tak
+from . import wkv_scan as wk
 from .fixedpoint_mlp import KERNEL_VARIANTS, fixedpoint_mlp
 from .flow_update import flow_update_gather, flow_update_kernel
 from .forest_traversal import FOREST_VARIANTS
 
-__all__ = ["fixedpoint_matmul", "taylor_activation", "fused_mlp",
+__all__ = ["fixedpoint_matmul", "taylor_activation", "wkv_scan", "fused_mlp",
            "forest_traverse", "flow_update", "KERNEL_VARIANTS",
            "FOREST_VARIANTS"]
 
@@ -64,6 +66,18 @@ def taylor_activation(x_q: torch.Tensor, coeffs, x_frac: int,
         return ref.taylor_activation_ref(
             torch.clamp(x_q, -tak.CLAMP, tak.CLAMP), coeffs, x_frac)
     return tak.taylor_activation(x_q, coeffs, x_frac)
+
+
+def wkv_scan(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
+             tot: torch.Tensor, diag: torch.Tensor, *,
+             backend: str = "auto") -> torch.Tensor:
+    """RWKV-6 chunked WKV scan, float32: a/b/v (BH, NC, C, D), tot
+    (BH, NC, 1, D), diag (BH, NC, C, 1) → o (BH, NC, C, D), the state of
+    each row carried across its chunks from zero."""
+    _check_backend(backend, a)
+    if backend == "ref":
+        return ref.wkv_scan_ref(a, b, v, tot, diag)
+    return wk.wkv_scan(a, b, v, tot, diag)
 
 
 def fused_mlp(x_q: torch.Tensor, slot: torch.Tensor, w: torch.Tensor,

@@ -13,7 +13,9 @@ PyTorch version ``flow_update_ref``; and the paper's two standalone
 primitives, ``fixedpoint_matmul_ref`` (the W8A8 GEMM, C1) and
 ``taylor_activation_ref`` (the integer Horner chain, C2), with
 ``int32_matmul``, the exact wrapped int32 accumulator they and
-``core.fixedpoint.qmatmul`` share.  Every product and sum is int32 with
+``core.fixedpoint.qmatmul`` share; and ``wkv_scan_ref``, the RWKV-6 WKV
+chunk scan in float32 (the one float kernel: its kernel is held to it
+with a tolerance, not bit for bit).  Every integer product and sum is int32 with
 two's-complement wraparound, as in the reference: products are int32
 tensor multiplies, and reductions use ``sum(..., dtype=torch.int32)`` so
 the accumulator wraps to int32 *before* the rounding shift (a plain
@@ -44,7 +46,8 @@ __all__ = ["rounding_rshift", "lane_clamp", "fused_mlp_ref",
            "N_FLOW_REGISTERS", "FLOW_FEATURE_NAMES", "N_FLOW_FEATURES",
            "FLOW_CODE_MAX", "rounding_rshift_np", "sat_shl_np",
            "flow_update_numpy", "flow_update_ref", "int32_matmul",
-           "fixedpoint_matmul_ref", "taylor_activation_ref", "int32_coeffs"]
+           "fixedpoint_matmul_ref", "taylor_activation_ref", "int32_coeffs",
+           "wkv_scan_ref"]
 
 
 def rounding_rshift(x: torch.Tensor, shift: int) -> torch.Tensor:
@@ -692,3 +695,32 @@ def taylor_activation_ref(x_q: torch.Tensor, coeffs_q,
     for c in coeffs[-2::-1]:
         acc = rounding_rshift(acc * x, x_frac) + c
     return acc
+
+
+def wkv_scan_ref(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
+                 tot: torch.Tensor, diag: torch.Tensor) -> torch.Tensor:
+    """Plain version of the WKV chunk-scan kernel: the chunks of each (B·H)
+    row in order, the (D, D) state starting at zero, in the inputs' dtype
+    (float32 on the model's path; a check may pass float64):
+
+        scores = strict_tril(a·bᵀ)
+        o      = scores·v + diag ⊙ v + a·S
+        S      ← S ⊙ totᵀ + (b ⊙ tot)ᵀ·v     (row d of S scaled by tot[d])
+
+    a/b/v: (BH, NC, C, D); tot: (BH, NC, 1, D); diag: (BH, NC, C, 1).
+    Returns o: (BH, NC, C, D).  The rows run side by side (a batched
+    product per chunk), which is the reference's vmap over rows."""
+    bh, nc, c, d = a.shape
+    tri = torch.tril(torch.ones((c, c), dtype=a.dtype, device=a.device),
+                     diagonal=-1)
+    s = torch.zeros((bh, d, d), dtype=a.dtype, device=a.device)
+    outs = []
+    for i in range(nc):
+        a_c, b_c, v_c = a[:, i], b[:, i], v[:, i]
+        tot_c, diag_c = tot[:, i], diag[:, i]  # (BH, 1, D), (BH, C, 1)
+        scores = (a_c @ b_c.transpose(1, 2)) * tri
+        outs.append(scores @ v_c + diag_c * v_c + a_c @ s)
+        s = s * tot_c.transpose(1, 2) + (b_c * tot_c).transpose(1, 2) @ v_c
+    if not outs:
+        return torch.zeros_like(a)
+    return torch.stack(outs, dim=1)

@@ -1,0 +1,97 @@
+"""Wrapper of the hand-written CUDA WKV chunk-scan kernel
+(``csrc/wkv_scan.cu``), the port of
+``repro.kernels.wkv_scan.wkv_scan_pallas``: RWKV-6's chunked linear
+recurrence in float32, with the D×D state of each (B·H) row kept on chip
+across its chunks.
+
+For tensors on the CPU it runs the plain version (``ref.wkv_scan_ref``).
+For tensors on the card it launches the kernel on the current stream or
+raises — there is no fallback.  Every launch adds one to
+``launches["wkv_scan"]``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from . import _build
+from .ref import wkv_scan_ref
+
+__all__ = ["wkv_scan", "MAX_D", "MAX_C", "launches", "reset_launches",
+           "load_library"]
+
+#: the kernel's limits: head dim D ≤ MAX_D, chunk length 1 ≤ C ≤ MAX_C
+MAX_D = 64
+MAX_C = 256
+
+#: kernel launches since the last :func:`reset_launches`
+launches: Dict[str, int] = {"wkv_scan": 0}
+
+
+def reset_launches() -> None:
+    launches["wkv_scan"] = 0
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (first use) and bind the kernel library."""
+    lib = _build.load("wkv_scan")
+    fn = lib.wkv_scan_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, ctypes.c_int64, ctypes.c_int64, i, i,
+                       p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_shapes(a, b, v, tot, diag) -> None:
+    if a.dim() != 4:
+        raise ValueError(f"a must be (BH, NC, C, D), got {tuple(a.shape)}")
+    bh, nc, c, d = a.shape
+    want = {"b": (b, (bh, nc, c, d)), "v": (v, (bh, nc, c, d)),
+            "tot": (tot, (bh, nc, 1, d)), "diag": (diag, (bh, nc, c, 1))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+    if not (1 <= d <= MAX_D and 1 <= c <= MAX_C):
+        raise ValueError(f"the WKV kernel takes head dim 1..{MAX_D} and chunk "
+                         f"1..{MAX_C}, got D={d}, C={c}")
+
+
+def wkv_scan(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
+             tot: torch.Tensor, diag: torch.Tensor) -> torch.Tensor:
+    """Chunked WKV scan: a/b/v (BH, NC, C, D), tot (BH, NC, 1, D), diag
+    (BH, NC, C, 1), float32 → o (BH, NC, C, D) float32 (see
+    ``ref.wkv_scan_ref`` for the recurrence)."""
+    _check_shapes(a, b, v, tot, diag)
+    args = (a, b, v, tot, diag)
+    if a.device.type == "cpu":
+        return wkv_scan_ref(*args)
+    if a.device.type != "cuda":
+        raise ValueError(f"no wkv_scan kernel for device {a.device}")
+    for name, t in zip(("a", "b", "v", "tot", "diag"), args):
+        if t.device != a.device:
+            raise ValueError(f"{name} is on {t.device}, a on {a.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected "
+                            "torch.float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    bh, nc, c, d = a.shape
+    out = torch.empty_like(a)
+    if out.numel() == 0:
+        return out
+    lib = load_library()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.wkv_scan_launch(a.data_ptr(), b.data_ptr(), v.data_ptr(),
+                                 tot.data_ptr(), diag.data_ptr(),
+                                 out.data_ptr(), bh, nc, c, d, stream)
+    if rc != 0:
+        raise RuntimeError(f"wkv_scan launch failed: CUDA error {rc}")
+    launches["wkv_scan"] += 1
+    return out

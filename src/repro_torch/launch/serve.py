@@ -17,6 +17,10 @@ with the flow-update kernel and builds each model's inputs from its
 FeatureSpec.  Egress rows come back in exact submission order,
 byte-identical to the reference's.  SLO budgets and reflex programs arrive
 with their slices.
+
+:class:`LMServer` is the LM-scale counterpart: a batched decode loop over
+a model from ``repro_torch.models`` with control-plane weight hot-swap
+(``core.control_plane.WeightRegistry``).
 """
 
 from __future__ import annotations
@@ -28,16 +32,17 @@ from typing import TYPE_CHECKING, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from ..core.control_plane import ControlPlane
-from ..core.inference import DataPlaneEngine, DeviceResult
+from ..core.control_plane import ControlPlane, WeightRegistry
+from ..core.inference import DataPlaneEngine, DeviceResult, resolve_device
 from ..core.ingress import BatchError, IngressPipeline
 from ..core.packet import HEADER_BYTES
+from ..models.api import build_model
 from ..obs import Observability
 
 if TYPE_CHECKING:
     from ..flow import FlowFrontend
 
-__all__ = ["PacketServer", "BatchError"]
+__all__ = ["PacketServer", "BatchError", "LMServer"]
 
 
 class PacketServer:
@@ -335,3 +340,102 @@ class PacketServer:
                 "cache_hit_rate": self.ingress.cache_hit_rate(),
                 "cache_entries": (len(self.ingress.cache)
                                   if self.ingress.cache is not None else 0)}
+
+
+def _leaf_signature(tree, path: str = "") -> tuple:
+    """Key paths with each tensor's shape and dtype: what a compiled decode
+    step would be specialised on."""
+    if isinstance(tree, dict):
+        return tuple(x for k in sorted(tree)
+                     for x in _leaf_signature(tree[k], f"{path}[{k!r}]"))
+    if isinstance(tree, (list, tuple)):
+        return ((path, type(tree).__name__, len(tree)),) + tuple(
+            x for i, v in enumerate(tree)
+            for x in _leaf_signature(v, f"{path}[{i}]"))
+    return ((path, tuple(tree.shape), tree.dtype),)
+
+
+class LMServer:
+    """Batched LM decode loop with control-plane weight hot-swap.
+
+    Counterpart of ``repro.launch.serve.LMServer``.  The prompt and the new
+    tokens go through ``decode_step`` one position at a time, as in the
+    reference.  ``install()`` swaps checkpoints of the same structure
+    without changing the serving configuration: ``trace_count`` counts the
+    distinct static configurations used (batch, max_seq, dtype and the
+    installed parameters' key paths, shapes and dtypes), as the reference's
+    jit retrace count does.
+
+    ``device`` is the card by default; construction raises when there is
+    none.  Greedy decoding (``temperature=0``) follows the reference token
+    for token.  With ``temperature > 0`` tokens are sampled with a
+    ``torch.Generator`` seeded from ``seed``, which cannot reproduce
+    ``jax.random.categorical``'s draws.
+    """
+
+    def __init__(self, cfg, *, batch: int = 8, max_seq: int = 256,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.model = build_model(cfg, device=self.device)
+        self.registry = WeightRegistry()
+        self.batch = batch
+        self.max_seq = max_seq
+        self.trace_count = 0
+        self._configs: set = set()
+        self.stats = {"tokens": 0, "seconds": 0.0}
+
+    def install(self, name: str, params) -> None:
+        self.registry.install(name, params)
+
+    def new_session(self):
+        return self.model.init_caches(self.batch, self.max_seq)
+
+    def _note_config(self, params) -> None:
+        key = (self.batch, self.max_seq, self.cfg.dtype,
+               _leaf_signature(params))
+        if key not in self._configs:
+            self._configs.add(key)
+            self.trace_count += 1
+
+    def generate(self, name: str, prompt_tokens: np.ndarray, n_tokens: int,
+                 temperature: float = 0.0, seed: int = 0) -> np.ndarray:
+        """Greedy/temperature decode of ``n_tokens`` past the prompt;
+        returns the new tokens, (batch, n_tokens) int32."""
+        params = self.registry.get(name)
+        self._note_config(params)
+        caches = self.new_session()
+        b, prompt_len = prompt_tokens.shape
+        if b != self.batch:
+            raise ValueError(f"prompt batch {b} != server batch {self.batch}")
+        gen = None
+        if temperature > 0:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+        toks = torch.as_tensor(np.asarray(prompt_tokens, np.int32),
+                               device=self.device)
+        out = []
+        t0 = time.perf_counter()
+        cur = toks[:, :1]
+        for t in range(prompt_len + n_tokens - 1):
+            pos = torch.full((b,), t, dtype=torch.int32, device=self.device)
+            logits, caches = self.model.decode_step(params, caches, cur, pos)
+            if t + 1 < prompt_len:
+                cur = toks[:, t + 1: t + 2]
+                continue
+            last = logits[:, -1].to(torch.float32)
+            if gen is not None:
+                probs = torch.softmax(last / temperature, dim=-1)
+                nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
+            else:
+                nxt = torch.argmax(last, dim=-1)
+            cur = nxt[:, None].to(torch.int32)
+            out.append(cur[:, 0])
+        tokens = torch.stack(out, dim=1).cpu().numpy()
+        dt = time.perf_counter() - t0
+        self.stats["tokens"] += b * (prompt_len + n_tokens - 1)
+        self.stats["seconds"] += dt
+        return tokens
+
+    def tokens_per_second(self) -> float:
+        s = self.stats
+        return s["tokens"] / s["seconds"] if s["seconds"] else 0.0

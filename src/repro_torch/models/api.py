@@ -1,0 +1,96 @@
+"""Unified model API: ``build_model(cfg)`` → one object with the same entry
+points for every family.
+
+Counterpart of ``repro.models.api`` for the families the port has: RWKV-6
+so far.  The others raise ``NotImplementedError`` naming the slice that
+brings them.  The reference's dry-run helpers (``abstract_params``,
+``abstract_caches``, ``input_specs``) come with the distribution slice.
+
+``params_from_numpy`` carries the reference's parameters across: a tree of
+numpy arrays (``jax.tree.map(np.asarray, params)``) becomes the same tree of
+tensors on an explicit device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..core.inference import resolve_device
+from . import rwkv6
+
+__all__ = ["Model", "build_model", "params_from_numpy"]
+
+Params = Dict[str, Any]
+
+# families of later slices (ROADMAP §1)
+_LATER = {
+    "dense": "LM slice B (the transformer families)",
+    "moe": "LM slice B (the transformer families)",
+    "vlm": "LM slice B (the transformer families)",
+    "hybrid": "LM slice C (models/ssm.py)",
+    "encdec": "LM slice C (models/encdec.py)",
+}
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ModelConfig
+    device: torch.device
+    init: Callable  # (generator) -> params on ``device``
+    loss_fn: Callable  # (params, batch) -> (loss, metrics)
+    prefill: Callable  # (params, **inputs) -> last-position logits (B,1,V)
+    decode_step: Callable  # (params, caches, tokens, pos) -> (logits, caches)
+    init_caches: Callable  # (batch, max_seq) -> caches on ``device``
+
+
+def build_model(cfg: ModelConfig, *, wkv: str = "scan",
+                device="cuda") -> Model:
+    """The family's entry points bound to ``cfg``.  ``wkv`` picks the
+    RWKV-6 chunked-WKV route (``rwkv6.WKV_ROUTES``); ``device`` is where
+    ``init`` and ``init_caches`` allocate (the card unless the caller asks
+    for the CPU; raises when there is no card)."""
+    if cfg.family == "rwkv6":
+        rwkv6.check_wkv(wkv)
+        dev = resolve_device(device)
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init=lambda g: rwkv6.init(g, cfg, device=dev),
+            loss_fn=lambda p, b: rwkv6.loss_fn(p, b, cfg, wkv),
+            prefill=lambda p, **inp: rwkv6.prefill(p, inp["tokens"], cfg, wkv),
+            decode_step=lambda p, c, t, pos: rwkv6.decode_step(p, c, t, pos,
+                                                               cfg),
+            init_caches=lambda b, s: rwkv6.init_caches(cfg, b, s, device=dev),
+        )
+    if cfg.family in _LATER:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet: "
+                                  f"it comes with {_LATER[cfg.family]}")
+    raise ValueError(f"unknown family {cfg.family}")
+
+
+def _tensor(a, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: no torch dtype map
+        return torch.tensor(a.astype(np.float32)).to(dev, torch.bfloat16)
+    return torch.tensor(a).to(dev)  # a copy: JAX's host views are read-only
+
+
+def params_from_numpy(tree, device):
+    """The reference's parameter (or cache) tree as numpy arrays → the same
+    tree of tensors on ``device``.  Dicts, lists and tuples keep their
+    structure, so ``quantize_tree``'s ``(codes, scale)`` pairs stay pairs."""
+    dev = resolve_device(device)
+
+    def visit(node):
+        if isinstance(node, dict):
+            return {k: visit(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(visit(v) for v in node)
+        return _tensor(node, dev)
+
+    return visit(tree)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import fixedpoint as fp
 from repro_torch.core import quantize as tq
 from repro_torch.core.packet import HEADER_BYTES, encode_packets_np
 from repro_torch.core.taylor import scaled_constants
@@ -33,6 +34,7 @@ from repro_torch.launch.serve import PacketServer
 # share the modules' names)
 fmm = importlib.import_module("repro_torch.kernels.fixedpoint_matmul")
 tak = importlib.import_module("repro_torch.kernels.taylor_activation")
+wk = importlib.import_module("repro_torch.kernels.wkv_scan")
 
 torch.set_num_threads(1)
 
@@ -578,3 +580,159 @@ def test_float_helpers_on_card_match_cpu(card):
     s = torch.as_tensor(x[0] * 4)
     assert torch.equal(tt.segmented_taylor(s.to(card), "sigmoid", 3).cpu(),
                        tt.segmented_taylor(s, "sigmoid", 3))
+    # the w8a8_sim fake quant: a power-of-two step from log2, on random
+    # data and on every absmax / 127 within 6 ulps of a power of two in
+    # [2^-40, 2^20) (one value per row, axis=-1), where a log2 that is off
+    # in the last bit changes the step (ROADMAP §3, R6)
+    xs = torch.as_tensor(x)
+    for axis in (None, 0, -1):
+        assert torch.equal(tq._calibrated_fake_quant(xs.to(card), 8, axis).cpu(),
+                           tq._calibrated_fake_quant(xs, 8, axis))
+    bits = np.array([np.float32(127 * 2.0 ** k).view(np.int32)
+                     for k in range(-40, 20)])
+    near = (bits[:, None] + np.arange(-6, 7)[None, :]).astype(
+        np.int32).view(np.float32)
+    near = torch.as_tensor(near.reshape(-1, 1))
+    assert torch.equal(tq._calibrated_fake_quant(near.to(card), 8, -1).cpu(),
+                       tq._calibrated_fake_quant(near, 8, -1))
+    for frac, total in ((6, 8), (12, 16), (16, 32)):
+        assert torch.equal(fp.fake_quant(xs.to(card), frac, total).cpu(),
+                           fp.fake_quant(xs, frac, total))
+    for fmt, axis in ((fp.INT8, 0), (fp.INT8, 1), (fp.INT16, -1),
+                      (fp.INT32, None)):
+        got = fp.quantize(xs.to(card), fmt, channel_axis=axis)
+        want = fp.quantize(xs, fmt, channel_axis=axis)
+        assert torch.equal(got.q.cpu(), want.q)
+        if axis is not None:
+            assert torch.equal(got.channel_scale.cpu(), want.channel_scale)
+
+
+# ---------------------------------------------------------------------------
+# the WKV chunk scan (RWKV-6 prefill)
+# ---------------------------------------------------------------------------
+
+
+def _wkv_operands(seed, dev, bh, nc, c, d):
+    """As the reference's tests make them (tests/test_wkv_kernel.py:13-19):
+    tot in [0.2, 0.95], so that scaling S's columns instead of its rows
+    shows."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    return (t(rng.normal(size=(bh, nc, c, d)) * 0.4),
+            t(rng.normal(size=(bh, nc, c, d)) * 0.4),
+            t(rng.normal(size=(bh, nc, c, d))),
+            t(rng.uniform(0.2, 0.95, size=(bh, nc, 1, d))),
+            t(rng.normal(size=(bh, nc, c, 1)) * 0.2))
+
+
+@pytest.mark.parametrize("bh,nc,c,d", [
+    (2, 4, 64, 64), (1, 8, 128, 64), (4, 2, 64, 32),  # the reference's
+    (160, 32, 64, 64),   # rwkv6-3b prefill, B=4 T=2048
+    (3, 3, 16, 64), (2, 2, 256, 64), (1, 1, 64, 64),
+    (2, 3, 37, 48), (1, 2, 1, 64), (5, 2, 200, 17),
+])
+def test_wkv_kernel_equals_plain_version(card, bh, nc, c, d):
+    ops_ = _wkv_operands(bh * 100 + c + d, card, bh, nc, c, d)
+    before = wk.launches["wkv_scan"]
+    got = wk.wkv_scan(*ops_)
+    torch.cuda.synchronize()
+    assert wk.launches["wkv_scan"] == before + 1
+    want = ops.wkv_scan(*ops_, backend="ref")
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_wkv_kernel_carries_state_across_chunks(card):
+    a, b, v, tot, diag = _wkv_operands(7, card, 1, 3, 64, 32)
+    base = wk.wkv_scan(a, b, v, tot, diag)
+    b2 = b.clone()
+    b2[:, 0] = 0.0  # chunk 0's keys no longer reach the state
+    alt = wk.wkv_scan(a, b2, v, tot, diag)
+    assert float((base[:, 1:] - alt[:, 1:]).abs().max()) > 1e-4
+
+
+def test_wkv_kernel_empty_and_bad_arguments(card):
+    before = wk.launches["wkv_scan"]
+    empty = _wkv_operands(1, card, 0, 2, 64, 64)
+    assert wk.wkv_scan(*empty).shape == (0, 2, 64, 64)
+    a, b, v, tot, diag = _wkv_operands(2, card, 1, 2, 16, 32)
+    with pytest.raises(TypeError):
+        wk.wkv_scan(a.double(), b, v, tot, diag)
+    with pytest.raises(ValueError, match="contiguous"):
+        wk.wkv_scan(a, b.transpose(2, 3).contiguous().transpose(2, 3), v,
+                    tot, diag)
+    with pytest.raises(ValueError, match="shape"):
+        wk.wkv_scan(a, b, v, tot[:, :, :, :16], diag)
+    for bad in (_wkv_operands(3, card, 1, 1, 8, 65),
+                _wkv_operands(3, card, 1, 1, 257, 8)):
+        with pytest.raises(ValueError, match="head dim"):
+            wk.wkv_scan(*bad)
+    with pytest.raises(ValueError, match="card"):
+        ops.wkv_scan(a.cpu(), b.cpu(), v.cpu(), tot.cpu(), diag.cpu(),
+                     backend="kernel")
+    assert wk.launches["wkv_scan"] == before
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+def _rel(got, want):
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-6))
+
+
+@pytest.mark.parametrize("wkv", ["scan", "chunked"])
+def test_rwkv6_prefill_on_card_matches_cpu_port(card, wkv):
+    """A reduced float32 rwkv6 (2 layers, T=37 over chunks of 16, the last
+    padded) on the card against the CPU port with the same parameters:
+    1e-4 relative through the kernel (float32 throughout, summation order
+    only), 1e-3 through the bf16 chunked form (an operand may round to
+    the neighbouring bf16 value).  One WKV launch per layer on "scan"."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model, rwkv6
+    cfg = reduced(get_config("rwkv6-3b")).replace(dtype="float32",
+                                                  rwkv_chunk=16)
+    params = rwkv6.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    tok = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 37)))
+    on_card = _tree_to(params, card)
+    before = wk.launches["wkv_scan"]
+    got = build_model(cfg, wkv=wkv, device=card).prefill(on_card,
+                                                         tokens=tok.to(card))
+    torch.cuda.synchronize()
+    assert wk.launches["wkv_scan"] - before == (
+        cfg.n_layers if wkv == "scan" else 0)
+    want = build_model(cfg, wkv=wkv, device="cpu").prefill(params, tokens=tok)
+    tol = 1e-4 if wkv == "scan" else 1e-3
+    assert _rel(got, want) < tol
+    got_f, _ = rwkv6.forward(on_card, tok.to(card), cfg, wkv)
+    want_f, _ = rwkv6.forward(params, tok, cfg, wkv)
+    assert _rel(got_f, want_f) < tol
+
+
+def test_lm_server_on_card_matches_cpu_port(card):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import LMServer
+    from repro_torch.models import rwkv6
+    cfg = reduced(get_config("rwkv6-3b")).replace(dtype="float32")
+    params = rwkv6.init(torch.Generator().manual_seed(1), cfg, device="cpu")
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 6))
+    srv = LMServer(cfg, batch=2, max_seq=16)  # the card by default
+    srv.install("m", _tree_to(params, card))
+    cpu = LMServer(cfg, batch=2, max_seq=16, device="cpu")
+    cpu.install("m", params)
+    np.testing.assert_array_equal(srv.generate("m", prompt, 5),
+                                  cpu.generate("m", prompt, 5))
+    other = rwkv6.init(torch.Generator(device=card).manual_seed(2), cfg,
+                       device=card)
+    srv.install("m", other)
+    srv.generate("m", prompt, 3)
+    assert srv.trace_count == 1

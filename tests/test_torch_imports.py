@@ -45,6 +45,18 @@ def _run(imports: str):
     "repro_torch.core.losses, repro_torch.core.fixedpoint, "
     "repro_torch.kernels.fixedpoint_matmul, "
     "repro_torch.kernels.taylor_activation",
+    "import repro_torch.models, repro_torch.models.rwkv6, "
+    "repro_torch.models.api, repro_torch.models.layers, "
+    "repro_torch.kernels.wkv_scan, repro_torch.distributed, "
+    "repro_torch.core.control_plane",
+    "import repro_torch.configs, repro_torch.configs.base, "
+    "repro_torch.configs.rwkv6_3b, repro_torch.configs.gemma_7b, "
+    "repro_torch.configs.qwen2_1_5b, repro_torch.configs.chatglm3_6b, "
+    "repro_torch.configs.granite_20b, "
+    "repro_torch.configs.granite_moe_3b_a800m, "
+    "repro_torch.configs.deepseek_v2_236b, repro_torch.configs.zamba2_2_7b, "
+    "repro_torch.configs.pixtral_12b, repro_torch.configs.whisper_base",
+    "from repro_torch.launch.serve import LMServer, PacketServer",
     "sys.path.insert(0, '.'); import chip_smoke",
 ])
 def test_port_imports_no_jax_and_no_reference(imports):
@@ -71,3 +83,20 @@ def test_chip_smoke_fails_without_a_card():
                        cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_lm_entry_points_without_a_card_raise():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default device works here")
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import LMServer
+    from repro_torch.models import build_model, rwkv6
+    cfg = reduced(get_config("rwkv6-3b"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        LMServer(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        rwkv6.init(torch.Generator(), cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        rwkv6.init_caches(cfg, 2)

@@ -2,7 +2,16 @@
 QuantizedLinear and the QTensor arithmetic — against the JAX reference,
 bit for bit, on the CPU.  The same seeded numpy inputs go through both
 packages.  The W8A8 GEMM's plain version is also held to the Pallas kernel
-in interpret mode, as the reference's own tests run it on the CPU."""
+in interpret mode, as the reference's own tests run it on the CPU.
+
+``w8a8_sim`` (``_calibrated_fake_quant``) is bit-exact only away from the
+few float32 values where ``absmax / qmax`` is a power of two that the
+reference's ``jnp.log2`` on XLA's CPU does not give exactly (2^-15 among
+them: -14.999999046, so its ``ceil`` takes the step above).  The port keeps
+``torch.log2``, which is exact there; no formula tried matches the
+reference at all of these points (ROADMAP §3, R6).  Seeded random data does
+not reach them; ``test_calibrated_step_at_an_inexact_log2_differs`` pins
+the smallest such input with both values."""
 
 import jax
 import jax.numpy as jnp
@@ -89,6 +98,31 @@ def test_matmul_modes_match(mode, shape):
     else:
         jw, tw = jnp.asarray(w), _t(w)
     _eq(tq.matmul(_t(x), tw, mode), jq.matmul(jnp.asarray(x), jw, mode))
+
+
+def test_calibrated_step_at_an_inexact_log2_differs():
+    """At ``x = [127·2^-15]``, ``bits=8``, ``absmax / qmax`` is exactly
+    2^-15.  The reference's ``jnp.log2`` gives -14.999999046 there, so its
+    step is 2^-14 (code 64, 0.00390625); ``torch.log2`` gives -15.0, so the
+    port's step is 2^-15 (code 127, the input itself).  ROADMAP §3, R6: the
+    reference's own inexactness, pinned here with both values; the GEMM in
+    ``w8a8_sim`` differs the same way."""
+    x = np.array([127 * 2.0 ** -15], np.float32)
+    assert float(jnp.log2(jnp.float32(2.0 ** -15))) == np.float32(
+        -14.999999046)
+    assert float(torch.log2(torch.tensor(2.0 ** -15))) == -15.0
+    want = jq._calibrated_fake_quant(jnp.asarray(x), 8)
+    got = tq._calibrated_fake_quant(_t(x), 8)
+    np.testing.assert_array_equal(np.asarray(want), [0.00390625])
+    np.testing.assert_array_equal(got.numpy(), x)
+    xm = np.zeros((2, 4), np.float32)
+    xm[0, 0] = x[0]
+    eye = np.eye(4, dtype=np.float32)
+    want = jq.matmul(jnp.asarray(xm), jnp.asarray(eye), "w8a8_sim")
+    got = tq.matmul(_t(xm), _t(eye), "w8a8_sim")
+    assert float(want[0, 0]) == 0.00390625
+    assert float(got[0, 0]) == x[0]
+    np.testing.assert_array_equal(got.numpy()[:, 1:], np.asarray(want)[:, 1:])
 
 
 def test_matmul_unknown_mode_raises():
