@@ -21,9 +21,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                non-monotone and saturating batches of 1–8193 packets, and
                an empty batch that must launch nothing; the W8A8 GEMM
                against ref.fixedpoint_matmul_ref on the qwen2-1.5b
-               projections at M ∈ {1, 17, 255, 2048}, ragged shapes, raw
-               int8 codes at unit scales (against an exact int64 product)
-               and a bfloat16 activation; the Taylor activation against
+               projections at M ∈ {1, 17, 64, 65, 255, 2048} in the
+               wrapper's design (wgmma, split-K at decode-sized M on the
+               long K) and in the first design (mma_sync), ragged shapes
+               (K % 16 != 0: zero codes appended to K, two counted
+               copies), both weight layouts (one counted copy for a
+               row-major w), raw int8 codes at unit
+               scales against an exact int64 product (K = 8960 at splits
+               1–35) and a bfloat16 activation; the Taylor activation against
                its plain version at orders 1/3/5/7 × x_frac 0/8/12/16 over
                1 to 2048·8960 codes that straddle its clamp, and a case
                whose Horner products wrap int32; the WKV chunk scan (float,
@@ -64,7 +69,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                qwen2-1.5b (d_model 1536, kv 256, d_ff 8960): quantize_tree
                on a seeded float32 decoder layer, matmul(x, leaf,
                "w8a8_int") for its 7 projections on 2048 seeded tokens
-               (equal to the plain version on the card, equal to the CPU
+               (7 wgmma launches on the K-major codes quantize_tree stores,
+               no layout copy; equal to the plain version on the card, equal
+               to the CPU
                port at 17 tokens, NMSE against the float product below
                1e-3), and ops.taylor_activation on the 2048×8960 gate
                output at orders 1/3/5 (equal to the plain version; NMSE
@@ -84,16 +91,26 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                against forward at 2 layers (0.08, the reference's); LMServer at
                batch 8 generating 16 greedy tokens, then 4 after a
                same-structure install with trace_count flat; the quantized
-               prefill (quantize_tree, 2 layers: 16 fixedpoint_matmul and 2
-               wkv_scan launches, NMSE against the float logits); and two
+               prefill (quantize_tree, 2 layers: 16 fixedpoint_matmul
+               launches, all wgmma with no layout copy, each equal to the
+               plain version on the operands the path gave it, and 2
+               wkv_scan launches; NMSE against the float logits below the
+               reference's 0.15); and two
                layers at full width in float32 on the card against the CPU
                port (forward and prefill logits).
   5. numbers — per-kernel time (CUDA events: per call as the path issues
                it, and queued behind a device sleep, device only), the
                plain version's time, the least time the card could take
-               (bytes or operations over its peak), and each path's packets
-               per second with its engine-call and kernel shares of the wall
-               time; for the flow path also the longest flow chain of the
+               (bytes or operations over its peak); for the GEMM at all 7
+               projection shapes and at M = 1 and 17 on up and down, and
+               for the WKV scan at the prefill geometry, the kernel and its
+               first design (the mma_sync GEMM, the one-block-per-row
+               scan) timed in turns on one card with the library call
+               where one exists (torch._int_mm + the rescale), and the WKV
+               scan's two device kernels split by the profiler; also each
+               path's packets per second with its engine-call and kernel
+               shares of the wall time; for the flow path also the longest
+               flow chain of the
                timed batch, the register file's host↔card round trip and
                the share of the wall inside FlowFrontend.extract; for the
                LM path prefill and generate tokens per second and the WKV
@@ -256,6 +273,10 @@ LM_KERNEL_VS_REF = 1e-4
 # largest output (the float32 plain version itself reads up to 3.9e-7)
 LM_WKV_VS_EXACT = 2e-6
 LM_DECODE_VS_PREFILL = 0.08  # the reference's (tests/test_arch_smoke.py:139)
+# NMSE of the W8A8 model's logits against the float model's: the reference's
+# budget for its quantized LM prefill (tests/test_arch_smoke.py:184, the
+# paper's Fig-3 budget); the GEMM itself is held bit for bit
+LM_QUANT_NMSE = 0.15
 
 # the flow engine at the server's defaults: flow_capacity_pow2=14, a 2 x 4096
 # count-min sketch, and the FlowParams shifts
@@ -271,6 +292,10 @@ SWAPPED_SPEC = (0, 7, 1, 6) * (WIDTH // 4)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def reset_launches() -> None:
@@ -1093,26 +1118,33 @@ def flow_numbers(dev, flow: dict, worst: int, card: str) -> dict:
 
 def gemm_operands(seed: int, m: int, k: int, n: int, dev):
     """Seeded float x (M, K) ~ N(0, 1) and w (K, N) ~ N(0, 1/K) on ``dev``,
-    quantized as the path quantizes them: per row and per column."""
+    quantized as the path quantizes them: per row and per column, the weight
+    codes K-major as quantize_tree stores them."""
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((m, k), generator=g, device=dev)
     w = torch.randn((k, n), generator=g, device=dev) / math.sqrt(k)
     xc, xs = tq.absmax_quantize(x, axis=-1)
     wc, ws = tq.absmax_quantize(w, axis=0)
-    return xc, wc, xs, ws
+    return xc, tq.k_major(wc), xs, ws
 
 
-def check_gemm(label: str, xc, wc, xs, ws, exact=None) -> float:
-    """The GEMM kernel against ref.fixedpoint_matmul_ref on the same card
-    inputs (and against ``exact`` when given); returns the largest
-    absolute difference (must be 0)."""
-    got = fmm.fixedpoint_matmul(xc, wc, xs, ws)
+def check_gemm(label: str, xc, wc, xs, ws, exact=None, design=None,
+               split=1) -> float:
+    """The GEMM kernel (the wrapper's choice, or ``design`` with ``split``)
+    against ref.fixedpoint_matmul_ref on the same card inputs (and against
+    ``exact`` when given); returns the largest absolute difference (must be
+    0)."""
+    got = (fmm.fixedpoint_matmul(xc, wc, xs, ws) if design is None
+           else fmm.run_design(xc, wc, xs, ws, design, split))
     want = ops.fixedpoint_matmul(xc, wc, xs, ws, backend="ref")
     torch.cuda.synchronize()
     err = float((got - want).abs().max()) if got.numel() else 0.0
     ok = torch.equal(got, want) and (exact is None or torch.equal(
         got.cpu(), exact))
     m, k = xc.shape
+    if design is None:
+        design, split = "wgmma", fmm.plan(m, wc.shape[1], k, sms())
+    label = f"{label} [{design}, split {split}]"
     log(f"kernel fixedpoint_matmul {label} M={m} K={k} N={wc.shape[1]}: "
         f"{'equal' if ok else 'DIFFERS'} to its plain version"
         f"{' and the exact int64 product' if exact is not None else ''} "
@@ -1124,28 +1156,60 @@ def check_gemm(label: str, xc, wc, xs, ws, exact=None) -> float:
 
 
 def check_gemm_kernels(dev) -> float:
+    """The wrapper's design at the layer's projections for M from one token
+    to 2048 (M at the 64-row wgmma slab and the 128-row tile, decode-sized
+    M at the long K with split-K), the first design (mma_sync) at the same
+    shapes, ragged shapes (K % 16 != 0: K padded with zero codes), both
+    weight layouts, the copies counted, raw codes over the whole int8 range
+    at unit scales against the exact int64 product (every split of
+    K = 8960), and a bfloat16 activation through the w8a8_int linear."""
     worst = 0.0
     for name, (_, k, n) in PROJECTIONS.items():
         if name in ("wk", "wo", "gate"):  # same (K, N) as wv, wq, up
             continue
-        for m in (1, 17, 255, N_TOKENS):
-            worst = max(worst, check_gemm(
-                f"qwen2-1.5b {name}", *gemm_operands(SEED + m, m, k, n, dev)))
-    for m, k, n in ((100, 300, 50), (257, 513, 129), (1, 512, 7)):
+        for m in (1, 17, 64, 65, 255, N_TOKENS):
+            ops_ = gemm_operands(SEED + m, m, k, n, dev)
+            worst = max(worst, check_gemm(f"qwen2-1.5b {name}", *ops_))
+            if m in (17, N_TOKENS):
+                xc, wc, xs, ws = ops_
+                worst = max(worst, check_gemm(
+                    f"qwen2-1.5b {name}, first design", xc, wc.contiguous(),
+                    xs, ws, design="mma_sync"))
+    for m, k, n in ((100, 300, 50), (257, 513, 129), (1, 512, 7),
+                    (16, 1552, 136), (63, 1536, 129)):
+        copies = fmm.relayouts["fixedpoint_matmul"]
         worst = max(worst, check_gemm(
             "ragged", *gemm_operands(SEED + k, m, k, n, dev)))
+        if fmm.relayouts["fixedpoint_matmul"] != copies + 2 * (k % 16 != 0):
+            raise SystemExit(f"fixedpoint_matmul: K={k} must copy x and w "
+                             "(zero codes appended) where K % 16 != 0, "
+                             "nothing else")
+    xc, wc, xs, ws = gemm_operands(SEED + 13, 255, D_MODEL, KV_DIM, dev)
+    copies = fmm.relayouts["fixedpoint_matmul"]
+    worst = max(worst, check_gemm("row-major w", xc, wc.contiguous(), xs, ws))
+    worst = max(worst, check_gemm("K-major w", xc, wc, xs, ws))
+    if fmm.relayouts["fixedpoint_matmul"] != copies + 1:
+        raise SystemExit("fixedpoint_matmul: a row-major w must be copied "
+                         "to K-major once, a K-major w never")
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
-    for k in (512, D_MODEL):  # raw codes over the whole int8 range
+    for k in (512, D_MODEL, D_FF):  # raw codes over the whole int8 range
         xc = torch.randint(-128, 128, (255, k), generator=g, device=dev,
                            dtype=torch.int8)
         wc = torch.randint(-128, 128, (k, 129), generator=g, device=dev,
                            dtype=torch.int8)
         exact = torch.as_tensor(xc.cpu().numpy().astype(np.int64)
                                 @ wc.cpu().numpy().astype(np.int64))
+        unit = (torch.ones((255, 1), device=dev),
+                torch.ones((1, 129), device=dev))
         worst = max(worst, check_gemm(
-            "raw codes, unit scales", xc, wc,
-            torch.ones((255, 1), device=dev), torch.ones((1, 129), device=dev),
+            "raw codes, unit scales", xc, tq.k_major(wc), *unit,
             exact=exact.to(torch.float32)))
+        if k == D_FF:
+            for split in (2, 5, 14, 35):
+                worst = max(worst, check_gemm(
+                    "raw codes, unit scales", xc, tq.k_major(wc), *unit,
+                    exact=exact.to(torch.float32), design="wgmma",
+                    split=split))
     # a bfloat16 activation through the w8a8_int linear: card vs CPU port
     x = (torch.randn((255, D_MODEL), generator=g, device=dev) * 3).to(
         torch.bfloat16)
@@ -1275,6 +1339,12 @@ def run_c1c2_path(dev, card: str) -> dict:
                                                 "taylor_activation")}
     if launches != {"fixedpoint_matmul": 7, "taylor_activation": 3}:
         raise SystemExit(f"C1/C2 path launches {launches}, expected 7 and 3")
+    designs = dict(fmm.designs)
+    if designs != {"wgmma": 7, "mma_sync": 0} or fmm.relayouts[
+            "fixedpoint_matmul"]:
+        raise SystemExit(f"C1/C2 path GEMM designs {designs}, layout copies "
+                         f"{fmm.relayouts}: expected 7 wgmma launches on the "
+                         "K-major codes quantize_tree stores, no copy")
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full float32 reference
     errs = {}
@@ -1319,7 +1389,8 @@ def run_c1c2_path(dev, card: str) -> dict:
         raise SystemExit(f"C2 path: NMSE on [-1.5, 1.5] {nmse_in}: expected "
                          "order 5 below 1e-4 and falling with the order")
     log(f"path C1/C2: 7 projections + 3 Taylor passes in {dt:.4f} s "
-        f"(launches {launches}) [{card}]")
+        f"(launches {launches}; GEMM designs {designs}, layout copies 0) "
+        f"[{card}]")
     return dict(launches=launches, inputs=inputs, leaves=leaves, x_q=x_q,
                 sig=sig, nmse=errs)
 
@@ -1339,62 +1410,82 @@ def taylor_ops(n: int, order: int) -> int:
     return n * (2 + 5 * order)
 
 
+def in_turns(calls: dict, timer) -> dict:
+    """Time each of ``calls`` twice, in the order A, B, …, …, B, A on one
+    card; returns the mean of each one's two readings."""
+    order = list(calls) + list(calls)[::-1]
+    got = {name: [] for name in calls}
+    for name in order:
+        got[name].append(timer(calls[name]))
+    return {name: sum(v) / len(v) for name, v in got.items()}
+
+
 def c1c2_numbers(dev, c1c2: dict, worst: dict, card: str) -> list:
-    """Phase 5 for the GEMM (every projection of the layer on the path's own
-    operands, plus decode-sized M on the widest one) and the Taylor kernel
-    (order 5 on the path's 2048×8960 codes).  Returns the two JSON
-    entries; the GEMM's is the up projection, the layer's largest."""
-    rows = {}
+    """Phase 5 for the GEMM and the Taylor kernel.  The GEMM at every
+    projection of the layer on the path's own operands and at decode-sized
+    M (1 and 17) on the widest and on the longest-K projection: the
+    wrapper's design and the first design (mma_sync, on row-major codes)
+    timed in turns, with torch._int_mm + the rescale (checked equal) and
+    the bound.  The Taylor kernel at order 5 on the path's 2048×8960 codes.
+    Returns the two JSON entries; the GEMM's is the up projection, the
+    layer's largest."""
+    cases = {}
     for name, (codes, scale) in c1c2["leaves"].items():
         if name in ("wk", "gate"):  # same operand shapes as wv and up
             continue
         xc, xs = tq.absmax_quantize(c1c2["inputs"][name], axis=-1)
+        cases[name] = (xc, codes, xs, scale)
+    for name in ("up", "down"):
+        _, k, n = PROJECTIONS[name]
+        for m in (1, 17):
+            cases[f"decode {name} M={m}"] = gemm_operands(SEED + m, m, k, n,
+                                                          dev)
+    rows = {}
+    for name, (xc, codes, xs, scale) in cases.items():
         m, k = xc.shape
         n = codes.shape[1]
-        col = codes.t().contiguous().t()  # column-major for cuBLASLt
+        split = fmm.plan(m, n, k, sms())
+        rows_major = codes.contiguous()  # the first design's layout
+        calls = {
+            "kernel": lambda: fmm.fixedpoint_matmul(xc, codes, xs, scale),
+            "first design": lambda: fmm.run_design(xc, rows_major, xs, scale,
+                                                   "mma_sync"),
+        }
+        lib_ms = None
+        if m > 16:  # torch._int_mm takes M > 16; codes K-major as cuBLASLt's
+            def library():
+                return (torch._int_mm(xc, codes).to(torch.float32) * xs) * scale
 
-        def call():
-            fmm.fixedpoint_matmul(xc, codes, xs, scale)
-
-        def library():
-            return (torch._int_mm(xc, col).to(torch.float32) * xs) * scale
-
-        if not torch.equal(library(), fmm.fixedpoint_matmul(xc, codes, xs,
-                                                            scale)):
-            raise SystemExit(f"torch._int_mm + rescale differs from the "
-                             f"kernel ({name}): not the same function")
-        k_ms, q_ms = cuda_ms(call), queued_ms(call)
+            if not torch.equal(library(), fmm.fixedpoint_matmul(
+                    xc, codes, xs, scale)):
+                raise SystemExit(f"torch._int_mm + rescale differs from the "
+                                 f"kernel ({name}): not the same function")
+            calls["library"] = library
+        per_call = in_turns(calls, cuda_ms)
+        queued = in_turns(calls, queued_ms)
+        lib_ms = per_call.get("library")
+        mm_ms = (cuda_ms(lambda: torch._int_mm(xc, codes)) if m > 16
+                 else None)
         p_ms = cuda_ms(lambda: ops.fixedpoint_matmul(xc, codes, xs, scale,
                                                      backend="ref"),
                        reps=5, inner=5)
-        lib_ms = cuda_ms(library)
-        mm_ms = cuda_ms(lambda: torch._int_mm(xc, col))
         b_ms, b_by = gemm_bound(m, k, n)
+        k_ms = per_call["kernel"]
         rows[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                           library_ms=lib_ms)
+        lib = ("none (torch._int_mm needs M > 16)" if lib_ms is None else
+               f"{lib_ms:.4f} ms ({queued['library']:.4f} queued; "
+               f"torch._int_mm alone {mm_ms:.4f})")
         log(f"time fixedpoint_matmul {name} M={m} K={k} N={n}: kernel "
-            f"{k_ms:.4f} ms per call ({q_ms:.4f} ms queued, device only), "
-            f"plain {p_ms:.4f} ms, torch._int_mm {mm_ms:.4f} ms "
-            f"({lib_ms:.4f} ms with the rescale), bound {b_ms:.6f} ms "
-            f"({b_by}); {2 * m * n * k / (k_ms * 1e9):.1f} TOP/s [{card}]")
-    _, k, n = PROJECTIONS["up"]
-    for m in (1, 17):
-        xc, wc, xs, ws = gemm_operands(SEED + m, m, k, n, dev)
-        k_ms = cuda_ms(lambda: fmm.fixedpoint_matmul(xc, wc, xs, ws))
-        q_ms = queued_ms(lambda: fmm.fixedpoint_matmul(xc, wc, xs, ws))
-        b_ms, b_by = gemm_bound(m, k, n)
-        lib = ""
-        if m > 16:
-            col = wc.t().contiguous().t()
-            lib = (f", torch._int_mm + rescale "
-                   f"{cuda_ms(lambda: (torch._int_mm(xc, col).float() * xs) * ws):.4f} ms")
-        log(f"time fixedpoint_matmul decode M={m} K={k} N={n}: kernel "
-            f"{k_ms:.4f} ms per call ({q_ms:.4f} ms queued){lib}, bound "
-            f"{b_ms:.6f} ms ({b_by}) [{card}]")
-    up = rows["up"]
+            f"[wgmma, split {split}] {k_ms:.4f} ms per call "
+            f"({queued['kernel']:.4f} ms queued, device only), first design "
+            f"[mma_sync] {per_call['first design']:.4f} ms "
+            f"({queued['first design']:.4f} queued), torch._int_mm + rescale "
+            f"{lib}, plain {p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); "
+            f"{2 * m * n * k / (k_ms * 1e9):.1f} TOP/s [{card}]")
     gemm = dict(KERNELS["fixedpoint_matmul"],
                 launches=c1c2["launches"]["fixedpoint_matmul"],
-                max_abs_err=worst["fixedpoint_matmul"], **up)
+                max_abs_err=worst["fixedpoint_matmul"], **rows["up"])
 
     x_q, coeffs = c1c2["x_q"], c1c2["sig"][5]
 
@@ -1725,21 +1816,61 @@ def run_rwkv6_path(dev, card: str) -> dict:
     # kernel (8 per layer) and the WKV kernel
     q2 = tq.quantize_tree(p2)
     model_q = build_model(cfg_b, device=dev)
+    gemm_calls = []  # the path's own GEMM operands, and what the kernel gave
+    wrapper = fmm.fixedpoint_matmul
+
+    def recorded(xc, wc, xs, ws):
+        out = wrapper(xc, wc, xs, ws)
+        gemm_calls.append((xc, wc, xs, ws, out.clone()))
+        return out
+
     torch.cuda.synchronize()
     reset_launches()
-    lq = model_q.prefill(q2, tokens=tokens)
+    fmm.fixedpoint_matmul = recorded
+    try:
+        lq = model_q.prefill(q2, tokens=tokens)
+    finally:
+        fmm.fixedpoint_matmul = wrapper
     torch.cuda.synchronize()
     q_launches = {k: v for k, v in read_launches().items() if v}
     if q_launches != {"fixedpoint_matmul": 8 * 2, "wkv_scan": 2}:
         raise SystemExit(f"quantized rwkv6 prefill launches {q_launches}, "
                          "expected fixedpoint_matmul 16 and wkv_scan 2")
+    q_designs = dict(fmm.designs)
+    if q_designs != {"wgmma": 16, "mma_sync": 0} or fmm.relayouts[
+            "fixedpoint_matmul"]:
+        raise SystemExit(f"quantized rwkv6 prefill GEMM designs {q_designs}, "
+                         f"layout copies {fmm.relayouts}: expected 16 wgmma, "
+                         "no copy")
+    # every GEMM of the path against its plain version on its own operands
+    # (K-major slices of the stacked codes, the activations' codes)
+    gemm_err, shapes = 0.0, {}
+    for xc, wc, xs, ws, got in gemm_calls:
+        want = ops.fixedpoint_matmul(xc, wc, xs, ws, backend="ref")
+        gemm_err = max(gemm_err, float((got - want).abs().max()))
+        shape = (xc.shape[0], xc.shape[1], wc.shape[1])
+        shapes[shape] = shapes.get(shape, 0) + 1
+        if not torch.equal(got, want) or wc.stride() != (1, wc.shape[0]):
+            raise SystemExit(f"quantized rwkv6 prefill: the GEMM at (M, K, "
+                             f"N) = {shape}, w strides {wc.stride()}, is not "
+                             "equal to its plain version on K-major codes")
+    if len(gemm_calls) != 8 * 2:
+        raise SystemExit(f"quantized rwkv6 prefill: {len(gemm_calls)} GEMM "
+                         "calls recorded, expected 16")
+    log(f"kernel fixedpoint_matmul rwkv6-3b quantized prefill, the path's own "
+        f"operands (K-major slices of the stacked codes): all "
+        f"{len(gemm_calls)} calls equal to the plain version at (M, K, N) "
+        f"{shapes} (max_abs_err {gemm_err})")
+    del gemm_calls
     check_logits("quantized rwkv6 prefill", lq, (LM_BATCH, 1, cfg.vocab_size))
     q_nmse = nmse(model_q.prefill(p2, tokens=tokens).float(), lq.float())
     log(f"path rwkv6 quantized prefill (quantize_tree, 2 layers, bf16, "
-        f"B={LM_BATCH} T={LM_SEQ}): launches {q_launches}; NMSE of the "
-        f"last-position logits against the float prefill {q_nmse:.3e}")
-    if not math.isfinite(q_nmse):
-        raise SystemExit("quantized rwkv6 prefill: NMSE not finite")
+        f"B={LM_BATCH} T={LM_SEQ}): launches {q_launches}, GEMM designs "
+        f"{q_designs}, layout copies 0; NMSE of the last-position logits "
+        f"against the float prefill {q_nmse:.3e} (bound {LM_QUANT_NMSE})")
+    if not q_nmse < LM_QUANT_NMSE:
+        raise SystemExit(f"quantized rwkv6 prefill: NMSE {q_nmse} against "
+                         f"the float prefill (bound {LM_QUANT_NMSE})")
 
     # two layers at full width in float32: the card against the CPU port
     cfg32 = cfg.replace(n_layers=2, dtype="float32")
@@ -1760,7 +1891,7 @@ def run_rwkv6_path(dev, card: str) -> dict:
         raise SystemExit(f"rwkv6 card vs CPU port: {errs}")
 
     heads, chunk = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_chunk
-    return dict(launches=launches, prefill_s=prefill_s,
+    return dict(launches=launches, prefill_s=prefill_s, gemm_err=gemm_err,
                 prefill_tokens_per_s=LM_BATCH * LM_SEQ / prefill_s,
                 generate_tokens_per_s=gen_tps, n_layers=cfg.n_layers,
                 wkv_shape=(LM_BATCH * heads, -(-LM_SEQ // chunk), chunk,
@@ -1773,13 +1904,28 @@ def wkv_numbers(dev, lm: dict, worst: float, card: str) -> dict:
     the path's own)."""
     bh, nc, c, d = lm["wkv_shape"]
     args = wkv_operands(SEED + 60, bh, nc, c, d, dev)
-
-    def call():
-        wk.wkv_scan(*args)
-
-    k_ms, q_ms = cuda_ms(call), queued_ms(call)
+    calls = {"kernel": lambda: wk.wkv_scan(*args),
+             "first design": lambda: wk.run_design(*args, "rowloop")}
+    per_call = in_turns(calls, cuda_ms)
+    queued = in_turns(calls, queued_ms)
+    k_ms, q_ms = per_call["kernel"], queued["kernel"]
     p_ms = cuda_ms(lambda: ops.wkv_scan(*args, backend="ref"), reps=5,
                    inner=5)
+    # the device kernels of one call, by name (CUDA events cannot split them)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            wk.wkv_scan(*args)
+        torch.cuda.synchronize()
+    split = {e.key.replace("(anonymous namespace)::", "").split("(")[0]:
+             e.device_time_total / 1e4
+             for e in prof.key_averages() if e.device_time_total > 0}
+    log(f"time wkv_scan per device kernel (profiler, 10 calls): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in split.items())
+        + f"; {len(split)} device kernels per call [{card}]")
+    if len(split) != 2:
+        raise SystemExit(f"wkv_scan: expected two device kernels per call, "
+                         f"the profiler saw {split}")
     # per chunk: the strictly lower triangles of a·bᵀ and scores·v
     # (C(C−1)/2 dot products of length D each), a·S and (b ⊙ tot)ᵀ·v, and
     # the elementwise diag ⊙ v (+ its add), b ⊙ tot and S ⊙ totᵀ (+ its add)
@@ -1789,7 +1935,9 @@ def wkv_numbers(dev, lm: dict, worst: float, card: str) -> dict:
     b_ms, b_by = bound_ms(n_bytes, n_ops, CUDA_CORE_OPS_PER_S)
     share = lm["n_layers"] * k_ms / (lm["prefill_s"] * 1e3)
     log(f"time wkv_scan (BH, NC, C, D) = ({bh}, {nc}, {c}, {d}): kernel "
-        f"{k_ms:.4f} ms per call ({q_ms:.4f} ms queued, device only), plain "
+        f"[two_phase] {k_ms:.4f} ms per call ({q_ms:.4f} ms queued, device "
+        f"only), first design [rowloop] {per_call['first design']:.4f} ms "
+        f"({queued['first design']:.4f} queued), plain "
         f"{p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {n_ops / 1e9:.2f} GFLOP, "
         f"{n_bytes / 1e6:.1f} MB); {n_ops / (k_ms * 1e9):.2f} TFLOP/s; "
         f"{lm['launches']['wkv_scan']} launches per prefill, "
@@ -1871,6 +2019,8 @@ def main() -> int:
     c1c2 = run_c1c2_path(dev, smi)
     t0 = time.perf_counter()
     lm = run_rwkv6_path(dev, smi)
+    worst["fixedpoint_matmul"] = max(worst["fixedpoint_matmul"],
+                                     lm["gemm_err"])
     log(f"rwkv6 path: {time.perf_counter() - t0:.1f} s")
 
     # -- 5. numbers -----------------------------------------------------------

@@ -782,7 +782,9 @@ class WeightRegistry:
     Counterpart of ``repro.core.control_plane.WeightRegistry``.  Installing
     a checkpoint of the same structure swaps it in; the server's serving
     configurations stay as they were.  A structure change (other key paths,
-    or a ``(codes, scale)`` pair where a tensor was) raises.
+    or a ``(codes, scale)`` pair where a tensor was) raises.  The codes of
+    installed ``(codes, scale)`` pairs are stored K-major
+    (``core.quantize.k_major``), the layout the card's GEMM reads.
     """
 
     def __init__(self):
@@ -792,6 +794,8 @@ class WeightRegistry:
         self.swaps = 0
 
     def install(self, name: str, params) -> None:
+        from .quantize import k_major_pairs  # quantize → inference → here
+        params = k_major_pairs(params)
         with self._lock:
             struct = tree_structure(params)
             if name in self._structs and struct != self._structs[name]:

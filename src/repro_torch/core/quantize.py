@@ -9,12 +9,18 @@ scale.  Counterpart of ``repro.core.quantize``, with its three modes:
                     accumulation (the FPGA stage, C1).
 
 ``w8a8_matmul_int`` quantizes ``x`` per row, flattens its leading dims to
-``(M, K)`` and calls ``kernels.ops.fixedpoint_matmul``: the hand-written
+``(M, K)`` and calls ``kernels.ops.fixedpoint_matmul`` with the weight codes
+as they are: the hand-written
 CUDA W8A8 kernel for tensors on the card, its plain version
 (``ref.fixedpoint_matmul_ref``) for tensors on the CPU.  Both give the bits
 of the reference's ``dot_general`` path: the int32 accumulator, then
 ``(float32(acc) · x_scale) · w_scale``.  The card path takes int8 codes
 (``bits <= 8``).
+
+Weight codes keep the reference's shape and values, (in, out), but are
+stored K-major — strides (1, in) on the last two axes, ``k_major(codes)`` —
+because the card's GEMM reads its weight operand along K; a row-major
+(in, out) array costs that GEMM a layout copy per call.
 
 Also ``quantize_tree`` (whole-tree weight quantization for serving, with a
 name filter so norms, biases and embeddings stay float) over nested dicts,
@@ -41,6 +47,8 @@ __all__ = [
     "matmul",
     "quantize_tree",
     "QuantizedLinear",
+    "k_major",
+    "k_major_pairs",
 ]
 
 
@@ -68,7 +76,7 @@ def w8a8_matmul_int(x: torch.Tensor, w_codes: torch.Tensor,
     x_codes, x_scale = absmax_quantize(x, bits=bits, axis=-1)
     k, n = w_codes.shape
     out = ops.fixedpoint_matmul(
-        x_codes.reshape(-1, k), w_codes.contiguous(),
+        x_codes.reshape(-1, k), w_codes,
         x_scale.reshape(-1, 1).to(torch.float32).contiguous(),
         w_scale.reshape(1, n).to(torch.float32).contiguous())
     return out.reshape(*x.shape[:-1], n) if x.dim() > 1 else out
@@ -116,6 +124,29 @@ def matmul(x: torch.Tensor, w, mode: str = "fp") -> torch.Tensor:
     raise ValueError(f"unknown quant mode: {mode}")
 
 
+def k_major(codes: torch.Tensor) -> torch.Tensor:
+    """The same (…, K, N) values with strides (…, 1, K) on the last two axes
+    (each (K, N) matrix stored as its (N, K) transpose, row-major); a tensor
+    already so laid out is returned as is."""
+    t = codes.transpose(-1, -2)
+    return codes if t.is_contiguous() else t.contiguous().transpose(-1, -2)
+
+
+def k_major_pairs(tree):
+    """``tree`` with the codes of every ``(integer codes of rank ≥ 2, float
+    scale)`` pair made K-major (:func:`k_major`); other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: k_major_pairs(v) for k, v in tree.items()}
+    if (isinstance(tree, tuple) and len(tree) == 2
+            and all(isinstance(t, torch.Tensor) for t in tree)
+            and tree[0].dim() >= 2 and not tree[0].is_floating_point()
+            and tree[1].is_floating_point()):
+        return (k_major(tree[0]), tree[1])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(k_major_pairs(v) for v in tree)
+    return tree
+
+
 # GEMM weight leaves only (whitelist): dense '.../w', MoE expert stacks.
 # Norms, biases, embeddings, conv/recurrence tables stay high-precision.
 _DEFAULT_INCLUDE = re.compile(r"\['w'\]$|\['w_(gate|up|down)'\]$")
@@ -131,7 +162,7 @@ def quantize_tree(params, bits: int = 8,
     for dict keys and ``[0]`` for sequence indices — matches the weight
     filter and ``skip`` (optional) does not veto it.  The absmax runs over
     the input axis (−2), so leading layer-stack dims are kept.  The result
-    has the same structure."""
+    has the same structure; the codes are K-major (:func:`k_major`)."""
     def visit(path: str, node):
         if isinstance(node, dict):
             return {k: visit(f"{path}[{k!r}]", v) for k, v in node.items()}
@@ -142,7 +173,7 @@ def quantize_tree(params, bits: int = 8,
                 and node.is_floating_point() and _DEFAULT_INCLUDE.search(path)
                 and not (skip and skip(path))):
             codes, scale = absmax_quantize(node, bits=bits, axis=-2)
-            return (codes, scale.to(torch.float32))
+            return (k_major(codes), scale.to(torch.float32))
         return node
 
     return visit("", params)
@@ -150,14 +181,15 @@ def quantize_tree(params, bits: int = 8,
 
 class QuantizedLinear(torch.nn.Module):
     """A linear layer on the integer datapath: the weight ``w`` (in, out) is
-    quantized per output channel once, into ``codes``/``scale`` buffers on
-    ``device`` (the card unless the caller asks for the CPU)."""
+    quantized per output channel once, into ``codes`` (K-major) and
+    ``scale`` buffers on ``device`` (the card unless the caller asks for the
+    CPU)."""
 
     def __init__(self, w, bits: int = 8, *, device="cuda"):
         super().__init__()
         w = torch.as_tensor(w).to(resolve_device(device))
         codes, scale = absmax_quantize(w, bits=bits, axis=0)
-        self.register_buffer("codes", codes)
+        self.register_buffer("codes", k_major(codes))
         self.register_buffer("scale", scale)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

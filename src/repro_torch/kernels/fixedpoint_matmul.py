@@ -6,43 +6,111 @@ the paper's integer datapath (C1) on Hopper's int8 tensor cores.
   w_scale (1, N) float32 → (M, N) float32 = (acc · x_scale) · w_scale
 
 For tensors on the CPU it runs the plain version
-(``ref.fixedpoint_matmul_ref``).  For tensors on the card it launches the
-kernel on the current stream or raises — there is no fallback.  Any M, N
-and K: the kernel predicates the ragged edges itself (the wrapper pads
-nothing).  Every launch adds one to ``launches["fixedpoint_matmul"]``.
+(``ref.fixedpoint_matmul_ref``).  For tensors on the card it launches a
+kernel on the current stream or raises — there is no fallback.
+
+``w_codes`` has the reference's shape and values, (K, N), in either of two
+layouts: K-major (strides (1, K), as ``core.quantize`` stores weight codes)
+or row-major (contiguous).  Every call runs one design, ``"wgmma"``: TMA
+loads of x and of K-major w, ``wgmma`` on a persistent grid, split-K where
+the output tiles leave SMs idle (:func:`plan`).  Operands TMA cannot take
+are copied first:
+
+  * a row-major w, to K-major;
+  * K % 16 != 0 (TMA strides are multiples of 16 bytes) or K == 0: x and w
+    get zero codes appended up to the next multiple of 16 — zero codes add
+    nothing to the int32 sums, so the bits stay the same;
+  * an operand that does not start on a 16-byte boundary, to a fresh one.
+
+Each copied operand adds one to ``relayouts["fixedpoint_matmul"]``.  Every
+call that launches adds one to ``launches["fixedpoint_matmul"]`` and one to
+``designs[<design>]``.  :func:`run_design` also reaches the first design
+(``"mma_sync"``: ``mma.sync`` on a 128×128 tile per block, w row-major),
+which nothing dispatches to: it is kept only to time and check the wgmma
+design against it on the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Dict
+import functools
+from typing import Dict, Tuple
 
 import torch
 
 from . import _build
 from .ref import fixedpoint_matmul_ref
 
-__all__ = ["fixedpoint_matmul", "launches", "reset_launches", "load_library"]
+__all__ = ["fixedpoint_matmul", "run_design", "plan", "DESIGNS", "launches",
+           "designs", "relayouts", "reset_launches", "load_library"]
+
+DESIGNS = ("wgmma", "mma_sync")
 
 #: kernel launches since the last :func:`reset_launches`
 launches: Dict[str, int] = {"fixedpoint_matmul": 0}
+#: launches by design
+designs: Dict[str, int] = {d: 0 for d in DESIGNS}
+#: weight-layout copies made before a launch
+relayouts: Dict[str, int] = {"fixedpoint_matmul": 0}
 
-_MAX_M = 65535 * 128  # the grid's y extent × the block's rows
+TILE = 128          # the wgmma design's output tile and K step (bytes)
+SPLIT = 4           # slices of K where split-K pays (see plan)
+LONG_K_STEPS = 64   # K steps from which it pays
+_MAX_M = 65535 * 128  # the mma_sync grid's y extent × the block's rows
 
 
 def reset_launches() -> None:
     launches["fixedpoint_matmul"] = 0
+    relayouts["fixedpoint_matmul"] = 0
+    for d in DESIGNS:
+        designs[d] = 0
+
+
+_lib = None
 
 
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the kernel library."""
-    lib = _build.load("fixedpoint_matmul")
-    fn = lib.fixedpoint_matmul_launch
-    if fn.argtypes is None:
+    global _lib
+    if _lib is None:
+        lib = _build.load("fixedpoint_matmul")
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, p]
-        fn.restype = ctypes.c_int
-    return lib
+        lib.fixedpoint_matmul_wgmma_launch.argtypes = [p, p, p, p, p, p, p, i,
+                                                       i, i, i, i, i, p]
+        lib.fixedpoint_matmul_wgmma_launch.restype = ctypes.c_int
+        lib.fixedpoint_matmul_mma_sync_launch.argtypes = [p, p, p, p, p, i, i,
+                                                          i, p]
+        lib.fixedpoint_matmul_mma_sync_launch.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(m: int, n: int, k: int, num_sms: int) -> int:
+    """Slices of K for an (M, K) · (K, N) call on a card with ``num_sms``
+    SMs: ``SPLIT`` where that many slices of every 128×128 output tile still
+    fit in one wave and K is long (at least ``LONG_K_STEPS`` 128-byte
+    steps), else 1.  The rule is the one measured on an H100 at the paths'
+    shapes (PERF.md): split-K pays at decode-sized M on the long K (down,
+    K = 8960) and nowhere else.  No slice of K is ever empty."""
+    tiles = _cdiv(m, TILE) * _cdiv(n, TILE)
+    long_k = _cdiv(max(k, 1), TILE) >= LONG_K_STEPS
+    return SPLIT if long_k and tiles * SPLIT <= num_sms else 1
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _k_major(w: torch.Tensor) -> bool:
+    """Whether a (K, N) ``w`` has strides (1, K) (size-1 dims aside)."""
+    k, n = w.shape
+    return (k <= 1 or w.stride(0) == 1) and (n <= 1 or w.stride(1) == k)
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -53,16 +121,9 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
-def fixedpoint_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor,
-                      x_scale: torch.Tensor,
-                      w_scale: torch.Tensor) -> torch.Tensor:
-    """W8A8 GEMM with per-row / per-column scales (see the module note)."""
-    if x_codes.device.type == "cpu":
-        return fixedpoint_matmul_ref(x_codes, w_codes, x_scale, w_scale)
+def _checked(x_codes, w_codes, x_scale, w_scale):
     if x_codes.device.type != "cuda":
         raise ValueError(f"no fixedpoint_matmul kernel for device "
                          f"{x_codes.device}")
@@ -75,18 +136,128 @@ def fixedpoint_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor,
     _check("w_codes", w_codes, torch.int8, (k, n), dev)
     _check("x_scale", x_scale, torch.float32, (m, 1), dev)
     _check("w_scale", w_scale, torch.float32, (1, n), dev)
-    if m > _MAX_M:
-        raise ValueError(f"M={m} above the kernel's grid limit {_MAX_M}")
+    for name, t in (("x_codes", x_codes), ("x_scale", x_scale),
+                    ("w_scale", w_scale)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not (w_codes.is_contiguous() or _k_major(w_codes)):
+        raise ValueError("w_codes must be K-major (strides (1, K)) or "
+                         "row-major (contiguous)")
+    return m, k, n
+
+
+def _tma_operands(x_codes: torch.Tensor, w_codes: torch.Tensor):
+    """``(x, w)`` as the wgmma design loads them: K a positive multiple of
+    16 (zero codes appended), w K-major, both 16-byte aligned.  Each copied
+    operand is counted in ``relayouts``."""
+    k = x_codes.shape[1]
+    kp = max(16, _cdiv(k, 16) * 16)
+    copies = 0
+    if kp != k:
+        x_codes = torch.nn.functional.pad(x_codes, (0, kp - k))
+        w_codes = torch.nn.functional.pad(w_codes.t(), (0, kp - k)).t()
+        copies = 2
+    else:
+        if x_codes.data_ptr() % 16:
+            x_codes = x_codes.clone()
+            copies += 1
+        if not _k_major(w_codes) or w_codes.data_ptr() % 16:
+            w_codes = w_codes.t().clone(
+                memory_format=torch.contiguous_format).t()
+            copies += 1
+    relayouts["fixedpoint_matmul"] += copies
+    return x_codes, w_codes
+
+
+def run_design(x_codes: torch.Tensor, w_codes: torch.Tensor,
+               x_scale: torch.Tensor, w_scale: torch.Tensor, design: str,
+               split: int = 1) -> torch.Tensor:
+    """Launch the named design on card tensors: ``"wgmma"`` with ``split``
+    slices of K (operands copied as :func:`fixedpoint_matmul` copies them,
+    which launches it with :func:`plan`'s split), or ``"mma_sync"`` on a
+    row-major w (a K-major w is copied).  Raises on a split that leaves a
+    slice of K empty."""
+    if design not in DESIGNS:
+        raise ValueError(f"unknown design {design!r}")
+    m, k, n = _checked(x_codes, w_codes, x_scale, w_scale)
+    if design == "wgmma":
+        nk = _cdiv(max(k, 1), TILE)
+        kper = _cdiv(nk, split) if split >= 1 else 0
+        if kper < 1 or _cdiv(nk, kper) != split:
+            raise ValueError(f"the wgmma design takes a split that leaves no "
+                             f"slice of K empty, got K={k}, split={split}")
+        x_codes, w_codes = _tma_operands(x_codes, w_codes)
+    else:
+        if m > _MAX_M:
+            raise ValueError(f"M={m} above the mma_sync grid's limit {_MAX_M}")
+        if not w_codes.is_contiguous():
+            w_codes = w_codes.contiguous()
+            relayouts["fixedpoint_matmul"] += 1
+    return _launch(x_codes, w_codes, x_scale, w_scale, design, split)
+
+
+# per (device, stream): int32 arrival counts of split-K tiles, zero between
+# launches (the last slice of a tile to arrive resets its count)
+_arrivals: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _arrival_counts(dev: torch.device, stream: int,
+                    tiles: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    buf = _arrivals.get(key)
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=dev)
+        _arrivals[key] = buf
+    return buf
+
+
+def _launch(x_codes, w_codes, x_scale, w_scale, design: str,
+            split: int) -> torch.Tensor:
+    (m, k), n = x_codes.shape, w_codes.shape[1]
+    dev = x_codes.device
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0 or n == 0:
         return out
     lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fixedpoint_matmul_launch(
-            x_codes.data_ptr(), w_codes.data_ptr(), x_scale.data_ptr(),
-            w_scale.data_ptr(), out.data_ptr(), m, n, k, stream)
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        if design == "wgmma":
+            tiles = _cdiv(m, TILE) * _cdiv(n, TILE)
+            part = arrivals = None
+            if split > 1:  # partial sums, and each tile's count of arrivals
+                part = torch.empty((split, m, n), dtype=torch.int32,
+                                   device=dev)
+                arrivals = _arrival_counts(dev, stream, tiles)
+            rc = lib.fixedpoint_matmul_wgmma_launch(
+                x_codes.data_ptr(), w_codes.data_ptr(), x_scale.data_ptr(),
+                w_scale.data_ptr(), out.data_ptr(),
+                None if part is None else part.data_ptr(),
+                None if arrivals is None else arrivals.data_ptr(), m, n, k,
+                split, _cdiv(_cdiv(k, TILE), split),
+                min(_num_sms(dev), tiles * split), stream)
+        else:
+            rc = lib.fixedpoint_matmul_mma_sync_launch(
+                x_codes.data_ptr(), w_codes.data_ptr(), x_scale.data_ptr(),
+                w_scale.data_ptr(), out.data_ptr(), m, n, k, stream)
     if rc != 0:
-        raise RuntimeError(f"fixedpoint_matmul launch failed: CUDA error {rc}")
+        raise RuntimeError(f"fixedpoint_matmul ({design}) launch failed: CUDA "
+                           f"error {rc}")
     launches["fixedpoint_matmul"] += 1
+    designs[design] += 1
     return out
+
+
+def fixedpoint_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor,
+                      x_scale: torch.Tensor,
+                      w_scale: torch.Tensor) -> torch.Tensor:
+    """W8A8 GEMM with per-row / per-column scales (see the module note)."""
+    if x_codes.device.type == "cpu":
+        return fixedpoint_matmul_ref(x_codes, w_codes, x_scale, w_scale)
+    m, k, n = _checked(x_codes, w_codes, x_scale, w_scale)
+    if m == 0 or n == 0:
+        return torch.empty((m, n), dtype=torch.float32,
+                           device=x_codes.device)
+    x_codes, w_codes = _tma_operands(x_codes, w_codes)
+    return _launch(x_codes, w_codes, x_scale, w_scale, "wgmma",
+                   plan(m, n, k, _num_sms(x_codes.device)))

@@ -15,7 +15,8 @@ primitives, ``fixedpoint_matmul_ref`` (the W8A8 GEMM, C1) and
 ``int32_matmul``, the exact wrapped int32 accumulator they and
 ``core.fixedpoint.qmatmul`` share; and ``wkv_scan_ref``, the RWKV-6 WKV
 chunk scan in float32 (the one float kernel: its kernel is held to it
-with a tolerance, not bit for bit).  Every integer product and sum is int32 with
+with a tolerance, not bit for bit), with ``wkv_scan_two_phase_ref``, the
+kernel's decomposition of it (which the tests hold to it).  Every integer product and sum is int32 with
 two's-complement wraparound, as in the reference: products are int32
 tensor multiplies, and reductions use ``sum(..., dtype=torch.int32)`` so
 the accumulator wraps to int32 *before* the rounding shift (a plain
@@ -47,7 +48,7 @@ __all__ = ["rounding_rshift", "lane_clamp", "fused_mlp_ref",
            "FLOW_CODE_MAX", "rounding_rshift_np", "sat_shl_np",
            "flow_update_numpy", "flow_update_ref", "int32_matmul",
            "fixedpoint_matmul_ref", "taylor_activation_ref", "int32_coeffs",
-           "wkv_scan_ref"]
+           "wkv_scan_ref", "wkv_scan_two_phase_ref"]
 
 
 def rounding_rshift(x: torch.Tensor, shift: int) -> torch.Tensor:
@@ -721,6 +722,35 @@ def wkv_scan_ref(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
         scores = (a_c @ b_c.transpose(1, 2)) * tri
         outs.append(scores @ v_c + diag_c * v_c + a_c @ s)
         s = s * tot_c.transpose(1, 2) + (b_c * tot_c).transpose(1, 2) @ v_c
+    if not outs:
+        return torch.zeros_like(a)
+    return torch.stack(outs, dim=1)
+
+
+def wkv_scan_two_phase_ref(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
+                           tot: torch.Tensor, diag: torch.Tensor
+                           ) -> torch.Tensor:
+    """The WKV card kernel's two-phase decomposition of ``wkv_scan_ref``, in
+    plain PyTorch (the tests hold it to ``wkv_scan_ref``):
+
+        phase 1, every chunk at once:  o_n  = strict_tril(a_n·b_nᵀ)·v_n
+                                              + diag_n ⊙ v_n
+                                       ΔS_n = (b_n ⊙ tot_n)ᵀ·v_n
+        phase 2, chunks in order:      o_n += a_n·S_n
+                                       S_{n+1} = S_n ⊙ tot_nᵀ + ΔS_n
+
+    with S_0 = 0; the same products as ``wkv_scan_ref``, summed in the
+    kernel's order."""
+    bh, nc, c, d = a.shape
+    tri = torch.tril(torch.ones((c, c), dtype=a.dtype, device=a.device),
+                     diagonal=-1)
+    o = (a @ b.transpose(-1, -2)) * tri @ v + diag * v
+    dstate = (b * tot).transpose(-1, -2) @ v          # (BH, NC, D, D)
+    s = torch.zeros((bh, d, d), dtype=a.dtype, device=a.device)
+    outs = []
+    for i in range(nc):
+        outs.append(o[:, i] + a[:, i] @ s)
+        s = s * tot[:, i].transpose(1, 2) + dstate[:, i]
     if not outs:
         return torch.zeros_like(a)
     return torch.stack(outs, dim=1)

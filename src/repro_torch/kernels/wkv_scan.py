@@ -5,9 +5,15 @@ recurrence in float32, with the D×D state of each (B·H) row kept on chip
 across its chunks.
 
 For tensors on the CPU it runs the plain version (``ref.wkv_scan_ref``).
-For tensors on the card it launches the kernel on the current stream or
-raises — there is no fallback.  Every launch adds one to
-``launches["wkv_scan"]``.
+For tensors on the card it launches the kernels on the current stream or
+raises — there is no fallback.  The design (``"two_phase"``) is two device
+kernels per call: one block per (row, chunk) computes each chunk's own part
+of ``o`` and its state increment into a (BH, NC, D, D) workspace, then one
+block per (row, 16 state columns) walks the chunks in order, adding a·S and
+carrying S.  :func:`run_design` also reaches the first design
+(``"rowloop"``: one block per row looping over its chunks), kept for
+comparison on the card.  Every call that launches adds one to
+``launches["wkv_scan"]``, whatever the number of device kernels.
 """
 
 from __future__ import annotations
@@ -20,8 +26,10 @@ import torch
 from . import _build
 from .ref import wkv_scan_ref
 
-__all__ = ["wkv_scan", "MAX_D", "MAX_C", "launches", "reset_launches",
-           "load_library"]
+__all__ = ["wkv_scan", "run_design", "DESIGNS", "MAX_D", "MAX_C", "launches",
+           "reset_launches", "load_library"]
+
+DESIGNS = ("two_phase", "rowloop")
 
 #: the kernel's limits: head dim D ≤ MAX_D, chunk length 1 ≤ C ≤ MAX_C
 MAX_D = 64
@@ -38,12 +46,14 @@ def reset_launches() -> None:
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the kernel library."""
     lib = _build.load("wkv_scan")
-    fn = lib.wkv_scan_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, ctypes.c_int64, ctypes.c_int64, i, i,
-                       p]
-        fn.restype = ctypes.c_int
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    if lib.wkv_scan_launch.argtypes is None:
+        lib.wkv_scan_launch.argtypes = [p, p, p, p, p, p, p, i64, i64, i, i, p]
+        lib.wkv_scan_launch.restype = ctypes.c_int
+    if lib.wkv_scan_rowloop_launch.argtypes is None:
+        lib.wkv_scan_rowloop_launch.argtypes = [p, p, p, p, p, p, i64, i64, i,
+                                                i, p]
+        lib.wkv_scan_rowloop_launch.restype = ctypes.c_int
     return lib
 
 
@@ -67,10 +77,20 @@ def wkv_scan(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
     """Chunked WKV scan: a/b/v (BH, NC, C, D), tot (BH, NC, 1, D), diag
     (BH, NC, C, 1), float32 → o (BH, NC, C, D) float32 (see
     ``ref.wkv_scan_ref`` for the recurrence)."""
+    if a.device.type == "cpu":
+        _check_shapes(a, b, v, tot, diag)
+        return wkv_scan_ref(a, b, v, tot, diag)
+    return run_design(a, b, v, tot, diag, "two_phase")
+
+
+def run_design(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
+               tot: torch.Tensor, diag: torch.Tensor,
+               design: str) -> torch.Tensor:
+    """Launch the named design on card tensors (see the module note)."""
+    if design not in DESIGNS:
+        raise ValueError(f"unknown design {design!r}")
     _check_shapes(a, b, v, tot, diag)
     args = (a, b, v, tot, diag)
-    if a.device.type == "cpu":
-        return wkv_scan_ref(*args)
     if a.device.type != "cuda":
         raise ValueError(f"no wkv_scan kernel for device {a.device}")
     for name, t in zip(("a", "b", "v", "tot", "diag"), args):
@@ -88,10 +108,16 @@ def wkv_scan(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
     lib = load_library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.wkv_scan_launch(a.data_ptr(), b.data_ptr(), v.data_ptr(),
-                                 tot.data_ptr(), diag.data_ptr(),
-                                 out.data_ptr(), bh, nc, c, d, stream)
+        ptrs = [t.data_ptr() for t in args] + [out.data_ptr()]
+        if design == "two_phase":
+            state = torch.empty((bh, nc, d, d), dtype=torch.float32,
+                                device=a.device)
+            rc = lib.wkv_scan_launch(*ptrs, state.data_ptr(), bh, nc, c, d,
+                                     stream)
+        else:
+            rc = lib.wkv_scan_rowloop_launch(*ptrs, bh, nc, c, d, stream)
     if rc != 0:
-        raise RuntimeError(f"wkv_scan launch failed: CUDA error {rc}")
+        raise RuntimeError(f"wkv_scan ({design}) launch failed: CUDA error "
+                           f"{rc}")
     launches["wkv_scan"] += 1
     return out

@@ -21,6 +21,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.inference import resolve_device
+from ..core.quantize import k_major_pairs
 from . import rwkv6
 
 __all__ = ["Model", "build_model", "params_from_numpy"]
@@ -83,7 +84,8 @@ def _tensor(a, dev: torch.device) -> torch.Tensor:
 def params_from_numpy(tree, device):
     """The reference's parameter (or cache) tree as numpy arrays → the same
     tree of tensors on ``device``.  Dicts, lists and tuples keep their
-    structure, so ``quantize_tree``'s ``(codes, scale)`` pairs stay pairs."""
+    structure, so ``quantize_tree``'s ``(codes, scale)`` pairs stay pairs,
+    their codes K-major as the port's ``quantize_tree`` stores them."""
     dev = resolve_device(device)
 
     def visit(node):
@@ -93,4 +95,4 @@ def params_from_numpy(tree, device):
             return type(node)(visit(v) for v in node)
         return _tensor(node, dev)
 
-    return visit(tree)
+    return k_major_pairs(visit(tree))

@@ -468,10 +468,12 @@ def test_w8a8_layer_path_on_card_matches_cpu_port(card):
         assert q["norm"]["scale"].is_floating_point()
         xt = torch.as_tensor(x, device=dev)
         before = fmm.launches["fixedpoint_matmul"]
+        copies = fmm.relayouts["fixedpoint_matmul"]
         ys = [tq.matmul(xt, q["attn"]["wq"]["w"], "w8a8_int"),
               tq.matmul(xt.to(torch.bfloat16), q["mlp"][0]["w"], "w8a8_int"),
               tq.QuantizedLinear(tree["mlp"][0]["w"], device=dev)(xt)]
         assert fmm.launches["fixedpoint_matmul"] == before + 3 * (dev == card)
+        assert fmm.relayouts["fixedpoint_matmul"] == copies  # K-major codes
         outs.append([y.cpu() for y in ys])
     for a, b in zip(*outs):
         assert a.dtype == b.dtype and torch.equal(a, b)
@@ -494,12 +496,108 @@ def test_fixedpoint_matmul_rejects_bad_arguments(card):
         fmm.fixedpoint_matmul(xc, wc.cpu(), xs, ws)
     with pytest.raises(ValueError):
         fmm.fixedpoint_matmul(xc, wc[:16], xs, ws)
-    with pytest.raises(ValueError):
-        fmm.fixedpoint_matmul(xc, wc.t().contiguous().t(), xs, ws)
+    with pytest.raises(ValueError, match="K-major"):  # neither layout
+        fmm.fixedpoint_matmul(xc, torch.cat([wc, wc], 1)[:, :8], xs, ws)
+    with pytest.raises(ValueError, match="design"):
+        fmm.run_design(xc, wc, xs, ws, "cublas")
+    with pytest.raises(ValueError, match="split"):  # 1 K step: no split
+        fmm.run_design(xc, wc, xs, ws, "wgmma", split=2)
     with pytest.raises(ValueError, match="card"):
         ops.fixedpoint_matmul(xc.cpu(), wc.cpu(), xs.cpu(), ws.cpu(),
                               backend="kernel")
     assert fmm.launches["fixedpoint_matmul"] == before
+    # a K-major w (strides (1, K), as quantize_tree stores codes) is taken
+    # as it is, and gives the same bits
+    km = wc.t().contiguous().t()
+    copies = fmm.relayouts["fixedpoint_matmul"]
+    got = fmm.fixedpoint_matmul(xc, km, xs, ws)
+    assert fmm.relayouts["fixedpoint_matmul"] == copies
+    assert torch.equal(got, ops.fixedpoint_matmul(xc, wc, xs, ws,
+                                                  backend="ref"))
+
+
+# M around the 64-row wgmma slab and the 128-row tile, N tails, decode-sized
+# M at the long K (split-K), and K % 16 != 0 (zero codes appended to K)
+@pytest.mark.parametrize("m,k,n", [(1, 1536, 8960), (16, 1536, 1536),
+                                   (17, 8960, 1536), (63, 1536, 129),
+                                   (64, 8960, 1536), (65, 1536, 7),
+                                   (2048, 1536, 8960), (1, 8960, 1536),
+                                   (33, 200, 64), (128, 1552, 136)])
+@pytest.mark.parametrize("layout", ["k_major", "row_major"])
+def test_fixedpoint_matmul_dispatch_and_layouts(card, m, k, n, layout):
+    xc, wc, xs, ws = _gemm_case(np.random.default_rng(m * k + n), m, k, n,
+                                card)
+    w = tq.k_major(wc) if layout == "k_major" else wc
+    split = fmm.plan(m, n, k, card_sms(card))
+    before = (fmm.launches["fixedpoint_matmul"], dict(fmm.designs),
+              fmm.relayouts["fixedpoint_matmul"])
+    got = fmm.fixedpoint_matmul(xc, w, xs, ws)
+    want = ops.fixedpoint_matmul(xc, wc, xs, ws, backend="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert fmm.launches["fixedpoint_matmul"] == before[0] + 1
+    assert fmm.designs == dict(before[1], wgmma=before[1]["wgmma"] + 1)
+    # copies: x and w padded where K % 16 != 0, else a row-major w only
+    copied = 2 if k % 16 else int(layout == "row_major")
+    assert fmm.relayouts["fixedpoint_matmul"] == before[2] + copied
+    if m <= 64 and k == 8960:
+        assert split > 1  # decode-sized M at the long K: split-K
+
+
+def test_fixedpoint_matmul_unaligned_operands(card):
+    """Codes that do not start on a 16-byte boundary (TMA's) are copied to
+    ones that do, and give the same bits."""
+    xc, wc, xs, ws = _gemm_case(np.random.default_rng(9), 33, 1536, 129,
+                                card)
+    store = torch.empty(xc.numel() + 1, dtype=torch.int8, device=card)
+    x_off = store[1:].view_as(xc)
+    x_off.copy_(xc)
+    wstore = torch.empty(wc.numel() + 1, dtype=torch.int8, device=card)
+    w_off = wstore[1:].view(wc.shape[1], wc.shape[0]).t()  # K-major, offset
+    w_off.copy_(wc)
+    assert x_off.data_ptr() % 16 and w_off.data_ptr() % 16
+    copies = fmm.relayouts["fixedpoint_matmul"]
+    got = fmm.fixedpoint_matmul(x_off, w_off, xs, ws)
+    want = ops.fixedpoint_matmul(xc, wc, xs, ws, backend="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert fmm.relayouts["fixedpoint_matmul"] == copies + 2
+
+
+def card_sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@pytest.mark.parametrize("split", [1, 2, 5, 10, 35])
+def test_fixedpoint_matmul_split_k_exact(card, split):
+    """K = 8960 (70 K steps) on raw codes over the whole int8 range at unit
+    scales, cut into ``split`` slices: every split gives the int64 product."""
+    rng = np.random.default_rng(split)
+    m, k, n = 255, 8960, 129
+    xc = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    wc = rng.integers(-128, 128, (k, n)).astype(np.int8)
+    xc[0] = -128
+    wc[:, 0] = -128
+    exact = torch.as_tensor(xc.astype(np.int64) @ wc.astype(np.int64))
+    w = tq.k_major(torch.as_tensor(wc, device=card))
+    got = fmm.run_design(torch.as_tensor(xc, device=card), w,
+                         torch.ones((m, 1), device=card),
+                         torch.ones((1, n), device=card), "wgmma", split)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), exact.to(torch.float32))
+
+
+@pytest.mark.parametrize("m,k,n", [(2048, 1536, 1536), (17, 1536, 8960),
+                                   (100, 300, 50)])
+def test_fixedpoint_matmul_designs_agree(card, m, k, n):
+    """The first design (mma_sync, row-major w) and the wgmma design on the
+    same operands: the same bits."""
+    xc, wc, xs, ws = _gemm_case(np.random.default_rng(m + n), m, k, n, card)
+    old = fmm.run_design(xc, wc, xs, ws, "mma_sync")
+    new = fmm.run_design(xc, tq.k_major(wc), xs, ws, "wgmma")
+    want = ops.fixedpoint_matmul(xc, wc, xs, ws, backend="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(old, want) and torch.equal(new, want)
 
 
 @pytest.mark.parametrize("order", [1, 3, 5, 7])
@@ -643,6 +741,23 @@ def test_wkv_kernel_equals_plain_version(card, bh, nc, c, d):
     want = ops.wkv_scan(*ops_, backend="ref")
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [17, 48, 64])
+@pytest.mark.parametrize("c", [1, 37, 256])
+def test_wkv_kernel_designs_at_block_and_slice_edges(card, c, d):
+    """Head dims at the state kernel's 16-column slices (17: a one-column
+    last slice; 48, 64: whole slices) and chunks at the 64-row blocks (1,
+    37: one partial block; 256: four), both designs."""
+    ops_ = _wkv_operands(c * 100 + d, card, 3, 3, c, d)
+    want = ops.wkv_scan(*ops_, backend="ref")
+    before = wk.launches["wkv_scan"]
+    for design in wk.DESIGNS:
+        got = wk.run_design(*ops_, design)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=2e-5, atol=2e-5, err_msg=design)
+    assert wk.launches["wkv_scan"] == before + len(wk.DESIGNS)
 
 
 def test_wkv_kernel_carries_state_across_chunks(card):

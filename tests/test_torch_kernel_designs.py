@@ -1,0 +1,313 @@
+"""The parts of the card kernels' redesign that run on the CPU, against the
+JAX reference where it has a counterpart:
+
+  * the W8A8 weight codes' K-major layout (``core.quantize.k_major``) from
+    ``quantize_tree``, ``QuantizedLinear``, ``WeightRegistry.install`` and
+    ``params_from_numpy``: the reference's codes and scales, value for
+    value, with strides (…, 1, K);
+  * ``w8a8_matmul_int`` and the GEMM wrapper on the CPU: the same bits for
+    row-major and K-major codes;
+  * the GEMM wrapper's pure-Python planner (``fixedpoint_matmul.plan``):
+    the split it picks at the paths' shapes, and the zero codes it appends
+    to a K that TMA cannot take;
+  * the WKV kernel's two-phase decomposition, mirrored in plain PyTorch
+    (``ref.wkv_scan_two_phase_ref``), against ``wkv_scan_ref`` and the JAX
+    oracle within 2e-5 (the reference's kernel tolerance).
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import quantize as jq
+from repro.kernels.ref import wkv_scan_ref as jwkv_scan_ref
+from repro_torch.core import quantize as tq
+from repro_torch.core.control_plane import WeightRegistry
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+from repro_torch.models import params_from_numpy
+
+fmm = importlib.import_module("repro_torch.kernels.fixedpoint_matmul")
+
+torch.set_num_threads(1)
+
+H100_SMS = 132
+
+
+def _data(seed, *shape, scale=1.0):
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    return x * np.float32(scale)
+
+
+def _k_major(t: torch.Tensor) -> bool:
+    return t.transpose(-1, -2).is_contiguous()
+
+
+# ---------------------------------------------------------------------------
+# K-major weight codes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(8, 8), (16, 8), (8, 1), (3, 8, 4),
+                                   (2, 3, 5, 7)])
+def test_k_major_keeps_values_and_sets_strides(shape):
+    codes = torch.as_tensor(np.random.default_rng(1).integers(
+        -128, 128, shape).astype(np.int8))
+    got = tq.k_major(codes)
+    assert got.shape == codes.shape and torch.equal(got, codes)
+    assert _k_major(got)
+    assert tq.k_major(got) is got  # already K-major: no copy
+
+
+def _tree(seed):
+    r = np.random.default_rng(seed)
+
+    def f(*s):
+        return r.normal(size=s).astype(np.float32)
+
+    return {"attn": {"wq": {"w": f(16, 8), "b": f(8)}, "wo": {"w": f(8, 16)}},
+            "blocks": {"mlp": {"w_up": f(3, 16, 32), "w_down": f(3, 32, 16)}},
+            "norm": {"scale": f(16)}}
+
+
+def _pairs(tree, path=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_pairs(v, f"{path}/{k}"))
+        return out
+    return {path: tree} if isinstance(tree, tuple) else {}
+
+
+def test_quantize_tree_codes_are_k_major_and_match_reference():
+    params = _tree(3)
+    want = _pairs(jq.quantize_tree(jax.tree_util.tree_map(jnp.asarray,
+                                                          params)))
+    got = _pairs(tq.quantize_tree(jax.tree_util.tree_map(torch.as_tensor,
+                                                         params)))
+    assert sorted(got) == sorted(want) and len(got) == 4
+    for path, (codes, scale) in got.items():
+        wc, ws = want[path]
+        assert _k_major(codes), path
+        np.testing.assert_array_equal(codes.numpy(), np.asarray(wc))
+        np.testing.assert_array_equal(scale.numpy(), np.asarray(ws))
+        assert codes.dtype == torch.int8 and scale.dtype == torch.float32
+    # a stacked leaf's layers stay K-major when sliced, as the model slices
+    codes = got["/blocks/mlp/w_up"][0]
+    assert codes.shape == (3, 16, 32) and _k_major(codes[1])
+
+
+@pytest.mark.parametrize("din,dout", [(32, 12), (48, 1), (16, 64)])
+def test_quantized_linear_codes_are_k_major_and_match_reference(din, dout):
+    w, x = _data(20, din, dout), _data(21, 5, din)
+    want = jq.QuantizedLinear(jnp.asarray(w))
+    got = tq.QuantizedLinear(w, device="cpu")
+    assert _k_major(got.codes)
+    np.testing.assert_array_equal(got.codes.numpy(), np.asarray(want.codes))
+    np.testing.assert_array_equal(got.scale.numpy(), np.asarray(want.scale))
+    np.testing.assert_array_equal(got(torch.as_tensor(x)).numpy(),
+                                  np.asarray(want(jnp.asarray(x))))
+
+
+def test_weight_registry_and_params_from_numpy_store_k_major_codes():
+    params = _tree(4)
+    jtree = jq.quantize_tree(jax.tree_util.tree_map(jnp.asarray, params))
+    want = _pairs(jtree)
+    # the reference's tree as numpy: row-major codes, made K-major on entry
+    loaded = params_from_numpy(jax.tree_util.tree_map(np.asarray, jtree),
+                               "cpu")
+    row_major = {k: (torch.as_tensor(np.array(c)), torch.as_tensor(
+        np.array(s))) for k, (c, s) in want.items()}
+    assert all(c.is_contiguous() and not _k_major(c)
+               for c, _ in row_major.values())
+    reg = WeightRegistry()
+    reg.install("rows", {"leaves": row_major, "norm": loaded["norm"]})
+    installed = reg.get("rows")
+    for tree in (_pairs(loaded), installed["leaves"]):
+        for path, (codes, scale) in tree.items():
+            key = path if path in want else path.split("/")[-1]
+            wc, ws = want[key]
+            assert _k_major(codes), path
+            np.testing.assert_array_equal(codes.numpy(), np.asarray(wc))
+            np.testing.assert_array_equal(scale.numpy(), np.asarray(ws))
+    assert installed["norm"]["scale"] is loaded["norm"]["scale"]
+    # float leaves are never taken for pairs
+    reg.install("floats", {"p": (torch.ones(4, 4), torch.ones(4))})
+    p = reg.get("floats")["p"]
+    assert p[0].is_contiguous() and torch.equal(p[0], torch.ones(4, 4))
+
+
+# ---------------------------------------------------------------------------
+# the GEMM on the CPU: both layouts, same bits
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,k,n", [((7, 33), 33, 5), ((2, 5, 64), 64, 48),
+                                       ((64,), 64, 7), ((1, 1, 200), 200, 1)])
+def test_w8a8_matmul_int_same_bits_for_both_layouts(shape, k, n):
+    x, w = _data(30, *shape), _data(31, k, n)
+    jcodes, jscale = jq.absmax_quantize(jnp.asarray(w), axis=0)
+    want = np.asarray(jq.w8a8_matmul_int(jnp.asarray(x), jcodes, jscale))
+    codes = torch.as_tensor(np.asarray(jcodes))
+    scale = torch.as_tensor(np.asarray(jscale))
+    xt = torch.as_tensor(x)
+    for layout in (codes, tq.k_major(codes)):
+        got = tq.w8a8_matmul_int(xt, layout, scale)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("m,k,n", [(17, 96, 33), (1, 512, 7), (100, 300, 50)])
+def test_fixedpoint_matmul_wrapper_takes_both_layouts_on_cpu(m, k, n):
+    rng = np.random.default_rng(m + k + n)
+    xc = torch.as_tensor(rng.integers(-128, 128, (m, k)).astype(np.int8))
+    wc = torch.as_tensor(rng.integers(-128, 128, (k, n)).astype(np.int8))
+    xs = torch.as_tensor(rng.uniform(0.01, 1, (m, 1)).astype(np.float32))
+    ws = torch.as_tensor(rng.uniform(0.01, 1, (1, n)).astype(np.float32))
+    want = tref.fixedpoint_matmul_ref(xc, wc, xs, ws)
+    before = dict(fmm.launches), dict(fmm.relayouts)
+    for layout in (wc, tq.k_major(wc)):
+        assert torch.equal(fmm.fixedpoint_matmul(xc, layout, xs, ws), want)
+        assert torch.equal(ops.fixedpoint_matmul(xc, layout, xs, ws), want)
+    # the plain version launches nothing and copies no layout
+    assert (dict(fmm.launches), dict(fmm.relayouts)) == before
+    with pytest.raises(ValueError, match="device"):
+        fmm.run_design(xc, wc, xs, ws, "wgmma")
+
+
+# ---------------------------------------------------------------------------
+# the GEMM's planner at the paths' shapes
+# ---------------------------------------------------------------------------
+
+# (M, K, N) → split on an H100's 132 SMs: the qwen2-1.5b layer's
+# projections on 2048 tokens and at decode (M = 1, 17: split-K only where K
+# is long and the tiles few), the rwkv6-3b quantized prefill's projections
+# on 4 × 2048 tokens, a small grid with a long K, and shapes whose K the
+# wrapper pads to a multiple of 16 (K % 16 != 0, K = 0)
+PLANS = [
+    ((2048, 1536, 8960), 1),   # up, gate
+    ((2048, 8960, 1536), 1),   # down
+    ((2048, 1536, 1536), 1),   # wq, wo
+    ((2048, 1536, 256), 1),    # wk, wv
+    ((17, 1536, 8960), 1),
+    ((1, 1536, 8960), 1),
+    ((1, 8960, 1536), 4),
+    ((17, 8960, 1536), 4),
+    ((64, 8960, 1536), 4),
+    ((8192, 2560, 2560), 1),
+    ((8192, 2560, 8960), 1),
+    ((8192, 8960, 2560), 1),
+    ((255, 8960, 129), 4),
+    ((100, 300, 50), 1),
+    ((1, 512, 7), 1),
+    ((5, 0, 7), 1),
+    ((257, 513, 129), 1),
+    ((1, 8190, 1536), 4),      # padded to 8192: 64 K steps
+    ((1, 8064, 1536), 1),      # 63 K steps
+    ((33, 8960, 1536), 4),     # 12 tiles × 4 = 48 ≤ 132 SMs
+    ((1, 8960, 4480), 1),      # 35 tiles × 4 = 140 > 132 SMs
+]
+
+
+@pytest.mark.parametrize("mkn,want", PLANS)
+def test_gemm_planner_picks_the_documented_design(mkn, want):
+    m, k, n = mkn
+    assert fmm.plan(m, n, k, H100_SMS) == want
+
+
+@pytest.mark.parametrize("k", [0, 1, 33, 300, 513, 1536, 8960])
+def test_gemm_wrapper_pads_k_to_a_multiple_of_16_with_zero_codes(k):
+    """The wgmma design's operands (``_tma_operands``): K padded with zero
+    codes, w K-major, the int32 sums unchanged; each copy counted."""
+    rng = np.random.default_rng(k)
+    for layout in ("row_major", "k_major"):
+        xc = torch.as_tensor(rng.integers(-128, 128, (9, k)).astype(np.int8))
+        wc = torch.as_tensor(rng.integers(-128, 128, (k, 5)).astype(np.int8))
+        w = tq.k_major(wc) if layout == "k_major" else wc
+        before = fmm.relayouts["fixedpoint_matmul"]
+        xp, wp = fmm._tma_operands(xc, w)
+        kp = max(16, -(-k // 16) * 16)
+        assert xp.shape == (9, kp) and wp.shape == (kp, 5)
+        assert xp.is_contiguous() and _k_major(wp)
+        assert torch.equal(xp[:, :k], xc) and torch.equal(wp[:k], wc)
+        assert not xp[:, k:].any() and not wp[k:].any()
+        assert torch.equal(tref.int32_matmul(xp, wp), tref.int32_matmul(xc,
+                                                                        wc))
+        copies = 2 if kp != k else int(layout == "row_major")
+        assert fmm.relayouts["fixedpoint_matmul"] == before + copies
+        if kp == k and layout == "k_major":
+            assert xp is xc and wp is w  # nothing to copy
+        fmm.relayouts["fixedpoint_matmul"] = before
+
+
+def test_gemm_wrapper_copies_unaligned_operands():
+    """An operand that does not start on a 16-byte boundary (TMA's) is copied
+    to one that does, values unchanged; an aligned one is taken as it is."""
+    rng = np.random.default_rng(2)
+    store = torch.as_tensor(rng.integers(-128, 128, 9 * 32 + 1).astype(np.int8))
+    xc = store[1:].view(9, 32)
+    wc = tq.k_major(torch.as_tensor(rng.integers(-128, 128, (32, 5)).astype(
+        np.int8)))
+    assert xc.data_ptr() % 16 and not wc.data_ptr() % 16
+    before = fmm.relayouts["fixedpoint_matmul"]
+    xp, wp = fmm._tma_operands(xc, wc)
+    assert fmm.relayouts["fixedpoint_matmul"] == before + 1
+    assert not xp.data_ptr() % 16 and torch.equal(xp, xc) and wp is wc
+    fmm.relayouts["fixedpoint_matmul"] = before
+
+
+@pytest.mark.parametrize("num_sms", [1, 16, 132])
+def test_gemm_planner_never_leaves_a_slice_of_k_empty(num_sms):
+    rng = np.random.default_rng(num_sms)
+    for _ in range(200):
+        m, n = (int(v) for v in rng.integers(1, 4096, 2))
+        k = int(rng.integers(0, 20000))
+        split = fmm.plan(m, n, k, num_sms)
+        nk = -(-max(k, 1) // fmm.TILE)
+        kper = -(-nk // split)
+        assert split in (1, fmm.SPLIT)
+        assert (split - 1) * kper < nk  # the last slice has K steps
+
+
+# ---------------------------------------------------------------------------
+# the WKV kernel's two-phase decomposition
+# ---------------------------------------------------------------------------
+
+
+def _wkv_operands(rng, bh, nc, c, d):
+    return (rng.normal(size=(bh, nc, c, d)).astype(np.float32) * 0.4,
+            rng.normal(size=(bh, nc, c, d)).astype(np.float32) * 0.4,
+            rng.normal(size=(bh, nc, c, d)).astype(np.float32),
+            rng.uniform(0.2, 0.95, size=(bh, nc, 1, d)).astype(np.float32),
+            rng.normal(size=(bh, nc, c, 1)).astype(np.float32) * 0.2)
+
+
+@pytest.mark.parametrize("bh,nc,c,d", [(2, 4, 64, 64), (1, 8, 128, 64),
+                                       (4, 2, 64, 32), (2, 3, 37, 48),
+                                       (3, 2, 200, 17), (1, 2, 1, 64),
+                                       (2, 1, 256, 16), (0, 2, 16, 8)])
+def test_wkv_two_phase_decomposition_matches_plain_and_reference(bh, nc, c,
+                                                                  d):
+    args = _wkv_operands(np.random.default_rng(bh * 100 + c + d), bh, nc, c,
+                         d)
+    got = tref.wkv_scan_two_phase_ref(*map(torch.as_tensor, args))
+    want = tref.wkv_scan_ref(*map(torch.as_tensor, args))
+    assert got.shape == want.shape == (bh, nc, c, d)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-5,
+                               atol=2e-5)
+    if bh:
+        jwant = np.asarray(jwkv_scan_ref(*map(jnp.asarray, args)))
+        np.testing.assert_allclose(got.numpy(), jwant, rtol=2e-5, atol=2e-5)
+
+
+def test_wkv_two_phase_decomposition_carries_state():
+    a, b, v, tot, diag = map(torch.as_tensor, _wkv_operands(
+        np.random.default_rng(5), 1, 3, 64, 32))
+    base = tref.wkv_scan_two_phase_ref(a, b, v, tot, diag)
+    b2 = b.clone()
+    b2[:, 0] = 0.0
+    moved = tref.wkv_scan_two_phase_ref(a, b2, v, tot, diag)
+    assert float((base[:, 1:] - moved[:, 1:]).abs().max()) > 1e-4
