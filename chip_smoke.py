@@ -21,9 +21,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                non-monotone and saturating batches of 1–8193 packets, and
                an empty batch that must launch nothing; the W8A8 GEMM
                against ref.fixedpoint_matmul_ref on the qwen2-1.5b
-               projections at M ∈ {1, 17, 64, 65, 255, 2048} in the
-               wrapper's design (wgmma, split-K at decode-sized M on the
-               long K) and in the first design (mma_sync), ragged shapes
+               projections at M ∈ {1, 17, 64, 65, 255, 2048} (split-K at
+               decode-sized M on the long K), ragged shapes
                (K % 16 != 0: zero codes appended to K, two counted
                copies), both weight layouts (one counted copy for a
                row-major w), raw int8 codes at unit
@@ -102,12 +101,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                it, and queued behind a device sleep, device only), the
                plain version's time, the least time the card could take
                (bytes or operations over its peak); for the GEMM at all 7
-               projection shapes and at M = 1 and 17 on up and down, and
-               for the WKV scan at the prefill geometry, the kernel and its
-               first design (the mma_sync GEMM, the one-block-per-row
-               scan) timed in turns on one card with the library call
-               where one exists (torch._int_mm + the rescale), and the WKV
-               scan's two device kernels split by the profiler; also each
+               projection shapes and at M = 1 and 17 on up and down, the
+               kernel and the library call (torch._int_mm + the rescale)
+               timed in turns on one card; the WKV scan at the prefill
+               geometry, its two device kernels split by the profiler; also each
                path's packets per second with its engine-call and kernel
                shares of the wall time; for the flow path also the longest
                flow chain of the
@@ -162,7 +159,8 @@ from repro_torch.kernels.ref import (FLOW_CODE_MAX,  # noqa: E402
                                      flow_update_ref,
                                      forest_range_gather_ref,
                                      forest_traverse_gather_ref,
-                                     fused_mlp_gather_ref, wkv_scan_ref)
+                                     fused_mlp_gather_ref, fused_mlp_warp_ref,
+                                     wkv_scan_ref)
 from repro_torch.launch.serve import LMServer, PacketServer  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -370,6 +368,57 @@ def check_kernels(dev, shapes, variants=("int16", "int8")) -> dict:
             if not ok:
                 raise SystemExit(f"fixedpoint_mlp {variant} differs from its "
                                  f"plain version at B={n_batch} W={width}")
+    return worst
+
+
+def check_mlp_edges(dev) -> dict:
+    """The MLP kernel at W ∈ {1, 31, 32, 33, 128} in both lanes, on tables
+    where every model's layers run every opcode (0–4 and an unknown 7), the
+    middle layers are off for some models, and slots outside [0, M) (which
+    return the lane-clamped input): against ref.fused_mlp_warp_ref (the
+    kernel's decomposition) and the masked plain version on every row, and
+    the gather form on the rows with valid slots.  Returns the largest
+    absolute difference per lane (must be 0)."""
+    rng = np.random.default_rng(SEED + 9)
+    worst = {"int16": 0, "int8": 0}
+    n_models, n_layers = 16, 6
+    for variant in worst:
+        lane = 8 if variant == "int8" else None
+        for width in (1, 31, 32, 33, 128):
+            c = make_case(rng, dev, n_batch=1001, n_models=n_models,
+                          n_layers=n_layers, width=width, variant=variant)
+            ops_ = np.asarray([0, 1, 2, 3, 4, 7], np.int32)
+            c["act"] = torch.as_tensor(np.stack([np.roll(ops_, m) for m in
+                                                 range(n_models)]), device=dev)
+            on = np.ones((n_models, n_layers), np.int32)
+            on[::2, 1:-1] = 0  # middle layers off for the even models
+            c["layer_on"] = torch.as_tensor(on, device=dev)
+            slot = c["slot"].clone()
+            slot[:40] = torch.as_tensor(np.resize(
+                [n_models, -1, 999, -2 ** 31, 2 ** 31 - 1], 40), device=dev)
+            c["slot"] = slot
+            kw = kernel_kw(5)
+            got = fmlp.fixedpoint_mlp(**c, **kw, variant=variant)
+            warp = fused_mlp_warp_ref(**c, **kw, lane_bits=lane)
+            masked = fused_mlp(c["x_q"], c["slot"], c["w"], c["b"], c["act"],
+                               c["layer_on"], backend="ref", variant=variant,
+                               **kw)
+            valid = (slot >= 0) & (slot < n_models)
+            gather = fused_mlp_gather_ref(
+                c["x_q"][valid], slot[valid], c["w"], c["b"], c["act"],
+                c["layer_on"], **kw, lane_bits=lane)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int64) - warp.to(torch.int64)).abs().max())
+            worst[variant] = max(worst[variant], err)
+            ok = (torch.equal(got, warp) and torch.equal(got, masked)
+                  and torch.equal(got[valid], gather))
+            log(f"kernel {variant:5s} B=1001 M={n_models} L={n_layers} "
+                f"W={width:3d}, every opcode, middle layers off, 40 slots "
+                f"outside [0, M): {'equal' if ok else 'DIFFERS'} (max_abs_err "
+                f"{err})")
+            if not ok:
+                raise SystemExit(f"fixedpoint_mlp {variant} differs from its "
+                                 f"plain versions at W={width}")
     return worst
 
 
@@ -645,6 +694,10 @@ def flow_batch(rng, n, n_slots, cms_shape, case):
         slots = rng.permutation(n_slots)[:n].astype(np.int32)
     elif case == "dead":         # about 15% padding rows
         live = (rng.random(n) > 0.15).astype(np.int32)
+    elif case == "dead_interleaved":  # every other row padding
+        live[1::2] = 0
+    elif case == "one_cell":     # every packet in one cell of each row
+        cells[:] = cells[0]
     elif case == "non_monotone":
         ts = rng.integers(0, 2 ** 31 - 1, n).astype(np.int32)
     elif case == "saturation":   # the reference's test_saturation_never_wraps
@@ -678,15 +731,15 @@ def check_flow(dev, args, label: str) -> int:
 def check_flow_kernels(dev) -> int:
     rng = np.random.default_rng(SEED + 6)
     worst = 0
-    for n in (1, 127, 2048, 8192, 8193):
+    for n in (1, 127, 1001, 2048, 8192, 8193):
         for n_slots in (64, 16384):
             for cms_shape in ((2, 4096), (3, 64)):
                 args = flow_batch(rng, n, n_slots, cms_shape, "random")
                 worst = max(worst, check_flow(
                     dev, args, f"random B={n} S={n_slots} sketch={cms_shape}"))
         cms_shape = (2, 4096) if n % 2 else (3, 64)
-        for case in ("one_flow", "distinct", "dead", "non_monotone",
-                     "saturation"):
+        for case in ("one_flow", "distinct", "dead", "dead_interleaved",
+                     "one_cell", "non_monotone", "saturation"):
             args = flow_batch(rng, n, 16384, cms_shape, case)
             worst = max(worst, check_flow(
                 dev, args, f"{case} B={n} S=16384 sketch={cms_shape}"))
@@ -1040,76 +1093,100 @@ def run_fused_path(dev, n_packets: int, card: str, forests) -> dict:
                 engine_s=0.0)
 
 
-def flow_launch_only(args):
-    """A call of the flow kernel's C entry point alone, on outputs made
-    once (no clones, no error-word read): what :func:`queued_ms` times as
-    the kernel's device time.  It adds nothing to the launch counter."""
-    state, cms, slots, cells, ts, length, live = args
-    n, (depth, width_c) = slots.shape[0], cms.shape
-    outs = (torch.empty_like(state), torch.empty_like(cms),
-            torch.empty((n, 8), dtype=torch.int32, device=state.device),
-            torch.zeros(1, dtype=torch.int32, device=state.device))
-    ptrs = [t.data_ptr() for t in (*args, *outs)]
-    lib = fuk.load_library()
-    stream = torch.cuda.current_stream(state.device).cuda_stream
-
-    def call():
-        rc = lib.flow_update_launch(
-            *ptrs, n, state.shape[0], depth, width_c, FLOW_KW["frac"],
-            FLOW_KW["ewma_shift"], FLOW_KW["byte_shift"],
-            FLOW_KW["dur_shift"], stream)
-        if rc != 0:
-            raise SystemExit(f"flow_update launch failed: CUDA error {rc}")
-    return call
+def flow_profile(args) -> dict:
+    """The flow kernel's two device kernels by name (profiler, 10 calls),
+    ms per call each."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fuk.launch(*args, **FLOW_KW)
+        torch.cuda.synchronize()
+    return {e.key.replace("(anonymous namespace)::", "").split("<")[0]:
+            e.device_time_total / 1e4
+            for e in prof.key_averages() if e.device_time_total > 0}
 
 
-def flow_numbers(dev, flow: dict, worst: int, card: str) -> dict:
-    """Phase 5 for the flow kernel, on a 2048-packet batch of the 200k flow
-    trace as the card server's flow table resolves it (the trace's own mix
-    of flows): per call (the wrapper reads the kernel's error word, which
-    synchronises), queued (the kernel's C entry point alone), plain, bound,
-    the longest flow chain, the register file's round trip and the flow
-    path's shares.  Returns the kernel's JSON entry."""
-    fsrv = flow["server"]
-    batch = np.concatenate(flow["chunks"])[100_000: 102_048]
-    fields = parse_raw_headers(batch)
+def flow_timing_batch(fsrv, raw) -> list:
+    """One batch of the flow trace as the card server's flow table resolves
+    it (the trace's own mix of flows), on the card."""
+    fields = parse_raw_headers(raw)
     words, hashes = FlowTable.pack_keys(fields.key_bytes,
                                         fsrv.flow.key_words)
     slots, _ = fsrv.flow.table.lookup_or_insert(words, hashes, fields.ts)
     if (slots < 0).any():
         raise SystemExit("timing batch: a flow was rejected")
     cells = fsrv.flow.params.cms_cells(hashes)
-    fargs = _dev(dev, fsrv.flow.table.registers, fsrv.flow.cms,
-                 slots.astype(np.int32), cells, fields.ts, fields.length,
-                 np.ones(slots.shape[0], np.int32))
-    chain = int(np.bincount(slots).max())
-    k_ms = cuda_ms(lambda: fuk.flow_update_kernel(*fargs, **FLOW_KW))
-    q_ms = queued_ms(flow_launch_only(fargs))
-    p_ms = cuda_ms(lambda: flow_update_ref(*fargs, **FLOW_KW), reps=5,
-                   inner=5)
-    b_ms, b_by = flow_bound(slots.shape[0], fargs)
+    return _dev(torch.device("cuda", 0), fsrv.flow.table.registers,
+                fsrv.flow.cms, slots.astype(np.int32), cells, fields.ts,
+                fields.length, np.ones(slots.shape[0], np.int32))
+
+
+def flow_numbers(dev, flow: dict, worst: int, card: str) -> dict:
+    """Phase 5 for the flow kernel, on 2048- and 8192-packet batches of the
+    200k flow trace as the card server's flow table resolves them (the
+    trace's own mix of flows) and on a 2048-packet batch of one flow: per
+    call through the wrapper (which reads the kernel's error word, one
+    synchronisation), per call without that read, queued (device only), the
+    two device kernels split by the profiler, plain, bound, the longest flow
+    chain, an on-device sort of the batch's keys (the floor of a sort-based
+    links phase), the register file's round trip and the flow path's
+    shares.  Returns the kernel's JSON entry (the 2048-packet trace
+    batch)."""
+    fsrv = flow["server"]
+    trace = np.concatenate(flow["chunks"])
+    batches = {"trace B=2048": flow_timing_batch(fsrv, trace[100_000:
+                                                               102_048]),
+               "trace B=8192": flow_timing_batch(fsrv, trace[110_000:
+                                                               118_192])}
+    one = list(batches["trace B=2048"])
+    one[2] = torch.full_like(one[2], int(one[2][0]))  # every packet one slot
+    batches["one_flow B=2048"] = one
+    entry = None
+    for label, fargs in batches.items():
+        chain = int(torch.bincount(fargs[2].long()).max())
+        k_ms = cuda_ms(lambda: fuk.flow_update_kernel(*fargs, **FLOW_KW))
+        n_ms = cuda_ms(lambda: fuk.launch(*fargs, **FLOW_KW))
+        q_ms = queued_ms(lambda: fuk.launch(*fargs, **FLOW_KW))
+        split = flow_profile(fargs)
+        if len(split) != 2:
+            raise SystemExit(f"flow_update: expected two device kernels per "
+                             f"call, the profiler saw {split}")
+        n = fargs[2].shape[0]
+        sort_ms = cuda_ms(lambda: [torch.sort(k, stable=True) for k in (
+            fargs[2], *fargs[3].t().contiguous())])
+        p_ms = cuda_ms(lambda: flow_update_ref(*fargs, **FLOW_KW), reps=5,
+                       inner=5) if n == 2048 else None
+        b_ms, b_by = flow_bound(n, fargs)
+        log(f"time flow_update {label} S={fargs[0].shape[0]} "
+            f"sketch={tuple(fargs[1].shape)} (longest chain {chain}): kernel "
+            f"{k_ms:.4f} ms per call through the wrapper, {n_ms:.4f} ms "
+            f"without its error-word read ({k_ms - n_ms:.4f} ms for the "
+            f"read), {q_ms:.4f} ms queued (device only): " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in split.items())
+            + f"; torch.sort of the {1 + fargs[3].shape[1]} key arrays "
+            f"{sort_ms:.4f} ms; plain "
+            + ("not timed" if p_ms is None else f"{p_ms:.4f} ms")
+            + f", bound {b_ms:.6f} ms ({b_by}) [{card}]")
+        if label == "trace B=2048":
+            entry = dict(KERNELS["flow_update"],
+                         launches=flow["launches"]["flow_update"],
+                         max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    fargs = batches["trace B=2048"]
     rt = []
     for _ in range(21):
         t0 = time.perf_counter()
         fsrv.flow.download_state(*fsrv.flow.upload_state())
         rt.append((time.perf_counter() - t0) * 1e3)
     rt_ms = statistics.median(rt)
-    log(f"time flow_update B=2048 S={fargs[0].shape[0]} "
-        f"sketch={tuple(fargs[1].shape)} (200k flow trace, longest chain "
-        f"{chain}): kernel {k_ms:.4f} ms per call through the wrapper "
-        f"({q_ms:.4f} ms queued, the entry point alone, device only), plain "
-        f"{p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); register-file round "
-        f"trip (upload + copy back of {nbytes(fargs[0], fargs[1])} bytes) "
-        f"{rt_ms:.4f} ms [{card}]")
     n_calls = flow["launches"]["flow_update"]
     log(f"path flow 200k: extract share "
         f"{flow['extract_s'] / flow['seconds']:.4f} of the wall; {n_calls} "
-        f"extract calls x {rt_ms:.4f} ms round trip = "
+        f"extract calls x {rt_ms:.4f} ms register-file round trip (upload + "
+        f"copy back of {nbytes(fargs[0], fargs[1])} bytes) = "
         f"{n_calls * rt_ms * 1e-3 / flow['seconds']:.4f} of the wall "
         f"[{card}]")
-    return dict(KERNELS["flow_update"], launches=n_calls, max_abs_err=worst,
-                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+    return entry
 
 # ---------------------------------------------------------------------------
 # the paper's C1/C2 primitives: the W8A8 GEMM and the Taylor activation
@@ -1128,23 +1205,21 @@ def gemm_operands(seed: int, m: int, k: int, n: int, dev):
     return xc, tq.k_major(wc), xs, ws
 
 
-def check_gemm(label: str, xc, wc, xs, ws, exact=None, design=None,
-               split=1) -> float:
-    """The GEMM kernel (the wrapper's choice, or ``design`` with ``split``)
-    against ref.fixedpoint_matmul_ref on the same card inputs (and against
-    ``exact`` when given); returns the largest absolute difference (must be
-    0)."""
-    got = (fmm.fixedpoint_matmul(xc, wc, xs, ws) if design is None
-           else fmm.run_design(xc, wc, xs, ws, design, split))
+def check_gemm(label: str, xc, wc, xs, ws, exact=None, split=None) -> float:
+    """The GEMM kernel (with the wrapper's split, or ``split``) against
+    ref.fixedpoint_matmul_ref on the same card inputs (and against ``exact``
+    when given); returns the largest absolute difference (must be 0)."""
+    got = (fmm.fixedpoint_matmul(xc, wc, xs, ws) if split is None
+           else fmm.run_split(xc, wc, xs, ws, split))
     want = ops.fixedpoint_matmul(xc, wc, xs, ws, backend="ref")
     torch.cuda.synchronize()
     err = float((got - want).abs().max()) if got.numel() else 0.0
     ok = torch.equal(got, want) and (exact is None or torch.equal(
         got.cpu(), exact))
     m, k = xc.shape
-    if design is None:
-        design, split = "wgmma", fmm.plan(m, wc.shape[1], k, sms())
-    label = f"{label} [{design}, split {split}]"
+    if split is None:
+        split = fmm.plan(m, wc.shape[1], k, sms())
+    label = f"{label} [split {split}]"
     log(f"kernel fixedpoint_matmul {label} M={m} K={k} N={wc.shape[1]}: "
         f"{'equal' if ok else 'DIFFERS'} to its plain version"
         f"{' and the exact int64 product' if exact is not None else ''} "
@@ -1156,10 +1231,9 @@ def check_gemm(label: str, xc, wc, xs, ws, exact=None, design=None,
 
 
 def check_gemm_kernels(dev) -> float:
-    """The wrapper's design at the layer's projections for M from one token
-    to 2048 (M at the 64-row wgmma slab and the 128-row tile, decode-sized
-    M at the long K with split-K), the first design (mma_sync) at the same
-    shapes, ragged shapes (K % 16 != 0: K padded with zero codes), both
+    """The kernel at the layer's projections for M from one token to 2048
+    (M at the 64-row wgmma slab and the 128-row tile, decode-sized M at the
+    long K with split-K), ragged shapes (K % 16 != 0: K padded with zero codes), both
     weight layouts, the copies counted, raw codes over the whole int8 range
     at unit scales against the exact int64 product (every split of
     K = 8960), and a bfloat16 activation through the w8a8_int linear."""
@@ -1170,11 +1244,6 @@ def check_gemm_kernels(dev) -> float:
         for m in (1, 17, 64, 65, 255, N_TOKENS):
             ops_ = gemm_operands(SEED + m, m, k, n, dev)
             worst = max(worst, check_gemm(f"qwen2-1.5b {name}", *ops_))
-            if m in (17, N_TOKENS):
-                xc, wc, xs, ws = ops_
-                worst = max(worst, check_gemm(
-                    f"qwen2-1.5b {name}, first design", xc, wc.contiguous(),
-                    xs, ws, design="mma_sync"))
     for m, k, n in ((100, 300, 50), (257, 513, 129), (1, 512, 7),
                     (16, 1552, 136), (63, 1536, 129)):
         copies = fmm.relayouts["fixedpoint_matmul"]
@@ -1208,8 +1277,7 @@ def check_gemm_kernels(dev) -> float:
             for split in (2, 5, 14, 35):
                 worst = max(worst, check_gemm(
                     "raw codes, unit scales", xc, tq.k_major(wc), *unit,
-                    exact=exact.to(torch.float32), design="wgmma",
-                    split=split))
+                    exact=exact.to(torch.float32), split=split))
     # a bfloat16 activation through the w8a8_int linear: card vs CPU port
     x = (torch.randn((255, D_MODEL), generator=g, device=dev) * 3).to(
         torch.bfloat16)
@@ -1339,12 +1407,10 @@ def run_c1c2_path(dev, card: str) -> dict:
                                                 "taylor_activation")}
     if launches != {"fixedpoint_matmul": 7, "taylor_activation": 3}:
         raise SystemExit(f"C1/C2 path launches {launches}, expected 7 and 3")
-    designs = dict(fmm.designs)
-    if designs != {"wgmma": 7, "mma_sync": 0} or fmm.relayouts[
-            "fixedpoint_matmul"]:
-        raise SystemExit(f"C1/C2 path GEMM designs {designs}, layout copies "
-                         f"{fmm.relayouts}: expected 7 wgmma launches on the "
-                         "K-major codes quantize_tree stores, no copy")
+    if fmm.relayouts["fixedpoint_matmul"]:
+        raise SystemExit(f"C1/C2 path GEMM layout copies {fmm.relayouts}: "
+                         "expected none on the K-major codes quantize_tree "
+                         "stores")
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full float32 reference
     errs = {}
@@ -1389,7 +1455,7 @@ def run_c1c2_path(dev, card: str) -> dict:
         raise SystemExit(f"C2 path: NMSE on [-1.5, 1.5] {nmse_in}: expected "
                          "order 5 below 1e-4 and falling with the order")
     log(f"path C1/C2: 7 projections + 3 Taylor passes in {dt:.4f} s "
-        f"(launches {launches}; GEMM designs {designs}, layout copies 0) "
+        f"(launches {launches}; GEMM layout copies 0) "
         f"[{card}]")
     return dict(launches=launches, inputs=inputs, leaves=leaves, x_q=x_q,
                 sig=sig, nmse=errs)
@@ -1423,10 +1489,9 @@ def in_turns(calls: dict, timer) -> dict:
 def c1c2_numbers(dev, c1c2: dict, worst: dict, card: str) -> list:
     """Phase 5 for the GEMM and the Taylor kernel.  The GEMM at every
     projection of the layer on the path's own operands and at decode-sized
-    M (1 and 17) on the widest and on the longest-K projection: the
-    wrapper's design and the first design (mma_sync, on row-major codes)
-    timed in turns, with torch._int_mm + the rescale (checked equal) and
-    the bound.  The Taylor kernel at order 5 on the path's 2048×8960 codes.
+    M (1 and 17) on the widest and on the longest-K projection: the kernel
+    and torch._int_mm + the rescale (checked equal) timed in turns, and the
+    bound.  The Taylor kernel at order 5 on the path's 2048×8960 codes.
     Returns the two JSON entries; the GEMM's is the up projection, the
     layer's largest."""
     cases = {}
@@ -1445,12 +1510,8 @@ def c1c2_numbers(dev, c1c2: dict, worst: dict, card: str) -> list:
         m, k = xc.shape
         n = codes.shape[1]
         split = fmm.plan(m, n, k, sms())
-        rows_major = codes.contiguous()  # the first design's layout
         calls = {
-            "kernel": lambda: fmm.fixedpoint_matmul(xc, codes, xs, scale),
-            "first design": lambda: fmm.run_design(xc, rows_major, xs, scale,
-                                                   "mma_sync"),
-        }
+            "kernel": lambda: fmm.fixedpoint_matmul(xc, codes, xs, scale)}
         lib_ms = None
         if m > 16:  # torch._int_mm takes M > 16; codes K-major as cuBLASLt's
             def library():
@@ -1478,9 +1539,8 @@ def c1c2_numbers(dev, c1c2: dict, worst: dict, card: str) -> list:
                f"torch._int_mm alone {mm_ms:.4f})")
         log(f"time fixedpoint_matmul {name} M={m} K={k} N={n}: kernel "
             f"[wgmma, split {split}] {k_ms:.4f} ms per call "
-            f"({queued['kernel']:.4f} ms queued, device only), first design "
-            f"[mma_sync] {per_call['first design']:.4f} ms "
-            f"({queued['first design']:.4f} queued), torch._int_mm + rescale "
+            f"({queued['kernel']:.4f} ms queued, device only), "
+            f"torch._int_mm + rescale "
             f"{lib}, plain {p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); "
             f"{2 * m * n * k / (k_ms * 1e9):.1f} TOP/s [{card}]")
     gemm = dict(KERNELS["fixedpoint_matmul"],
@@ -1836,12 +1896,9 @@ def run_rwkv6_path(dev, card: str) -> dict:
     if q_launches != {"fixedpoint_matmul": 8 * 2, "wkv_scan": 2}:
         raise SystemExit(f"quantized rwkv6 prefill launches {q_launches}, "
                          "expected fixedpoint_matmul 16 and wkv_scan 2")
-    q_designs = dict(fmm.designs)
-    if q_designs != {"wgmma": 16, "mma_sync": 0} or fmm.relayouts[
-            "fixedpoint_matmul"]:
-        raise SystemExit(f"quantized rwkv6 prefill GEMM designs {q_designs}, "
-                         f"layout copies {fmm.relayouts}: expected 16 wgmma, "
-                         "no copy")
+    if fmm.relayouts["fixedpoint_matmul"]:
+        raise SystemExit(f"quantized rwkv6 prefill GEMM layout copies "
+                         f"{fmm.relayouts}: expected none")
     # every GEMM of the path against its plain version on its own operands
     # (K-major slices of the stacked codes, the activations' codes)
     gemm_err, shapes = 0.0, {}
@@ -1865,8 +1922,8 @@ def run_rwkv6_path(dev, card: str) -> dict:
     check_logits("quantized rwkv6 prefill", lq, (LM_BATCH, 1, cfg.vocab_size))
     q_nmse = nmse(model_q.prefill(p2, tokens=tokens).float(), lq.float())
     log(f"path rwkv6 quantized prefill (quantize_tree, 2 layers, bf16, "
-        f"B={LM_BATCH} T={LM_SEQ}): launches {q_launches}, GEMM designs "
-        f"{q_designs}, layout copies 0; NMSE of the last-position logits "
+        f"B={LM_BATCH} T={LM_SEQ}): launches {q_launches}, GEMM layout "
+        f"copies 0; NMSE of the last-position logits "
         f"against the float prefill {q_nmse:.3e} (bound {LM_QUANT_NMSE})")
     if not q_nmse < LM_QUANT_NMSE:
         raise SystemExit(f"quantized rwkv6 prefill: NMSE {q_nmse} against "
@@ -1904,11 +1961,11 @@ def wkv_numbers(dev, lm: dict, worst: float, card: str) -> dict:
     the path's own)."""
     bh, nc, c, d = lm["wkv_shape"]
     args = wkv_operands(SEED + 60, bh, nc, c, d, dev)
-    calls = {"kernel": lambda: wk.wkv_scan(*args),
-             "first design": lambda: wk.run_design(*args, "rowloop")}
-    per_call = in_turns(calls, cuda_ms)
-    queued = in_turns(calls, queued_ms)
-    k_ms, q_ms = per_call["kernel"], queued["kernel"]
+
+    def call():
+        wk.wkv_scan(*args)
+
+    k_ms, q_ms = cuda_ms(call), queued_ms(call)
     p_ms = cuda_ms(lambda: ops.wkv_scan(*args, backend="ref"), reps=5,
                    inner=5)
     # the device kernels of one call, by name (CUDA events cannot split them)
@@ -1935,9 +1992,7 @@ def wkv_numbers(dev, lm: dict, worst: float, card: str) -> dict:
     b_ms, b_by = bound_ms(n_bytes, n_ops, CUDA_CORE_OPS_PER_S)
     share = lm["n_layers"] * k_ms / (lm["prefill_s"] * 1e3)
     log(f"time wkv_scan (BH, NC, C, D) = ({bh}, {nc}, {c}, {d}): kernel "
-        f"[two_phase] {k_ms:.4f} ms per call ({q_ms:.4f} ms queued, device "
-        f"only), first design [rowloop] {per_call['first design']:.4f} ms "
-        f"({queued['first design']:.4f} queued), plain "
+        f"{k_ms:.4f} ms per call ({q_ms:.4f} ms queued, device only), plain "
         f"{p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {n_ops / 1e9:.2f} GFLOP, "
         f"{n_bytes / 1e6:.1f} MB); {n_ops / (k_ms * 1e9):.2f} TFLOP/s; "
         f"{lm['launches']['wkv_scan']} launches per prefill, "
@@ -1976,6 +2031,8 @@ def main() -> int:
     shapes += [(255, 16, 4, 8, 3), (2048, 16, 4, 8, 5),
                (255, 16, 4, 48, 3), (2048, 16, 4, 48, 1)]
     worst = check_kernels(dev, shapes)
+    for variant, err in check_mlp_edges(dev).items():
+        worst[variant] = max(worst[variant], err)
     t0 = time.perf_counter()
     forests, drifted = train_forests()
     log(f"trained {len(forests) + 1} forests on the host in "
@@ -2043,10 +2100,16 @@ def main() -> int:
                             max_abs_err=worst[variant], ms=k_ms[variant],
                             plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                             library_ms=None))
+        # the weights' locality: every packet on one model, or sorted by model
+        one = dict(case, slot=torch.zeros_like(case["slot"]))
+        by_model = dict(case, slot=torch.sort(case["slot"]).values)
+        q_one, q_sorted = (queued_ms(lambda c=c: fmlp.fixedpoint_mlp(
+            **c, **kw, variant=variant)) for c in (one, by_model))
         log(f"time {variant} B=2048 M=16 L=4 W=32: kernel "
             f"{k_ms[variant]:.4f} ms per call ({q_ms:.4f} ms queued, device "
-            f"only), plain {p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}) "
-            f"[{smi}]")
+            f"only; {q_one:.4f} with every packet on one model, {q_sorted:.4f} "
+            f"with the packets sorted by model), plain {p_ms:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}) [{smi}]")
     nodes, tree_on, mode, ranges = trained
     # codes as the serving trace has them
     x = np.round(rng.normal(size=(2048, WIDTH)) * (1 << FRAC)).astype(np.int32)

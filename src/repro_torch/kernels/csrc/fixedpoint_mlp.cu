@@ -20,16 +20,22 @@
 // int32 tensor-core MMA and W ≤ 32 makes each packet's layer a tiny
 // matrix-vector product, so this is CUDA-core work.
 //
-// Design.  One warp per packet; lane j owns output column j (and j+32, j+64,
-// j+96 when W > 32, up to kMaxWidth).  The warp keeps the packet's current
-// activations in shared memory, so every lane reads x_i as a broadcast, and
-// reads column j of W[s,l] — for fixed i the 32 lanes read 32 adjacent
-// weights, one coalesced request.  The kernel reads the control plane's own
-// (M, L, W, W) / (M, L, W) / (M, L) tables, so no per-batch transpose or
-// relayout is needed; the tables (128 KiB of int16 at the defaults) stay hot
-// in L1/L2 across the warps of a batch.  frac, the leaky slope and the ≤8
-// Taylor constants are kernel arguments; tables are pointers, never compiled
-// in, so installing a model never rebuilds anything.
+// Design.  One warp per packet (4 per block: 512 blocks at B = 2048); lane
+// j owns output column j (and j+32, j+64, j+96 when W > 32, up to
+// kMaxWidth).  The warp keeps the packet's current activations in shared
+// memory and reads column j of W[s,l]: for fixed i the 32 lanes read 32
+// adjacent weights, one coalesced request.  The kernel reads the control
+// plane's own (M, L, W, W) / (M, L, W) / (M, L) tables, so no per-batch
+// transpose or relayout is needed; the tables (128 KiB of int16 at the
+// defaults) stay hot in L1/L2 across the warps of a batch.  At the width in
+// use (W = 32) the width is a template parameter: the 32 products of a
+// column are unrolled, x comes as eight 16-byte broadcast reads, and the
+// next layer's 32 weights, bias, opcode and flag are loaded into registers
+// while this layer's products run, since they do not depend on x.  Any
+// other width up to kMaxWidth runs the same kernel with a runtime-length
+// loop.  frac, the leaky slope and the ≤8 Taylor constants are kernel
+// arguments; tables are pointers, never compiled in, so installing a model
+// never rebuilds anything.
 //
 // Integer discipline.  Signed overflow is undefined in C++, while the
 // reference wraps: every product and sum is done in uint32_t and
@@ -46,7 +52,7 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kWarpsPerBlock = 4;
 constexpr int kMaxWidth = 128;
 constexpr int kMaxCols = kMaxWidth / 32;
 constexpr int kMaxCoeffs = 8;
@@ -104,7 +110,9 @@ __device__ __forceinline__ int32_t activate(int32_t y, int op, const Consts& k) 
   }
 }
 
-template <typename WT, bool kLane8>
+// One warp per packet; lane j owns output column j (and j + 32, j + 64,
+// j + 96 where kW, or the runtime width when kW == 0, exceeds 32).
+template <typename WT, bool kLane8, int kW>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 fixedpoint_mlp_kernel(const int32_t* __restrict__ x,
                       const int32_t* __restrict__ slot,
@@ -113,9 +121,11 @@ fixedpoint_mlp_kernel(const int32_t* __restrict__ x,
                       const int32_t* __restrict__ act,
                       const int32_t* __restrict__ on,
                       int32_t* __restrict__ out,
-                      int n_batch, int n_models, int n_layers, int width,
+                      int n_batch, int n_models, int n_layers, int width_rt,
                       Consts k) {
-  __shared__ int32_t xs[kWarpsPerBlock][kMaxWidth];
+  constexpr int kCols = kW > 0 ? (kW + 31) / 32 : kMaxCols;
+  const int width = kW > 0 ? kW : width_rt;
+  __shared__ __align__(16) int32_t xs[kWarpsPerBlock][kMaxWidth];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int p = blockIdx.x * kWarpsPerBlock + warp;
@@ -123,9 +133,9 @@ fixedpoint_mlp_kernel(const int32_t* __restrict__ x,
   int32_t* xw = xs[warp];
   const int32_t* xp = x + static_cast<size_t>(p) * width;
 
-  int32_t xr[kMaxCols];
+  int32_t xr[kCols];
 #pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) {
+  for (int c = 0; c < kCols; ++c) {
     const int j = lane + 32 * c;
     xr[c] = 0;
     if (j < width) {
@@ -135,49 +145,99 @@ fixedpoint_mlp_kernel(const int32_t* __restrict__ x,
       xw[j] = v;
     }
   }
-  __syncwarp();
 
   const int s = slot[p];
-  if (s >= 0 && s < n_models) {  // warp-uniform
-    for (int l = 0; l < n_layers; ++l) {
-      const int ml = s * n_layers + l;
-      const int op = act[ml];
-      const bool layer_on = on[ml] > 0;
-      const WT* wl = w + static_cast<size_t>(ml) * width * width;
-      const int32_t* bl = b + static_cast<size_t>(ml) * width;
-      int32_t acc[kMaxCols];
+  if (s >= 0 && s < n_models && n_layers > 0) {  // warp-uniform
+    const size_t ww = static_cast<size_t>(width) * width;
+    if constexpr (kW == 32) {
+      // The layer's weights (column `lane`), bias and flags are loaded a
+      // layer ahead: they do not depend on x, so their latency hides under
+      // the previous layer's products.
+      int32_t wcur[32], wnext[32] = {};
+      const WT* wl = w + static_cast<size_t>(s) * n_layers * ww;
 #pragma unroll
-      for (int c = 0; c < kMaxCols; ++c) {
-        const int j = lane + 32 * c;
-        acc[c] = j < width ? bl[j] : 0;
-      }
-      for (int i = 0; i < width; ++i) {
-        const int32_t xi = xw[i];
-        const WT* wrow = wl + static_cast<size_t>(i) * width;
+      for (int i = 0; i < 32; ++i) wcur[i] = __ldg(wl + i * 32 + lane);
+      int32_t bcur = __ldg(b + static_cast<size_t>(s) * n_layers * 32 + lane);
+      int ml = s * n_layers;
+      int opcur = __ldg(act + ml), oncur = __ldg(on + ml);
+      for (int l = 0; l < n_layers; ++l) {
+        int32_t bnext = 0;
+        int opnext = 0, onnext = 0;
+        if (l + 1 < n_layers) {
+          const WT* wn = wl + static_cast<size_t>(l + 1) * ww;
 #pragma unroll
-        for (int c = 0; c < kMaxCols; ++c) {
-          const int j = lane + 32 * c;
-          if (j < width) acc[c] = wadd(acc[c], wmul(xi, static_cast<int32_t>(wrow[j])));
+          for (int i = 0; i < 32; ++i) wnext[i] = __ldg(wn + i * 32 + lane);
+          bnext = __ldg(b + static_cast<size_t>(ml + 1) * 32 + lane);
+          opnext = __ldg(act + ml + 1);
+          onnext = __ldg(on + ml + 1);
         }
-      }
-      __syncwarp();  // every lane has read x before any lane overwrites it
+        __syncwarp();  // this layer's x is in xw
+        int32_t acc = bcur;
+        const int4* x4 = reinterpret_cast<const int4*>(xw);
 #pragma unroll
-      for (int c = 0; c < kMaxCols; ++c) {
-        const int j = lane + 32 * c;
-        if (j < width) {
-          int32_t y = activate(rounding_rshift(acc[c], k.frac), op, k);
-          if (kLane8) y = clamp8(y);
-          if (layer_on) xr[c] = y;
-          xw[j] = xr[c];
+        for (int q = 0; q < 8; ++q) {
+          const int4 v = x4[q];
+          acc = wadd(acc, wmul(v.x, wcur[4 * q]));
+          acc = wadd(acc, wmul(v.y, wcur[4 * q + 1]));
+          acc = wadd(acc, wmul(v.z, wcur[4 * q + 2]));
+          acc = wadd(acc, wmul(v.w, wcur[4 * q + 3]));
         }
+        __syncwarp();  // every lane has read x before any lane overwrites it
+        int32_t y = activate(rounding_rshift(acc, k.frac), opcur, k);
+        if (kLane8) y = clamp8(y);
+        if (oncur > 0) xr[0] = y;
+        xw[lane] = xr[0];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) wcur[i] = wnext[i];
+        bcur = bnext;
+        opcur = opnext;
+        oncur = onnext;
+        ++ml;
       }
+    } else {
       __syncwarp();
+      for (int l = 0; l < n_layers; ++l) {
+        const int ml = s * n_layers + l;
+        const int op = act[ml];
+        const bool layer_on = on[ml] > 0;
+        const WT* wl = w + static_cast<size_t>(ml) * ww;
+        const int32_t* bl = b + static_cast<size_t>(ml) * width;
+        int32_t acc[kCols];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          const int j = lane + 32 * c;
+          acc[c] = j < width ? bl[j] : 0;
+        }
+        for (int i = 0; i < width; ++i) {
+          const int32_t xi = xw[i];
+          const WT* wrow = wl + static_cast<size_t>(i) * width;
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) {
+            const int j = lane + 32 * c;
+            if (j < width) {
+              acc[c] = wadd(acc[c], wmul(xi, static_cast<int32_t>(wrow[j])));
+            }
+          }
+        }
+        __syncwarp();  // every lane has read x before any lane overwrites it
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          const int j = lane + 32 * c;
+          if (j < width) {
+            int32_t y = activate(rounding_rshift(acc[c], k.frac), op, k);
+            if (kLane8) y = clamp8(y);
+            if (layer_on) xr[c] = y;
+            xw[j] = xr[c];
+          }
+        }
+        __syncwarp();
+      }
     }
   }
 
   int32_t* op = out + static_cast<size_t>(p) * width;
 #pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) {
+  for (int c = 0; c < kCols; ++c) {
     const int j = lane + 32 * c;
     if (j < width) op[j] = xr[c];
   }
@@ -190,7 +250,9 @@ void launch(const void* x, const void* slot, const void* w, const void* b,
             cudaStream_t stream) {
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid((n_batch + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  fixedpoint_mlp_kernel<WT, kLane8><<<grid, block, 0, stream>>>(
+  auto* kernel = width == 32 ? fixedpoint_mlp_kernel<WT, kLane8, 32>
+                             : fixedpoint_mlp_kernel<WT, kLane8, 0>;
+  kernel<<<grid, block, 0, stream>>>(
       static_cast<const int32_t*>(x), static_cast<const int32_t*>(slot),
       static_cast<const WT*>(w), static_cast<const int32_t*>(b),
       static_cast<const int32_t*>(act), static_cast<const int32_t*>(on),

@@ -11,10 +11,9 @@ kernel on the current stream or raises — there is no fallback.
 
 ``w_codes`` has the reference's shape and values, (K, N), in either of two
 layouts: K-major (strides (1, K), as ``core.quantize`` stores weight codes)
-or row-major (contiguous).  Every call runs one design, ``"wgmma"``: TMA
-loads of x and of K-major w, ``wgmma`` on a persistent grid, split-K where
-the output tiles leave SMs idle (:func:`plan`).  Operands TMA cannot take
-are copied first:
+or row-major (contiguous).  Every call runs one kernel: TMA loads of x and
+of K-major w, ``wgmma`` on a persistent grid, split-K where the output tiles
+leave SMs idle (:func:`plan`).  Operands TMA cannot take are copied first:
 
   * a row-major w, to K-major;
   * K % 16 != 0 (TMA strides are multiples of 16 bytes) or K == 0: x and w
@@ -23,11 +22,9 @@ are copied first:
   * an operand that does not start on a 16-byte boundary, to a fresh one.
 
 Each copied operand adds one to ``relayouts["fixedpoint_matmul"]``.  Every
-call that launches adds one to ``launches["fixedpoint_matmul"]`` and one to
-``designs[<design>]``.  :func:`run_design` also reaches the first design
-(``"mma_sync"``: ``mma.sync`` on a 128×128 tile per block, w row-major),
-which nothing dispatches to: it is kept only to time and check the wgmma
-design against it on the card.
+call that launches adds one to ``launches["fixedpoint_matmul"]``.
+:func:`run_split` launches the kernel with a split of K chosen by the
+caller, to check every split against the exact product.
 """
 
 from __future__ import annotations
@@ -42,29 +39,22 @@ import torch
 from . import _build
 from .ref import fixedpoint_matmul_ref
 
-__all__ = ["fixedpoint_matmul", "run_design", "plan", "DESIGNS", "launches",
-           "designs", "relayouts", "reset_launches", "load_library"]
-
-DESIGNS = ("wgmma", "mma_sync")
+__all__ = ["fixedpoint_matmul", "run_split", "plan", "launches", "relayouts",
+           "reset_launches", "load_library"]
 
 #: kernel launches since the last :func:`reset_launches`
 launches: Dict[str, int] = {"fixedpoint_matmul": 0}
-#: launches by design
-designs: Dict[str, int] = {d: 0 for d in DESIGNS}
 #: weight-layout copies made before a launch
 relayouts: Dict[str, int] = {"fixedpoint_matmul": 0}
 
-TILE = 128          # the wgmma design's output tile and K step (bytes)
+TILE = 128          # the kernel's output tile and K step (bytes)
 SPLIT = 4           # slices of K where split-K pays (see plan)
 LONG_K_STEPS = 64   # K steps from which it pays
-_MAX_M = 65535 * 128  # the mma_sync grid's y extent × the block's rows
 
 
 def reset_launches() -> None:
     launches["fixedpoint_matmul"] = 0
     relayouts["fixedpoint_matmul"] = 0
-    for d in DESIGNS:
-        designs[d] = 0
 
 
 _lib = None
@@ -79,9 +69,6 @@ def load_library() -> ctypes.CDLL:
         lib.fixedpoint_matmul_wgmma_launch.argtypes = [p, p, p, p, p, p, p, i,
                                                        i, i, i, i, i, p]
         lib.fixedpoint_matmul_wgmma_launch.restype = ctypes.c_int
-        lib.fixedpoint_matmul_mma_sync_launch.argtypes = [p, p, p, p, p, i, i,
-                                                          i, p]
-        lib.fixedpoint_matmul_mma_sync_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -147,7 +134,7 @@ def _checked(x_codes, w_codes, x_scale, w_scale):
 
 
 def _tma_operands(x_codes: torch.Tensor, w_codes: torch.Tensor):
-    """``(x, w)`` as the wgmma design loads them: K a positive multiple of
+    """``(x, w)`` as the kernel loads them: K a positive multiple of
     16 (zero codes appended), w K-major, both 16-byte aligned.  Each copied
     operand is counted in ``relayouts``."""
     k = x_codes.shape[1]
@@ -169,31 +156,21 @@ def _tma_operands(x_codes: torch.Tensor, w_codes: torch.Tensor):
     return x_codes, w_codes
 
 
-def run_design(x_codes: torch.Tensor, w_codes: torch.Tensor,
-               x_scale: torch.Tensor, w_scale: torch.Tensor, design: str,
-               split: int = 1) -> torch.Tensor:
-    """Launch the named design on card tensors: ``"wgmma"`` with ``split``
-    slices of K (operands copied as :func:`fixedpoint_matmul` copies them,
-    which launches it with :func:`plan`'s split), or ``"mma_sync"`` on a
-    row-major w (a K-major w is copied).  Raises on a split that leaves a
-    slice of K empty."""
-    if design not in DESIGNS:
-        raise ValueError(f"unknown design {design!r}")
-    m, k, n = _checked(x_codes, w_codes, x_scale, w_scale)
-    if design == "wgmma":
-        nk = _cdiv(max(k, 1), TILE)
-        kper = _cdiv(nk, split) if split >= 1 else 0
-        if kper < 1 or _cdiv(nk, kper) != split:
-            raise ValueError(f"the wgmma design takes a split that leaves no "
-                             f"slice of K empty, got K={k}, split={split}")
-        x_codes, w_codes = _tma_operands(x_codes, w_codes)
-    else:
-        if m > _MAX_M:
-            raise ValueError(f"M={m} above the mma_sync grid's limit {_MAX_M}")
-        if not w_codes.is_contiguous():
-            w_codes = w_codes.contiguous()
-            relayouts["fixedpoint_matmul"] += 1
-    return _launch(x_codes, w_codes, x_scale, w_scale, design, split)
+def run_split(x_codes: torch.Tensor, w_codes: torch.Tensor,
+              x_scale: torch.Tensor, w_scale: torch.Tensor,
+              split: int) -> torch.Tensor:
+    """Launch the kernel on card tensors with ``split`` slices of K
+    (operands copied as :func:`fixedpoint_matmul` copies them, which
+    launches it with :func:`plan`'s split).  Raises on a split that leaves
+    a slice of K empty."""
+    _, k, _ = _checked(x_codes, w_codes, x_scale, w_scale)
+    nk = _cdiv(max(k, 1), TILE)
+    kper = _cdiv(nk, split) if split >= 1 else 0
+    if kper < 1 or _cdiv(nk, kper) != split:
+        raise ValueError(f"the kernel takes a split that leaves no slice of "
+                         f"K empty, got K={k}, split={split}")
+    x_codes, w_codes = _tma_operands(x_codes, w_codes)
+    return _launch(x_codes, w_codes, x_scale, w_scale, split)
 
 
 # per (device, stream): int32 arrival counts of split-K tiles, zero between
@@ -211,8 +188,7 @@ def _arrival_counts(dev: torch.device, stream: int,
     return buf
 
 
-def _launch(x_codes, w_codes, x_scale, w_scale, design: str,
-            split: int) -> torch.Tensor:
+def _launch(x_codes, w_codes, x_scale, w_scale, split: int) -> torch.Tensor:
     (m, k), n = x_codes.shape, w_codes.shape[1]
     dev = x_codes.device
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
@@ -222,29 +198,21 @@ def _launch(x_codes, w_codes, x_scale, w_scale, design: str,
     with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
           else torch.cuda.device(dev)):
         stream = torch._C._cuda_getCurrentRawStream(dev.index)
-        if design == "wgmma":
-            tiles = _cdiv(m, TILE) * _cdiv(n, TILE)
-            part = arrivals = None
-            if split > 1:  # partial sums, and each tile's count of arrivals
-                part = torch.empty((split, m, n), dtype=torch.int32,
-                                   device=dev)
-                arrivals = _arrival_counts(dev, stream, tiles)
-            rc = lib.fixedpoint_matmul_wgmma_launch(
-                x_codes.data_ptr(), w_codes.data_ptr(), x_scale.data_ptr(),
-                w_scale.data_ptr(), out.data_ptr(),
-                None if part is None else part.data_ptr(),
-                None if arrivals is None else arrivals.data_ptr(), m, n, k,
-                split, _cdiv(_cdiv(k, TILE), split),
-                min(_num_sms(dev), tiles * split), stream)
-        else:
-            rc = lib.fixedpoint_matmul_mma_sync_launch(
-                x_codes.data_ptr(), w_codes.data_ptr(), x_scale.data_ptr(),
-                w_scale.data_ptr(), out.data_ptr(), m, n, k, stream)
+        tiles = _cdiv(m, TILE) * _cdiv(n, TILE)
+        part = arrivals = None
+        if split > 1:  # partial sums, and each tile's count of arrivals
+            part = torch.empty((split, m, n), dtype=torch.int32, device=dev)
+            arrivals = _arrival_counts(dev, stream, tiles)
+        rc = lib.fixedpoint_matmul_wgmma_launch(
+            x_codes.data_ptr(), w_codes.data_ptr(), x_scale.data_ptr(),
+            w_scale.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if arrivals is None else arrivals.data_ptr(), m, n, k,
+            split, _cdiv(_cdiv(k, TILE), split),
+            min(_num_sms(dev), tiles * split), stream)
     if rc != 0:
-        raise RuntimeError(f"fixedpoint_matmul ({design}) launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"fixedpoint_matmul launch failed: CUDA error {rc}")
     launches["fixedpoint_matmul"] += 1
-    designs[design] += 1
     return out
 
 
@@ -259,5 +227,5 @@ def fixedpoint_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor,
         return torch.empty((m, n), dtype=torch.float32,
                            device=x_codes.device)
     x_codes, w_codes = _tma_operands(x_codes, w_codes)
-    return _launch(x_codes, w_codes, x_scale, w_scale, "wgmma",
+    return _launch(x_codes, w_codes, x_scale, w_scale,
                    plan(m, n, k, _num_sms(x_codes.device)))

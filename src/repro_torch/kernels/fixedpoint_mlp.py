@@ -15,8 +15,10 @@ launch adds one to ``launches[variant]``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Dict
+import functools
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -42,15 +44,34 @@ def reset_launches() -> None:
         launches[v] = 0
 
 
+_launch_fn = None
+
+
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the kernel library."""
+    global _launch_fn
     lib = _build.load("fixedpoint_mlp")
-    fn = lib.fixedpoint_mlp_launch
-    if fn.argtypes is None:
+    if _launch_fn is None:
+        fn = lib.fixedpoint_mlp_launch
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, i, p, p, p, p, i, i, i, i, i, p, i, i, i, p]
         fn.restype = ctypes.c_int
+        _launch_fn = fn
     return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _packed(coeffs: tuple) -> Tuple[tuple, ctypes.Array]:
+    """Taylor constants as Python ints and as the kernel's int32 array, made
+    once per tuple of constants."""
+    ints = tuple(int(c) for c in coeffs)
+    return ints, (ctypes.c_int32 * len(ints))(*ints)
+
+
+def _constants(sig_coeffs) -> Tuple[tuple, ctypes.Array]:
+    if not isinstance(sig_coeffs, tuple):
+        sig_coeffs = tuple(np.asarray(sig_coeffs).reshape(-1).tolist())
+    return _packed(sig_coeffs)
 
 
 def _check(name: str, t: torch.Tensor, dtypes, shape, device) -> None:
@@ -77,7 +98,7 @@ def fixedpoint_mlp(x_q: torch.Tensor, slot: torch.Tensor, w: torch.Tensor,
     if variant not in KERNEL_VARIANTS:
         raise ValueError(f"unknown kernel variant: {variant!r}")
     x = x_q
-    coeffs = [int(c) for c in np.asarray(sig_coeffs).reshape(-1).tolist()]
+    coeffs, sig = _constants(sig_coeffs)
     lane_bits = 8 if variant == "int8" else None
     if x.device.type == "cpu":
         return fused_mlp_gather_ref(x, slot, w, b, act, layer_on, frac=frac,
@@ -106,11 +127,12 @@ def fixedpoint_mlp(x_q: torch.Tensor, slot: torch.Tensor, w: torch.Tensor,
     out = torch.empty_like(x)
     if n_batch == 0:
         return out
-    lib = load_library()
-    sig = (ctypes.c_int32 * len(coeffs))(*coeffs)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fixedpoint_mlp_launch(
+    if _launch_fn is None:
+        load_library()
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        rc = _launch_fn(
             x.data_ptr(), slot.data_ptr(), w.data_ptr(), _W_BYTES[w.dtype],
             b.data_ptr(), act.data_ptr(), layer_on.data_ptr(), out.data_ptr(),
             n_batch, n_models, n_layers, width, int(frac), sig, len(coeffs),

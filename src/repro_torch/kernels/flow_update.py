@@ -19,12 +19,15 @@ Three realizations, all bit-exact against the pure-Python per-packet oracle
 ``ref.flow_update_numpy``:
 
   * :func:`flow_update_kernel` — the hand-written CUDA kernel
-    (``csrc/flow_update.cu``) for tensors on the card: one thread per
-    packet; the first live packet of each flow walks its flow's later
-    packets in batch order, and the count-min lane takes its closed form
-    (see the source's note).  For CPU tensors it runs the plain version
-    ``ref.flow_update_ref``.  Every launch adds one to
-    ``launches["flow_update"]``.
+    (``csrc/flow_update.cu``) for tensors on the card, in two device
+    kernels: the links (one warp per packet finds whether it heads its
+    flow, its rank and last-ness in each sketch cell, and its place in a
+    layout where each flow's packets form one run in batch order), then
+    the update (each flow's first live packet walks its run; the count-min
+    lane takes its closed form); see the source's note and its plain
+    mirror ``ref.flow_update_two_phase_ref``.
+    For CPU tensors it runs the plain version ``ref.flow_update_ref``.
+    Every call that launches adds one to ``launches["flow_update"]``.
   * :func:`flow_update_gather` — the production CPU lowering (numpy): rank
     rounds, where round ``r`` updates every flow's rank-``r`` packet at
     once, so the sequential chain costs rounds = max packets per flow per
@@ -35,6 +38,7 @@ Three realizations, all bit-exact against the pure-Python per-packet oracle
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Dict
 
@@ -48,9 +52,9 @@ from .ref import (FLOW_CODE_MAX, N_FLOW_FEATURES, N_FLOW_REGISTERS,
                   REG_LAST_TS, REG_MAX_LEN, REG_MIN_LEN, REG_PKT_COUNT,
                   flow_update_ref, rounding_rshift_np, sat_shl_np)
 
-__all__ = ["flow_update_kernel", "flow_update_gather", "rank_from_order",
-           "cms_estimate_update", "launches", "reset_launches",
-           "load_library", "MAX_DEPTH"]
+__all__ = ["flow_update_kernel", "launch", "flow_update_gather",
+           "rank_from_order", "cms_estimate_update", "launches",
+           "reset_launches", "load_library", "MAX_DEPTH"]
 
 MAX_DEPTH = 8  # kMaxDepth in the CUDA source: count-min sketch rows
 
@@ -243,15 +247,57 @@ def flow_update_gather(state: np.ndarray, cms: np.ndarray, slots: np.ndarray,
 # ---------------------------------------------------------------------------
 
 
+_launch_fn = None
+
+
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the kernel library."""
+    global _launch_fn
     lib = _build.load("flow_update")
-    fn = lib.flow_update_launch
-    if fn.argtypes is None:
+    if _launch_fn is None:
+        fn = lib.flow_update_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 11 + [i] * 8 + [p]
+        fn.argtypes = [p] * 12 + [i] * 8 + [p]
         fn.restype = ctypes.c_int
+        _launch_fn = fn
     return lib
+
+
+def launch(state: torch.Tensor, cms: torch.Tensor, slots: torch.Tensor,
+           cells: torch.Tensor, ts: torch.Tensor, length: torch.Tensor,
+           live: torch.Tensor, *, frac: int, ewma_shift: int,
+           byte_shift: int, dur_shift: int):
+    """Launch the kernel on checked card tensors of a non-empty batch, with
+    no synchronisation: returns ``(new_state, new_cms, features, err)``,
+    all views into one fresh int32 allocation, ``err`` the kernel's error
+    word (see :func:`flow_update_kernel`), still to be read."""
+    n_slots = state.shape[0]
+    depth, width_c = cms.shape
+    n = slots.shape[0]
+    dev = state.device
+    # one allocation: the outputs, the kernels' (4 + D)·B workspace and the
+    # error word
+    sizes = (n_slots * N_FLOW_REGISTERS, depth * width_c,
+             n * N_FLOW_FEATURES, (4 + depth) * n, 1)
+    parts = torch.empty(sum(sizes), dtype=torch.int32,
+                        device=dev).split(sizes)
+    if _launch_fn is None:
+        load_library()
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        rc = _launch_fn(
+            state.data_ptr(), cms.data_ptr(), slots.data_ptr(),
+            cells.data_ptr(), ts.data_ptr(), length.data_ptr(),
+            live.data_ptr(), *(t.data_ptr() for t in parts), n, n_slots,
+            depth, width_c, int(frac), int(ewma_shift), int(byte_shift),
+            int(dur_shift), stream)
+    if rc != 0:
+        raise RuntimeError(f"flow_update launch failed: CUDA error {rc}")
+    launches["flow_update"] += 1
+    return (parts[0].view(n_slots, N_FLOW_REGISTERS),
+            parts[1].view(depth, width_c),
+            parts[2].view(n, N_FLOW_FEATURES), parts[4])
 
 
 def flow_update_kernel(state: torch.Tensor, cms: torch.Tensor,
@@ -299,25 +345,12 @@ def flow_update_kernel(state: torch.Tensor, cms: torch.Tensor,
                     ("dur_shift", dur_shift)):
         if not 0 <= v <= 30:
             raise ValueError(f"{name}={v} outside the kernel's [0, 30]")
-    new_state = state.clone()
-    new_cms = cms.clone()
-    feats = torch.empty((n, N_FLOW_FEATURES), dtype=torch.int32, device=dev)
     if n == 0:
-        return new_state, new_cms, feats
-    err = torch.zeros(1, dtype=torch.int32, device=dev)
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.flow_update_launch(
-            state.data_ptr(), cms.data_ptr(), slots.data_ptr(),
-            cells.data_ptr(), ts.data_ptr(), length.data_ptr(),
-            live.data_ptr(), new_state.data_ptr(), new_cms.data_ptr(),
-            feats.data_ptr(), err.data_ptr(), n, n_slots, depth, width_c,
-            int(frac), int(ewma_shift), int(byte_shift), int(dur_shift),
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"flow_update launch failed: CUDA error {rc}")
-    launches["flow_update"] += 1
+        return (state.clone(), cms.clone(),
+                torch.empty((0, N_FLOW_FEATURES), dtype=torch.int32,
+                            device=dev))
+    new_state, new_cms, feats, err = launch(state, cms, slots, cells, ts,
+                                            length, live, **kw)
     bad = int(err.item())
     if bad & 1:
         raise ValueError(f"flow_update: a live packet's slot lies outside "

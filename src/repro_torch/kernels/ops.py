@@ -95,11 +95,11 @@ def fused_mlp(x_q: torch.Tensor, slot: torch.Tensor, w: torch.Tensor,
     _check_backend(backend, x_q)
     if variant not in KERNEL_VARIANTS:
         raise ValueError(f"unknown kernel variant: {variant!r}")
-    coeffs = tuple(int(c) for c in np.asarray(sig_coeffs).reshape(-1).tolist())
     if backend in ("auto", "kernel"):
         return fixedpoint_mlp(x_q, slot.to(torch.int32).contiguous(), w, b,
-                              act, layer_on, frac=frac, sig_coeffs=coeffs,
+                              act, layer_on, frac=frac, sig_coeffs=sig_coeffs,
                               leaky_alpha_q=leaky_alpha_q, variant=variant)
+    coeffs = tuple(int(c) for c in np.asarray(sig_coeffs).reshape(-1).tolist())
     # backend == "ref": layer-major stacked operands, masked-GEMM form
     n_batch, width = x_q.shape
     n_models, n_layers = act.shape

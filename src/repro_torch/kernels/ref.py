@@ -4,12 +4,14 @@ takes for tensors on the CPU.
 
 Counterparts of ``repro.kernels.ref``: ``rounding_rshift``, ``lane_clamp``,
 ``_select_activation_ref``, ``fused_mlp_ref``, ``fused_mlp_gather_ref`` for
-the MLP lane, and ``forest_traverse_ref``, ``forest_traverse_gather_ref``,
+the MLP lane, with ``fused_mlp_warp_ref``, the MLP kernel's decomposition;
+``forest_traverse_ref``, ``forest_traverse_gather_ref``,
 ``forest_range_ref``, ``forest_range_gather_ref`` and ``_forest_vote`` for
 the tree-ensemble lane, and the flow engine's register-file constants,
 ``rounding_rshift_np``, ``sat_shl_np`` and the pure-Python per-packet
 oracle ``flow_update_numpy`` (numpy, copied verbatim) beside its plain
-PyTorch version ``flow_update_ref``; and the paper's two standalone
+PyTorch version ``flow_update_ref`` and ``flow_update_two_phase_ref``, the
+flow kernel's decomposition of it; and the paper's two standalone
 primitives, ``fixedpoint_matmul_ref`` (the W8A8 GEMM, C1) and
 ``taylor_activation_ref`` (the integer Horner chain, C2), with
 ``int32_matmul``, the exact wrapped int32 accumulator they and
@@ -39,14 +41,15 @@ import numpy as np
 import torch
 
 __all__ = ["rounding_rshift", "lane_clamp", "fused_mlp_ref",
-           "fused_mlp_gather_ref", "forest_traverse_ref",
+           "fused_mlp_gather_ref", "fused_mlp_warp_ref", "forest_traverse_ref",
            "forest_traverse_gather_ref", "forest_range_ref",
            "forest_range_gather_ref", "FOREST_REGRESS", "FOREST_CLASSIFY",
            "REG_PKT_COUNT", "REG_BYTE_COUNT", "REG_LAST_TS", "REG_FIRST_TS",
            "REG_EWMA_IAT", "REG_EWMA_LEN", "REG_MIN_LEN", "REG_MAX_LEN",
            "N_FLOW_REGISTERS", "FLOW_FEATURE_NAMES", "N_FLOW_FEATURES",
            "FLOW_CODE_MAX", "rounding_rshift_np", "sat_shl_np",
-           "flow_update_numpy", "flow_update_ref", "int32_matmul",
+           "flow_update_numpy", "flow_update_ref",
+           "flow_update_two_phase_ref", "int32_matmul",
            "fixedpoint_matmul_ref", "taylor_activation_ref", "int32_coeffs",
            "wkv_scan_ref", "wkv_scan_two_phase_ref"]
 
@@ -145,6 +148,44 @@ def fused_mlp_gather_ref(x_q: torch.Tensor, slot: torch.Tensor,
         y = lane_clamp(y, lane_bits)
         x = torch.where(layer_on[slot, l][:, None] > 0, y, x)
     return x
+
+
+def fused_mlp_warp_ref(x_q: torch.Tensor, slot: torch.Tensor,
+                       w: torch.Tensor, b: torch.Tensor, act: torch.Tensor,
+                       layer_on: torch.Tensor, *, frac: int, sig_coeffs,
+                       leaky_alpha_q: int,
+                       lane_bits: Optional[int] = None) -> torch.Tensor:
+    """The MLP kernel's decomposition of the fused MLP, in plain PyTorch
+    (the tests hold it to the reference's gather form and Pallas kernel),
+    on the control plane's own layout as the kernel reads it: x_q (B, W)
+    int32 · slot (B,) · w (M, L, W, W) · b (M, L, W) · act/layer_on (M, L)
+    → (B, W) int32.
+
+    One packet per warp, lane j owning output column j: a packet whose
+    slot lies in ``[0, M)`` gathers its model; per layer the column sums
+    start at the bias and add ``x_i · w[i, :]`` for i ascending, in
+    wrapping int32; then the rounding shift, the opcode's activation, the
+    lane clamp and ``layer_on``.  A slot outside ``[0, M)`` runs no layer
+    and returns its lane-clamped input, as the masked form does."""
+    n_models, n_layers = act.shape
+    slot = slot.to(torch.int64)
+    ok = (slot >= 0) & (slot < n_models)
+    x = lane_clamp(x_q, lane_bits)
+    s, xs = slot[ok], x[ok]
+    for l in range(n_layers):
+        wl = w[s, l].to(torch.int32)
+        acc = b[s, l].to(torch.int32)
+        for i in range(wl.shape[1]):
+            acc = acc + xs[:, i: i + 1] * wl[:, i, :]
+        y = _select_activation_ref(rounding_rshift(acc, frac),
+                                   act[s, l][:, None], frac=frac,
+                                   sig_coeffs=sig_coeffs,
+                                   leaky_alpha_q=leaky_alpha_q)
+        xs = torch.where(layer_on[s, l][:, None] > 0, lane_clamp(y, lane_bits),
+                         xs)
+    out = x.clone()
+    out[ok] = xs
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -521,6 +562,38 @@ def _group_rank(keys: torch.Tensor) -> torch.Tensor:
     return rank
 
 
+def _flow_step(row: torch.Tensor, t: torch.Tensor, ln: torch.Tensor, *,
+               frac: int, ewma_shift: int, byte_shift: int, dur_shift: int):
+    """One packet through each of a set of distinct flows' rows (int32
+    (k, N_FLOW_REGISTERS), ``ln`` clamped to [0, FLOW_CODE_MAX]): returns
+    the updated rows and the packets' seven register features (k, 7)."""
+    code_max = torch.tensor(FLOW_CODE_MAX, dtype=torch.int32, device=row.device)
+    cnt = row[:, REG_PKT_COUNT]
+    fresh = cnt == 0
+    len_q = _sat_shl(ln, frac)
+    iat_q = _sat_shl(torch.clamp_min(t - row[:, REG_LAST_TS], 0), frac)
+    blend_iat = row[:, REG_EWMA_IAT] + rounding_rshift(
+        iat_q - row[:, REG_EWMA_IAT], ewma_shift)
+    blend_len = row[:, REG_EWMA_LEN] + rounding_rshift(
+        len_q - row[:, REG_EWMA_LEN], ewma_shift)
+    zero = torch.zeros_like(cnt)
+    iat_e = torch.where(fresh, zero, torch.where(cnt == 1, iat_q, blend_iat))
+    len_e = torch.where(fresh, len_q, blend_len)
+    mn = torch.where(fresh, ln, torch.minimum(row[:, REG_MIN_LEN], ln))
+    mx = torch.where(fresh, ln, torch.maximum(row[:, REG_MAX_LEN], ln))
+    byte = torch.where(fresh, torch.minimum(ln, code_max),
+                       torch.minimum(row[:, REG_BYTE_COUNT] + ln, code_max))
+    cnt2 = torch.where(fresh, torch.ones_like(cnt),
+                       torch.minimum(cnt + 1, code_max))
+    first = torch.where(fresh, t, row[:, REG_FIRST_TS])
+    new_row = torch.stack([cnt2, byte, t, first, iat_e, len_e, mn, mx], dim=1)
+    feats = torch.stack([
+        _sat_shl(cnt2, frac), _sat_shl(byte >> byte_shift, frac), iat_e,
+        len_e, _sat_shl(mn, frac), _sat_shl(mx, frac),
+        _sat_shl(torch.clamp_min(t - first, 0) >> dur_shift, frac)], dim=1)
+    return new_row, feats
+
+
 def flow_update_ref(state: torch.Tensor, cms: torch.Tensor,
                     slots: torch.Tensor, cells: torch.Tensor,
                     ts: torch.Tensor, length: torch.Tensor,
@@ -542,6 +615,8 @@ def flow_update_ref(state: torch.Tensor, cms: torch.Tensor,
     """
     dev = state.device
     i32 = torch.int32
+    kw = dict(frac=frac, ewma_shift=ewma_shift, byte_shift=byte_shift,
+              dur_shift=dur_shift)
     state = state.to(i32).clone()
     cms = cms.to(i32).clone()
     slots = slots.reshape(-1).to(torch.int64)
@@ -554,42 +629,13 @@ def flow_update_ref(state: torch.Tensor, cms: torch.Tensor,
         return state, cms, feats
     ts = ts.reshape(-1).to(i32)
     length = torch.clamp(length.reshape(-1).to(i32), 0, FLOW_CODE_MAX)
-    code_max = torch.tensor(FLOW_CODE_MAX, dtype=i32, device=dev)
     lslots = slots[idx]
     rank = _group_rank(lslots)
     for r in range(int(rank.max()) + 1):
         sel = idx[rank == r]       # one packet per flow: distinct rows
         s = slots[sel]
-        t = ts[sel]
-        ln = length[sel]
-        row = state[s]
-        cnt = row[:, REG_PKT_COUNT]
-        fresh = cnt == 0
-        len_q = _sat_shl(ln, frac)
-        iat_q = _sat_shl(torch.clamp_min(t - row[:, REG_LAST_TS], 0), frac)
-        blend_iat = row[:, REG_EWMA_IAT] + rounding_rshift(
-            iat_q - row[:, REG_EWMA_IAT], ewma_shift)
-        blend_len = row[:, REG_EWMA_LEN] + rounding_rshift(
-            len_q - row[:, REG_EWMA_LEN], ewma_shift)
-        zero = torch.zeros_like(cnt)
-        iat_e = torch.where(fresh, zero,
-                            torch.where(cnt == 1, iat_q, blend_iat))
-        len_e = torch.where(fresh, len_q, blend_len)
-        mn = torch.where(fresh, ln, torch.minimum(row[:, REG_MIN_LEN], ln))
-        mx = torch.where(fresh, ln, torch.maximum(row[:, REG_MAX_LEN], ln))
-        byte = torch.where(fresh, torch.minimum(ln, code_max),
-                           torch.minimum(row[:, REG_BYTE_COUNT] + ln,
-                                         code_max))
-        cnt2 = torch.where(fresh, torch.ones_like(cnt),
-                           torch.minimum(cnt + 1, code_max))
-        first = torch.where(fresh, t, row[:, REG_FIRST_TS])
-        state[s] = torch.stack([cnt2, byte, t, first, iat_e, len_e, mn, mx],
-                               dim=1)
-        feats[sel, : N_FLOW_FEATURES - 1] = torch.stack([
-            _sat_shl(cnt2, frac), _sat_shl(byte >> byte_shift, frac),
-            iat_e, len_e, _sat_shl(mn, frac), _sat_shl(mx, frac),
-            _sat_shl(torch.clamp_min(t - first, 0) >> dur_shift, frac),
-        ], dim=1)
+        state[s], feats[sel, : N_FLOW_FEATURES - 1] = _flow_step(
+            state[s], ts[sel], length[sel], **kw)
     # count-min lane: increments commute, so each estimate is closed-form
     cl = cells.reshape(n, -1).to(torch.int64)[idx]
     est = torch.full((idx.numel(),), FLOW_CODE_MAX, dtype=torch.int64,
@@ -604,6 +650,90 @@ def flow_update_ref(state: torch.Tensor, cms: torch.Tensor,
                                  FLOW_CODE_MAX).to(i32)
     feats[idx, N_FLOW_FEATURES - 1] = _sat_shl(est.to(i32), frac)
     return state, cms, feats
+
+
+def flow_update_two_phase_ref(state: torch.Tensor, cms: torch.Tensor,
+                              slots: torch.Tensor, cells: torch.Tensor,
+                              ts: torch.Tensor, length: torch.Tensor,
+                              live: torch.Tensor, *, frac: int,
+                              ewma_shift: int, byte_shift: int,
+                              dur_shift: int):
+    """The flow kernel's decomposition of :func:`flow_update_ref`, in plain
+    PyTorch (the tests hold it to the numpy oracle and to
+    :func:`flow_update_ref`):
+
+      links (kernel 1), every live packet i at once, from its comparisons
+      with every other packet j of the batch:
+          less[i]   = the live packets whose slot is smaller than i's
+          before[i] = the live packets of i's slot earlier than i (0: i
+                      heads its flow), after[i] = those later than i
+          order[less[i] + before[i]] = i: the live packets sorted by
+                      (slot, batch index), each flow one run in batch order
+          rank_d[i] = the earlier live packets in i's cell of sketch row d
+          last_d[i] = no later live packet in that cell
+      update (kernel 2): each head takes its row from the input register
+          file and walks its run order[less, less + before + after + 1)
+          (here one step of every run per round), writing each packet's
+          seven register features, then the row; every live packet's
+          estimate is min over d of min(prior + rank_d + 1,
+          FLOW_CODE_MAX), with prior from the input sketch, and a cell's
+          last packet writes its row d's value into the output sketch.
+
+    Same arguments, results and contract as :func:`flow_update_ref`; it
+    holds (B, B) comparison matrices, so it is for small batches.
+    """
+    dev = state.device
+    i32 = torch.int32
+    kw = dict(frac=frac, ewma_shift=ewma_shift, byte_shift=byte_shift,
+              dur_shift=dur_shift)
+    state_in, cms_in = state.to(i32), cms.to(i32)
+    new_state, new_cms = state_in.clone(), cms_in.clone()
+    slots = slots.reshape(-1).to(torch.int64)
+    n = slots.shape[0]
+    feats = torch.zeros((n, N_FLOW_FEATURES), dtype=i32, device=dev)
+    alive = live.reshape(-1) != 0
+    if not bool(alive.any()):
+        return new_state, new_cms, feats
+    ts = ts.reshape(-1).to(i32)
+    length = torch.clamp(length.reshape(-1).to(i32), 0, FLOW_CODE_MAX)
+    cl = cells.reshape(n, -1).to(torch.int64)
+    # kernel 1: [i, j] comparisons, j earlier / later than i
+    pos = torch.arange(n, device=dev)
+    earlier = pos[None, :] < pos[:, None]
+    later = pos[None, :] > pos[:, None]
+    pair = alive[:, None] & alive[None, :]
+    same = pair & (slots[None, :] == slots[:, None])
+    less = (pair & (slots[None, :] < slots[:, None])).sum(1)
+    before = (same & earlier).sum(1)
+    after = (same & later).sum(1)
+    order = torch.empty(int(alive.sum()), dtype=torch.int64, device=dev)
+    order[(less + before)[alive]] = pos[alive]
+    in_cell = [pair & (cl[None, :, d] == cl[:, None, d])
+               for d in range(cms.shape[0])]
+    rank = [(eq & earlier).sum(1) for eq in in_cell]
+    last = [~(eq & later).any(1) for eq in in_cell]
+    # kernel 2: each head's run, one step of every run per round
+    heads = pos[alive & (before == 0)]
+    start, run = less[heads], after[heads] + 1
+    rows = state_in[slots[heads]]
+    for r in range(int(run.max())):
+        on = run > r
+        cur = order[start[on] + r]
+        rows[on], feats[cur, : N_FLOW_FEATURES - 1] = _flow_step(
+            rows[on], ts[cur], length[cur], **kw)
+    new_state[slots[heads]] = rows
+    p = pos[alive]
+    est = torch.full((p.numel(),), FLOW_CODE_MAX, dtype=torch.int64,
+                     device=dev)
+    for d in range(cms.shape[0]):
+        c = cl[p, d]
+        e = torch.clamp_max(cms_in[d, c].to(torch.int64) + rank[d][p] + 1,
+                            FLOW_CODE_MAX)
+        est = torch.minimum(est, e)
+        writer = last[d][p]
+        new_cms[d, c[writer]] = e[writer].to(i32)
+    feats[p, N_FLOW_FEATURES - 1] = _sat_shl(est.to(i32), frac)
+    return new_state, new_cms, feats
 
 
 # ---------------------------------------------------------------------------

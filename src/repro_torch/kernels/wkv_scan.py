@@ -6,14 +6,12 @@ across its chunks.
 
 For tensors on the CPU it runs the plain version (``ref.wkv_scan_ref``).
 For tensors on the card it launches the kernels on the current stream or
-raises — there is no fallback.  The design (``"two_phase"``) is two device
-kernels per call: one block per (row, chunk) computes each chunk's own part
-of ``o`` and its state increment into a (BH, NC, D, D) workspace, then one
-block per (row, 16 state columns) walks the chunks in order, adding a·S and
-carrying S.  :func:`run_design` also reaches the first design
-(``"rowloop"``: one block per row looping over its chunks), kept for
-comparison on the card.  Every call that launches adds one to
-``launches["wkv_scan"]``, whatever the number of device kernels.
+raises — there is no fallback.  Each call is two device kernels: one block
+per (row, chunk) computes each chunk's own part of ``o`` and its state
+increment into a (BH, NC, D, D) workspace, then one block per (row, 16
+state columns) walks the chunks in order, adding a·S and carrying S.  Every
+call that launches adds one to ``launches["wkv_scan"]``, whatever the
+number of device kernels.
 """
 
 from __future__ import annotations
@@ -26,10 +24,8 @@ import torch
 from . import _build
 from .ref import wkv_scan_ref
 
-__all__ = ["wkv_scan", "run_design", "DESIGNS", "MAX_D", "MAX_C", "launches",
-           "reset_launches", "load_library"]
-
-DESIGNS = ("two_phase", "rowloop")
+__all__ = ["wkv_scan", "MAX_D", "MAX_C", "launches", "reset_launches",
+           "load_library"]
 
 #: the kernel's limits: head dim D ≤ MAX_D, chunk length 1 ≤ C ≤ MAX_C
 MAX_D = 64
@@ -50,10 +46,6 @@ def load_library() -> ctypes.CDLL:
     if lib.wkv_scan_launch.argtypes is None:
         lib.wkv_scan_launch.argtypes = [p, p, p, p, p, p, p, i64, i64, i, i, p]
         lib.wkv_scan_launch.restype = ctypes.c_int
-    if lib.wkv_scan_rowloop_launch.argtypes is None:
-        lib.wkv_scan_rowloop_launch.argtypes = [p, p, p, p, p, p, i64, i64, i,
-                                                i, p]
-        lib.wkv_scan_rowloop_launch.restype = ctypes.c_int
     return lib
 
 
@@ -77,19 +69,9 @@ def wkv_scan(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
     """Chunked WKV scan: a/b/v (BH, NC, C, D), tot (BH, NC, 1, D), diag
     (BH, NC, C, 1), float32 → o (BH, NC, C, D) float32 (see
     ``ref.wkv_scan_ref`` for the recurrence)."""
-    if a.device.type == "cpu":
-        _check_shapes(a, b, v, tot, diag)
-        return wkv_scan_ref(a, b, v, tot, diag)
-    return run_design(a, b, v, tot, diag, "two_phase")
-
-
-def run_design(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
-               tot: torch.Tensor, diag: torch.Tensor,
-               design: str) -> torch.Tensor:
-    """Launch the named design on card tensors (see the module note)."""
-    if design not in DESIGNS:
-        raise ValueError(f"unknown design {design!r}")
     _check_shapes(a, b, v, tot, diag)
+    if a.device.type == "cpu":
+        return wkv_scan_ref(a, b, v, tot, diag)
     args = (a, b, v, tot, diag)
     if a.device.type != "cuda":
         raise ValueError(f"no wkv_scan kernel for device {a.device}")
@@ -109,15 +91,11 @@ def run_design(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         ptrs = [t.data_ptr() for t in args] + [out.data_ptr()]
-        if design == "two_phase":
-            state = torch.empty((bh, nc, d, d), dtype=torch.float32,
-                                device=a.device)
-            rc = lib.wkv_scan_launch(*ptrs, state.data_ptr(), bh, nc, c, d,
-                                     stream)
-        else:
-            rc = lib.wkv_scan_rowloop_launch(*ptrs, bh, nc, c, d, stream)
+        state = torch.empty((bh, nc, d, d), dtype=torch.float32,
+                            device=a.device)
+        rc = lib.wkv_scan_launch(*ptrs, state.data_ptr(), bh, nc, c, d,
+                                 stream)
     if rc != 0:
-        raise RuntimeError(f"wkv_scan ({design}) launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"wkv_scan launch failed: CUDA error {rc}")
     launches["wkv_scan"] += 1
     return out

@@ -27,7 +27,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (FLOW_CODE_MAX, flow_update_ref,
                                      forest_range_gather_ref,
                                      forest_traverse_gather_ref,
-                                     fused_mlp_gather_ref)
+                                     fused_mlp_gather_ref, fused_mlp_warp_ref)
 from repro_torch.launch.serve import PacketServer
 
 # the kernel modules (``repro_torch.kernels`` exports their wrappers, which
@@ -91,6 +91,35 @@ def test_kernel_equals_plain_version(card, variant, n_batch, width, order):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(got, masked)
+
+
+@pytest.mark.parametrize("variant", ["int16", "int8"])
+@pytest.mark.parametrize("width", [1, 31, 32, 33, 128])
+def test_kernel_edge_widths_opcodes_and_slots(card, variant, width):
+    """Widths around the kernel's W = 32 specialisation and its 128 limit,
+    every opcode in every model, middle layers off, and slots outside
+    [0, M), which return the lane-clamped input."""
+    c = _case(width, card, 301, 6, 6, width, variant)
+    c["act"] = torch.as_tensor(np.stack([np.roll([0, 1, 2, 3, 4, 9], m)
+                                         for m in range(6)]).astype(np.int32),
+                               device=card)
+    on = np.ones((6, 6), np.int32)
+    on[::2, 1:-1] = 0
+    c["layer_on"] = torch.as_tensor(on, device=card)
+    c["slot"][:5] = torch.as_tensor([6, -1, 999, -2 ** 31, 2 ** 31 - 1],
+                                    dtype=torch.int32, device=card)
+    kw = _kw(5)
+    lane = 8 if variant == "int8" else None
+    got = fmlp.fixedpoint_mlp(**c, **kw, variant=variant)
+    want = fused_mlp_warp_ref(**c, **kw, lane_bits=lane)
+    masked = ops.fused_mlp(c["x_q"], c["slot"], c["w"], c["b"], c["act"],
+                           c["layer_on"], backend="ref", variant=variant, **kw)
+    gather = fused_mlp_gather_ref(
+        c["x_q"][5:], c["slot"][5:], c["w"], c["b"], c["act"], c["layer_on"],
+        **kw, lane_bits=lane)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, masked)
+    assert torch.equal(got[5:], gather)
 
 
 def test_kernel_rejects_bad_arguments(card):
@@ -287,6 +316,10 @@ def _flow_case(rng, n, n_slots, cms_shape, case):
         slots = rng.permutation(n_slots)[:n].astype(np.int32)
     elif case == "dead":
         live = (rng.random(n) > 0.15).astype(np.int32)
+    elif case == "dead_interleaved":
+        live[1::2] = 0
+    elif case == "one_cell":
+        cells[:] = cells[0]
     elif case == "non_monotone":
         ts = rng.integers(0, 10 ** 6, n).astype(np.int32)
     elif case == "saturation":
@@ -298,16 +331,21 @@ def _flow_case(rng, n, n_slots, cms_shape, case):
     return state, cms, slots, cells, ts, length, live
 
 
+# batches of one packet, of sizes that are no multiple of the links kernel's
+# 8 packets or the update kernel's 32, and of 8193 packets
 @pytest.mark.parametrize("case", ["random", "one_flow", "distinct", "dead",
+                                  "dead_interleaved", "one_cell",
                                   "non_monotone", "saturation"])
 @pytest.mark.parametrize("n,n_slots,cms_shape", [(1, 64, (2, 4096)),
                                                  (127, 256, (3, 64)),
                                                  (60, 16384, (2, 4096)),
-                                                 (300, 512, (3, 64))])
+                                                 (300, 512, (3, 64)),
+                                                 (1001, 2048, (8, 16)),
+                                                 (8193, 16384, (2, 4096))])
 def test_flow_kernel_equals_plain_version(card, case, n, n_slots, cms_shape):
     rng = np.random.default_rng(n + n_slots)
-    args = [torch.as_tensor(a, device=card)
-            for a in _flow_case(rng, n, n_slots, cms_shape, case)]
+    host = _flow_case(rng, n, n_slots, cms_shape, case)
+    args = [torch.as_tensor(a, device=card) for a in host]
     before = fuk.launches["flow_update"]
     got = fuk.flow_update_kernel(*args, **FLOW_KW)
     assert fuk.launches["flow_update"] == before + 1
@@ -315,6 +353,8 @@ def test_flow_kernel_equals_plain_version(card, case, n, n_slots, cms_shape):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    for a, t in zip(host, args):  # the inputs are not modified
+        np.testing.assert_array_equal(t.cpu().numpy(), a)
 
 
 def test_flow_kernel_empty_batch_and_bad_arguments(card):
@@ -498,10 +538,8 @@ def test_fixedpoint_matmul_rejects_bad_arguments(card):
         fmm.fixedpoint_matmul(xc, wc[:16], xs, ws)
     with pytest.raises(ValueError, match="K-major"):  # neither layout
         fmm.fixedpoint_matmul(xc, torch.cat([wc, wc], 1)[:, :8], xs, ws)
-    with pytest.raises(ValueError, match="design"):
-        fmm.run_design(xc, wc, xs, ws, "cublas")
     with pytest.raises(ValueError, match="split"):  # 1 K step: no split
-        fmm.run_design(xc, wc, xs, ws, "wgmma", split=2)
+        fmm.run_split(xc, wc, xs, ws, 2)
     with pytest.raises(ValueError, match="card"):
         ops.fixedpoint_matmul(xc.cpu(), wc.cpu(), xs.cpu(), ws.cpu(),
                               backend="kernel")
@@ -529,17 +567,16 @@ def test_fixedpoint_matmul_dispatch_and_layouts(card, m, k, n, layout):
                                 card)
     w = tq.k_major(wc) if layout == "k_major" else wc
     split = fmm.plan(m, n, k, card_sms(card))
-    before = (fmm.launches["fixedpoint_matmul"], dict(fmm.designs),
+    before = (fmm.launches["fixedpoint_matmul"],
               fmm.relayouts["fixedpoint_matmul"])
     got = fmm.fixedpoint_matmul(xc, w, xs, ws)
     want = ops.fixedpoint_matmul(xc, wc, xs, ws, backend="ref")
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert fmm.launches["fixedpoint_matmul"] == before[0] + 1
-    assert fmm.designs == dict(before[1], wgmma=before[1]["wgmma"] + 1)
     # copies: x and w padded where K % 16 != 0, else a row-major w only
     copied = 2 if k % 16 else int(layout == "row_major")
-    assert fmm.relayouts["fixedpoint_matmul"] == before[2] + copied
+    assert fmm.relayouts["fixedpoint_matmul"] == before[1] + copied
     if m <= 64 and k == 8960:
         assert split > 1  # decode-sized M at the long K: split-K
 
@@ -580,24 +617,11 @@ def test_fixedpoint_matmul_split_k_exact(card, split):
     wc[:, 0] = -128
     exact = torch.as_tensor(xc.astype(np.int64) @ wc.astype(np.int64))
     w = tq.k_major(torch.as_tensor(wc, device=card))
-    got = fmm.run_design(torch.as_tensor(xc, device=card), w,
-                         torch.ones((m, 1), device=card),
-                         torch.ones((1, n), device=card), "wgmma", split)
+    got = fmm.run_split(torch.as_tensor(xc, device=card), w,
+                        torch.ones((m, 1), device=card),
+                        torch.ones((1, n), device=card), split)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), exact.to(torch.float32))
-
-
-@pytest.mark.parametrize("m,k,n", [(2048, 1536, 1536), (17, 1536, 8960),
-                                   (100, 300, 50)])
-def test_fixedpoint_matmul_designs_agree(card, m, k, n):
-    """The first design (mma_sync, row-major w) and the wgmma design on the
-    same operands: the same bits."""
-    xc, wc, xs, ws = _gemm_case(np.random.default_rng(m + n), m, k, n, card)
-    old = fmm.run_design(xc, wc, xs, ws, "mma_sync")
-    new = fmm.run_design(xc, tq.k_major(wc), xs, ws, "wgmma")
-    want = ops.fixedpoint_matmul(xc, wc, xs, ws, backend="ref")
-    torch.cuda.synchronize()
-    assert torch.equal(old, want) and torch.equal(new, want)
 
 
 @pytest.mark.parametrize("order", [1, 3, 5, 7])
@@ -748,16 +772,15 @@ def test_wkv_kernel_equals_plain_version(card, bh, nc, c, d):
 def test_wkv_kernel_designs_at_block_and_slice_edges(card, c, d):
     """Head dims at the state kernel's 16-column slices (17: a one-column
     last slice; 48, 64: whole slices) and chunks at the 64-row blocks (1,
-    37: one partial block; 256: four), both designs."""
+    37: one partial block; 256: four)."""
     ops_ = _wkv_operands(c * 100 + d, card, 3, 3, c, d)
     want = ops.wkv_scan(*ops_, backend="ref")
     before = wk.launches["wkv_scan"]
-    for design in wk.DESIGNS:
-        got = wk.run_design(*ops_, design)
-        torch.cuda.synchronize()
-        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                                   rtol=2e-5, atol=2e-5, err_msg=design)
-    assert wk.launches["wkv_scan"] == before + len(wk.DESIGNS)
+    got = wk.wkv_scan(*ops_)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
+    assert wk.launches["wkv_scan"] == before + 1
 
 
 def test_wkv_kernel_carries_state_across_chunks(card):

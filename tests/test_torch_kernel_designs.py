@@ -12,7 +12,14 @@ JAX reference where it has a counterpart:
     to a K that TMA cannot take;
   * the WKV kernel's two-phase decomposition, mirrored in plain PyTorch
     (``ref.wkv_scan_two_phase_ref``), against ``wkv_scan_ref`` and the JAX
-    oracle within 2e-5 (the reference's kernel tolerance).
+    oracle within 2e-5 (the reference's kernel tolerance);
+  * the flow kernel's decomposition into links and update
+    (``ref.flow_update_two_phase_ref``) against the JAX package's per-packet
+    oracle ``flow_update_numpy`` (the Pallas flow kernel does not run on the
+    installed JAX) and the port's ``flow_update_ref``, bit for bit;
+  * the MLP kernel's decomposition (``ref.fused_mlp_warp_ref``) against the
+    reference's gather form and its Pallas kernel in interpret mode, bit for
+    bit, in both weight lanes, with slots outside ``[0, M)``.
 """
 
 import importlib
@@ -24,14 +31,18 @@ import pytest
 import torch
 
 from repro.core import quantize as jq
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro.kernels.ref import wkv_scan_ref as jwkv_scan_ref
 from repro_torch.core import quantize as tq
 from repro_torch.core.control_plane import WeightRegistry
+from repro_torch.core.taylor import scaled_constants
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.models import params_from_numpy
 
 fmm = importlib.import_module("repro_torch.kernels.fixedpoint_matmul")
+fmlp = importlib.import_module("repro_torch.kernels.fixedpoint_mlp")
 
 torch.set_num_threads(1)
 
@@ -175,7 +186,7 @@ def test_fixedpoint_matmul_wrapper_takes_both_layouts_on_cpu(m, k, n):
     # the plain version launches nothing and copies no layout
     assert (dict(fmm.launches), dict(fmm.relayouts)) == before
     with pytest.raises(ValueError, match="device"):
-        fmm.run_design(xc, wc, xs, ws, "wgmma")
+        fmm.run_split(xc, wc, xs, ws, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -311,3 +322,118 @@ def test_wkv_two_phase_decomposition_carries_state():
     b2[:, 0] = 0.0
     moved = tref.wkv_scan_two_phase_ref(a, b2, v, tot, diag)
     assert float((base[:, 1:] - moved[:, 1:]).abs().max()) > 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the flow kernel's links-then-update decomposition
+# ---------------------------------------------------------------------------
+
+FLOW_KW = dict(frac=8, ewma_shift=3, byte_shift=6, dur_shift=10)
+
+
+def _flow_case(rng, n, n_slots, cms_shape, case):
+    """``chip_smoke.py``'s flow batches at a small size: a random
+    pre-populated state and a batch shaped by ``case``."""
+    depth, width_c = cms_shape
+    state = np.zeros((n_slots, 8), np.int32)
+    pre = int(rng.integers(0, n_slots + 1))
+    state[:pre] = rng.integers(0, 5000, (pre, 8))
+    state[:pre, 0] = rng.integers(0, 5, pre)
+    cms = rng.integers(0, 100, cms_shape).astype(np.int32)
+    slots = rng.integers(0, n_slots, n).astype(np.int32)
+    cells = rng.integers(0, width_c, (n, depth)).astype(np.int32)
+    ts = np.cumsum(rng.integers(0, 100, n)).astype(np.int32)
+    length = rng.integers(0, 2000, n).astype(np.int32)
+    live = np.ones(n, np.int32)
+    if case == "one_flow":
+        slots[:] = int(rng.integers(0, n_slots))
+    elif case == "distinct":
+        slots = rng.permutation(n_slots)[:n].astype(np.int32)
+    elif case == "dead":
+        live = (rng.random(n) > 0.15).astype(np.int32)
+    elif case == "dead_interleaved":
+        live[1::2] = 0
+    elif case == "one_cell":
+        cells[:] = cells[0]
+    elif case == "non_monotone":
+        ts = rng.integers(0, 2 ** 31 - 1, n).astype(np.int32)
+    elif case == "saturation":
+        code_max = tref.FLOW_CODE_MAX
+        state[:] = [code_max - 1, code_max - 1, 0, 0, code_max, code_max, 1,
+                    code_max >> FLOW_KW["frac"]]
+        cms[:] = code_max
+        ts[:] = 2 ** 31 - 1
+        length[:] = 65535
+    return state, cms, slots, cells, ts, length, live
+
+
+@pytest.mark.parametrize("case", ["random", "one_flow", "distinct", "dead",
+                                  "dead_interleaved", "one_cell",
+                                  "non_monotone", "saturation"])
+@pytest.mark.parametrize("n,n_slots,cms_shape", [(37, 64, (2, 32)),
+                                                 (130, 256, (3, 8))])
+def test_flow_two_phase_decomposition_matches_oracle_and_plain(case, n,
+                                                               n_slots,
+                                                               cms_shape):
+    args = _flow_case(np.random.default_rng(n + len(case)), n, n_slots,
+                      cms_shape, case)
+    want = jref.flow_update_numpy(*args, **FLOW_KW)
+    targs = [torch.as_tensor(a) for a in args]
+    got = tref.flow_update_two_phase_ref(*targs, **FLOW_KW)
+    plain = tref.flow_update_ref(*targs, **FLOW_KW)
+    for w, g, p in zip(want, got, plain):
+        np.testing.assert_array_equal(g.numpy(), w)
+        np.testing.assert_array_equal(p.numpy(), w)
+    # the inputs are not modified
+    for a, t in zip(args, targs):
+        np.testing.assert_array_equal(t.numpy(), a)
+
+
+# ---------------------------------------------------------------------------
+# the MLP kernel's decomposition
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("variant", ["int16", "int8"])
+@pytest.mark.parametrize("width", [1, 31, 32, 33])
+def test_mlp_warp_decomposition_matches_reference_and_pallas(variant, width):
+    """Every opcode, a layer switched off in the middle, accumulators that
+    wrap, and slots outside [0, M) (which the Pallas kernel's masked form
+    returns as the lane-clamped input; the gather form takes valid slots)."""
+    rng = np.random.default_rng(width)
+    n_batch, n_models, n_layers = 40, 3, 4
+    w_dtype = np.int8 if variant == "int8" else np.int16
+    info = np.iinfo(w_dtype)
+    w = rng.integers(info.min, info.max, (n_models, n_layers, width, width),
+                     endpoint=True).astype(w_dtype)
+    b = rng.integers(-2 ** 31, 2 ** 31 - 1, (n_models, n_layers, width),
+                     endpoint=True).astype(np.int32)
+    x = rng.integers(-2 ** 30, 2 ** 30, (n_batch, width)).astype(np.int32)
+    act = np.asarray([[0, 1, 2, 3], [4, 7, 2, 1], [3, 2, 0, 4]], np.int32)
+    on = np.ones((n_models, n_layers), np.int32)
+    on[:, 1:3] = [[0, 1], [1, 0], [0, 0]]
+    slot = rng.integers(0, n_models, n_batch).astype(np.int32)
+    slot[:6] = [n_models, -1, 999, n_models, -7, 2 ** 20]
+    kw = dict(frac=8, leaky_alpha_q=3, sig_coeffs=tuple(
+        int(c) for c in scaled_constants("sigmoid", 3, 8)))
+    lane = 8 if variant == "int8" else None
+    got = tref.fused_mlp_warp_ref(
+        *map(torch.as_tensor, (x, slot, w, b, act, on)), lane_bits=lane,
+        **kw).numpy()
+    pallas = np.asarray(jops.fused_mlp(
+        *map(jnp.asarray, (x, slot, w, b, act, on)), backend="pallas",
+        variant=variant, **kw))
+    np.testing.assert_array_equal(got, pallas)
+    gather = np.asarray(jref.fused_mlp_gather_ref(
+        *map(jnp.asarray, (x, slot, w, b, act, on)), lane_bits=lane, **kw))
+    valid = (slot >= 0) & (slot < n_models)
+    np.testing.assert_array_equal(got[valid], gather[valid])
+    lo, hi = (-128, 127) if variant == "int8" else (-2 ** 31, 2 ** 31 - 1)
+    np.testing.assert_array_equal(got[~valid], np.clip(x[~valid], lo, hi))
+    # the port's wrapper on the CPU (the gather form) agrees on valid slots
+    tc = {k: torch.as_tensor(v[valid] if k in ("x_q", "slot") else v)
+          for k, v in dict(x_q=x, slot=slot, w=w, b=b, act=act,
+                           layer_on=on).items()}
+    np.testing.assert_array_equal(
+        fmlp.fixedpoint_mlp(**tc, variant=variant, **kw).numpy(),
+        got[valid])
