@@ -1,6 +1,6 @@
-"""Time the port's flow-update and fixed-point MLP kernels against those of
-another checkout of the port (the parent commit, say), in turns on one
-NVIDIA GPU.
+"""Time the port's flow-update, fixed-point MLP and forest kernels against
+those of another checkout of the port (the parent commit, say), in turns on
+one NVIDIA GPU.
 
     git archive <commit> | tar -x -C parent_tree     # a directory .gitignore lists
     python3 benchmarks/pt_kernel_ab.py --other parent_tree \
@@ -24,7 +24,11 @@ synchronisation), so a queued flow call is the kernel's launch alone: for a
 checkout whose flow module has ``launch``, that function (its one
 allocation and its two device kernels); for one without it, its C entry
 point on outputs made once (that design's wrapper also clones the register
-file and the sketch, which this leaves out).
+file and the sketch, which this leaves out).  The forest kernels (range
+table and pointer chase) run on ``chip_smoke.py``'s eight trained forests at
+the serving extents (F = 8, T = 16, N = 64, depth 6, NI = 31, L = 32,
+W = 32): B = 2048 with slots uniform over the forests, the same batch with
+every packet on one forest, and B = 4099.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 from repro_torch.core.taylor import scaled_constants  # noqa: E402
 from repro_torch.data.packets import (RAW_KEY_BYTES,  # noqa: E402
@@ -51,6 +56,8 @@ from repro_torch.flow import FlowTable  # noqa: E402
 from repro_torch.flow.frontend import FlowParams  # noqa: E402
 from repro_torch.kernels import fixedpoint_mlp as this_mlp  # noqa: E402
 from repro_torch.kernels import flow_update as this_flow  # noqa: E402
+from repro_torch.kernels import forest_traversal as this_forest  # noqa: E402
+from chip_smoke import train_forests, trained_tables  # noqa: E402
 
 FRAC = 8
 FLOW_KW = dict(frac=FRAC, ewma_shift=3, byte_shift=6, dur_shift=10)
@@ -58,7 +65,7 @@ KEY_WORDS = (RAW_KEY_BYTES + 7) // 8  # as the flow frontend packs keys
 
 
 def load_other(root: Path):
-    """The other checkout's flow and MLP kernel modules."""
+    """The other checkout's flow, MLP and forest kernel modules."""
     pkg = root / "src" / "repro_torch"
     spec = importlib.util.spec_from_file_location(
         "other_repro_torch", pkg / "__init__.py",
@@ -66,9 +73,9 @@ def load_other(root: Path):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["other_repro_torch"] = mod
     spec.loader.exec_module(mod)
-    return (importlib.import_module("other_repro_torch.kernels.flow_update"),
-            importlib.import_module(
-                "other_repro_torch.kernels.fixedpoint_mlp"))
+    return tuple(importlib.import_module(f"other_repro_torch.kernels.{m}")
+                 for m in ("flow_update", "fixedpoint_mlp",
+                           "forest_traversal"))
 
 
 def cuda_ms(fn, reps: int = 21, inner: int = 20,
@@ -171,6 +178,25 @@ def mlp_case(dev, variant: str) -> dict:
     return {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
 
 
+def forest_cases(dev) -> dict:
+    """The trained forests' tables on the card and the batches to serve."""
+    nodes, tree_on, mode, ranges = trained_tables(train_forests()[0])
+    tables = [torch.as_tensor(np.ascontiguousarray(a), device=dev)
+              for a in (nodes, tree_on, mode, *ranges)]
+    rng = np.random.default_rng(7)
+    n_forests, width = nodes.shape[0], 32
+    cases = {}
+    for label, n_batch, one in (("B=2048 uniform", 2048, False),
+                                ("B=2048 one forest", 2048, True),
+                                ("B=4099 uniform", 4099, False)):
+        x = np.round(rng.normal(size=(n_batch, width)) * (1 << FRAC))
+        slot = (np.zeros(n_batch) if one
+                else rng.integers(0, n_forests, n_batch))
+        cases[label] = [torch.as_tensor(a.astype(np.int32), device=dev)
+                        for a in (x, slot)] + tables
+    return cases
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, required=True,
@@ -185,7 +211,7 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
-    other_flow, other_mlp = load_other(args.other.resolve())
+    other_flow, other_mlp, other_forest = load_other(args.other.resolve())
     rows = []
 
     def record(label, calls, queued_calls, outs):
@@ -223,6 +249,21 @@ def main() -> int:
                  for side, mod in (("other", other_mlp), ("this", this_mlp))}
         outs = [[calls["other"]()], [calls["this"]()]]
         record(f"mlp {variant} B=2048 M=16 L=4 W=32", calls, calls, outs)
+
+    for label, (x, slot, nodes, tree_on, mode, *ranges) in forest_cases(
+            dev).items():
+        for variant in ("range", "chase"):
+            calls = {
+                side: (lambda m=mod: m.forest_range(
+                    x, slot, *ranges, tree_on, mode, frac=FRAC))
+                if variant == "range" else
+                (lambda m=mod: m.forest_traverse(
+                    x, slot, nodes, tree_on, mode, max_depth=6, frac=FRAC))
+                for side, mod in (("other", other_forest),
+                                  ("this", this_forest))}
+            outs = [[calls["other"]()], [calls["this"]()]]
+            record(f"forest {variant} {label} F=8 T=16 N=64 NI=31 L=32 W=32",
+                   calls, calls, outs)
 
     result = {"card": card, "rows": rows}
     if args.out is not None:

@@ -14,8 +14,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                tolerance).  The fused MLP kernel in both weight lanes; the
                two forest kernels (pointer chase and range table) against
                the gather and the masked plain versions, on random, trained,
-               saturating, stump and padded tables, and against the masked
-               versions alone on tables that install_forest rejects; the
+               saturating, stump and padded tables, with slots uniform and
+               every packet on one forest, at the range kernel's lane edges
+               (T = 1, 15, 17, 32, 33, 64), W = 33 and 128, range tables
+               beyond the staging limit (T = 128) and a chase of N = 256
+               at depth 8, and against the masked versions alone on tables
+               that install_forest rejects, with slots outside [0, F)
+               (some, and all of them); the
                flow-update kernel against ref.flow_update_ref (state, sketch
                and features) on random, one-flow, all-distinct, dead-row,
                non-monotone and saturating batches of 1–8193 packets, and
@@ -100,7 +105,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   5. numbers — per-kernel time (CUDA events: per call as the path issues
                it, and queued behind a device sleep, device only), the
                plain version's time, the least time the card could take
-               (bytes or operations over its peak); for the GEMM at all 7
+               (bytes or operations over its peak); for the forest kernels
+               also with every packet on one forest, the range kernel's
+               grouping-and-staging phase against the whole kernel
+               (profiler), and an empty kernel queued (the launch floor);
+               for the GEMM at all 7
                projection shapes and at M = 1 and 17 on up and down, the
                kernel and the library call (torch._int_mm + the rescale)
                timed in turns on one card; the WKV scan at the prefill
@@ -125,6 +134,7 @@ import functools
 import importlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -624,9 +634,42 @@ def check_forest(dev, name, x, slot, nodes, tree_on, mode, ranges, depth,
     return worst
 
 
+# the lane and layout edges of the forest kernels: (F, T, N, W, depth, NI,
+# L) — the range kernel's lane split changes at T = 16 and T = 32, NI = 31
+# and depth 6 are compiled in, W = 33 and 128 give a lane more than one
+# output column, T = 128 range tables exceed the staging limit (global
+# path), and N = 256 at depth 8 is a chase beyond the serving tables
+FOREST_EDGES = [(4, 1, 16, 32, 4, 7, 8), (4, 15, 16, 32, 5, 31, 32),
+                (4, 17, 16, 32, 5, 31, 32), (3, 32, 16, 32, 4, 7, 8),
+                (3, 33, 16, 32, 4, 7, 8), (2, 64, 16, 32, 4, 1, 8),
+                (2, 16, 64, 128, 6, 31, 32), (2, 16, 64, 33, 6, 7, 8),
+                (2, 128, 64, 32, 6, 31, 32), (2, 64, 256, 32, 8, 31, 32)]
+
+
+def edge_tables(rng, extent):
+    """Random tables at ``extent``; range tables of depth-5 trees where the
+    chase's trees have more leaves than the 32-bit leaf mask holds."""
+    n_forests, n_trees, n_nodes, width, depth, ni, nl = extent
+    nodes, tree_on, mode = random_forest_tables(
+        rng, n_forests, width, depth, n_trees=n_trees, n_nodes=n_nodes)
+    try:
+        ranges = stack_ranges(nodes, tree_on, depth, n_entries=ni,
+                              n_leaves=nl)
+    except ValueError:
+        shallow, on5, _ = random_forest_tables(
+            rng, n_forests, width, 5, n_trees=n_trees, n_nodes=n_nodes)
+        ranges = stack_ranges(shallow, on5, 5, n_entries=ni, n_leaves=nl)
+    return nodes, tree_on, mode, ranges
+
+
 def check_forest_kernels(dev, trained) -> dict:
     rng = np.random.default_rng(SEED + 3)
     worst = {"chase": 0, "range": 0}
+
+    def held(errs):
+        for v in errs:
+            worst[v] = max(worst[v], errs[v])
+
     extents = [(F, T, N, WIDTH, DEPTH, NI, NL),   # the serving extents
                (3, 5, 16, 8, 4, 7, 8)]           # a small one
     for e, extent in enumerate(extents):
@@ -635,16 +678,34 @@ def check_forest_kernels(dev, trained) -> dict:
         for n_batch in (1, 127, 2048, 4099):
             for name, nodes, tree_on, mode, ranges, depth in cases:
                 x, slot = forest_inputs(rng, n_batch, extent[3], extent[0])
-                errs = check_forest(dev, name, x, slot, nodes, tree_on, mode,
-                                    ranges, depth, gather=True)
-                for v in errs:
-                    worst[v] = max(worst[v], errs[v])
+                held(check_forest(dev, name, x, slot, nodes, tree_on, mode,
+                                  ranges, depth, gather=True))
+                if name in ("trained", "random"):  # every packet on one
+                    held(check_forest(dev, f"{name}-one", x,
+                                      np.full_like(slot, extent[0] - 1),
+                                      nodes, tree_on, mode, ranges, depth,
+                                      gather=True))
             x, _ = forest_inputs(rng, n_batch, extent[3], extent[0])
             slot = rng.integers(-2, extent[0] + 3, n_batch).astype(np.int32)
-            errs = check_forest(dev, "rejected", x, slot, *bad, extent[4],
-                                gather=False)
-            for v in errs:
-                worst[v] = max(worst[v], errs[v])
+            held(check_forest(dev, "rejected", x, slot, *bad, extent[4],
+                              gather=False))
+            held(check_forest(dev, "outside", x,
+                              np.full_like(slot, extent[0]), *bad,
+                              extent[4], gather=False))
+    for extent in FOREST_EDGES:
+        nodes, tree_on, mode, ranges = edge_tables(rng, extent)
+        bad = rejected_tables(rng, *extent[:5], ranges[0].shape[-1],
+                              ranges[3].shape[-1])
+        for n_batch in (127, 2048):
+            x, slot = forest_inputs(rng, n_batch, extent[3], extent[0])
+            held(check_forest(dev, f"T={extent[1]}", x, slot, nodes,
+                              tree_on, mode, ranges, extent[4], gather=True))
+            held(check_forest(dev, f"T={extent[1]}-one", x,
+                              np.zeros_like(slot), nodes, tree_on, mode,
+                              ranges, extent[4], gather=True))
+            slot = rng.integers(-2, extent[0] + 3, n_batch).astype(np.int32)
+            held(check_forest(dev, f"T={extent[1]}-rej", x, slot, *bad,
+                              extent[4], gather=False))
     return worst
 
 
@@ -667,6 +728,37 @@ def forest_bound(x, slot, nodes, tree_on, mode, ranges, variant: str):
     ops = int((per_tree * live).sum())
     n_bytes = nbytes(x, slot, *tables) + x.numel() * 4
     return bound_ms(n_bytes, ops, INT32_CORE_OPS_PER_S)
+
+
+def range_phases(x, slot, ranges, tree_on, mode) -> dict:
+    """The range kernel's device time (profiler, 20 calls) beside its
+    grouping-and-staging phase alone (the same kernel stopped there,
+    ``forest_range_prologue_launch``), ms per call each."""
+    lib = ftk.load_library()
+    n_batch, width = x.shape
+    n_forests, n_trees, n_entries = ranges[0].shape
+    n_leaves = ranges[3].shape[-1]
+    chunk, staged = ftk.plan(n_batch, n_trees, n_entries, n_leaves, sms())
+    out = torch.empty_like(x)
+    ptrs = [a.data_ptr() for a in (x, slot, *ranges, tree_on, mode, out)]
+    stream = torch.cuda.current_stream().cuda_stream
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            ftk.forest_range(x, slot, *ranges, tree_on, mode, frac=FRAC)
+            rc = lib.forest_range_prologue_launch(
+                *ptrs, n_batch, n_forests, n_trees, n_entries, n_leaves,
+                width, FRAC, chunk, int(staged), stream)
+            if rc != 0:
+                raise SystemExit(f"range prologue launch failed: {rc}")
+        torch.cuda.synchronize()
+    phases = {}
+    for e in prof.key_averages():
+        m = re.search(r"forest_range_kernel<\d+, \w+, (true|false)>", e.key)
+        if m and e.count:
+            key = "grouping and staging" if m.group(1) == "true" else "kernel"
+            phases[key] = e.device_time_total / e.count / 1e3
+    return phases
 
 
 # ---------------------------------------------------------------------------
@@ -2117,18 +2209,23 @@ def main() -> int:
     x, slot, nodes, tree_on, mode = _dev(dev, x, slot, nodes, tree_on, mode)
     ranges = _dev(dev, *ranges)
     calls = {
-        "chase": (lambda: ftk.forest_traverse(
-            x, slot, nodes, tree_on, mode, max_depth=DEPTH, frac=FRAC),
+        "chase": (lambda s: ftk.forest_traverse(
+            x, s, nodes, tree_on, mode, max_depth=DEPTH, frac=FRAC),
             lambda: forest_traverse_gather_ref(
             x, slot, nodes, tree_on, mode, max_depth=DEPTH, frac=FRAC)),
-        "range": (lambda: ftk.forest_range(
-            x, slot, *ranges, tree_on, mode, frac=FRAC),
+        "range": (lambda s: ftk.forest_range(
+            x, s, *ranges, tree_on, mode, frac=FRAC),
             lambda: forest_range_gather_ref(
             x, slot, *ranges, tree_on, mode, frac=FRAC)),
     }
+    stream = torch.cuda.current_stream().cuda_stream
+    floor_ms = queued_ms(lambda: ftk.load_library().forest_empty_launch(
+        stream))
+    one = torch.zeros_like(slot)  # every packet on one forest
     for variant, (call, plain) in calls.items():
-        k_ms[variant] = cuda_ms(call)
-        q_ms = queued_ms(call)
+        k_ms[variant] = cuda_ms(lambda: call(slot))
+        q_ms = queued_ms(lambda: call(slot))
+        one_ms, one_q = (f(lambda: call(one)) for f in (cuda_ms, queued_ms))
         p_ms = cuda_ms(plain)
         b_ms, b_by = forest_bound(x, slot, nodes, tree_on, mode, ranges,
                                   variant)
@@ -2137,11 +2234,16 @@ def main() -> int:
                             max_abs_err=worst[variant], ms=k_ms[variant],
                             plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                             library_ms=None))
+        phases = ("" if variant == "chase" else "; " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in range_phases(
+                x, slot, ranges, tree_on, mode).items()) + " (profiler)")
         log(f"time forest_{variant} B=2048 F={F} T={T} N={N} depth={DEPTH} "
             f"NI={NI} L={NL} W={WIDTH} (trained forests): kernel "
             f"{k_ms[variant]:.4f} ms per call ({q_ms:.4f} ms queued, device "
-            f"only), plain {p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}) "
-            f"[{smi}]")
+            f"only), every packet on one forest {one_ms:.4f} ms per call "
+            f"({one_q:.4f} queued){phases}; an empty kernel queued "
+            f"{floor_ms:.4f} ms (the launch floor); plain {p_ms:.4f} ms, "
+            f"bound {b_ms:.6f} ms ({b_by}) [{smi}]")
     entry = flow_numbers(dev, flow, worst["flow_update"], smi)
     k_ms["flow_update"] = entry["ms"]
     kernels.append(entry)

@@ -20,114 +20,607 @@
 // every one, the kernel still matches): a node index outside [0, N) reads
 // an all-zero record; a feature outside [0, W) reads x = 0; a classify leaf
 // outside [0, W) votes nowhere; a slot outside [0, F) gives an all-zero
-// row; word == 0 gives idx = L and so leaf = 0.
+// row; word == 0 gives idx = L and so leaf = 0.  Bounds are tested, never
+// clamped.
 //
 // What bounds it on this card.  At the server's defaults (F=8 forests,
 // T=16 trees, N=64 nodes, depth 6, NI=31 range entries, L=32 leaves,
 // W=32, B=2048 packets) one batch is ≈ 0.5 MB of codes and output plus
 // ≈ 164 KB of tables, and a few million integer compares and selects, so
-// both the memory and the operation bounds are around a microsecond.  The
-// chase is bound by latency instead: every step is a dependent
-// load(node record) → load(x[feat]) → compare chain, max_depth long.  The
-// range form has no chain, but reads NI entries per tree.
+// both the memory and the operation bounds are well under a microsecond,
+// and an empty kernel queued behind others already takes ≈ 1.8 µs.  What
+// the time goes to instead is each block's serial chain of dependent
+// instructions and memory round trips (timed per phase with clock64 on an
+// H100: a few cycles per instruction, a few hundred per L2 round trip),
+// and for the first design (one warp per packet, lane t = tree t, tables
+// read from L1/L2 in the control plane's layout) the L1's request rate:
+// neighbouring lanes read range entries a tree (124 bytes) apart, so every
+// warp-wide load touched 16 cache lines, ≈ 3·10⁶ wavefronts per call.
 //
-// Design.  One warp per packet; lane t owns tree t (trees in steps of 32
-// when T > 32).  The packet's W ≤ 128 codes sit in shared memory, so the
-// x[feat] reads are shared-memory reads.  The tables are read from global
-// memory in the control plane's own layout — nodes (F, T, N, 5), feat /
-// thresh / lmask (F, T, NI), payload (F, T, L) — with no per-batch
-// relayout; at the defaults they total ≈ 164 KB and stay in L2 across the
-// warps of a batch, so there is no shared-memory staging yet.  Enough warps
-// are in flight (one per packet) to hide part of the chase's latency.
-// Votes reduce across the warp in uint32, where wraparound is defined and
-// addition is order-free, so the result is exact: regress forests sum
-// their leaves by a shuffle reduction into lane 0; classify forests
-// broadcast each tree's leaf by shuffle and lane j counts the votes for
-// output column j (and j+32, j+64, j+96), then multiplies by 1 << frac.
-// Tables are pointers, never compiled in, so installing a forest never
-// rebuilds anything.
+// Range design.  Each block serves one forest: the packets are grouped by
+// forest inside the kernel and the forest's tables staged in shared memory
+// once per block, relaid out for the lanes that read them.
+//  1. Grouping.  Every block reads `slot` (8 KB at B = 2048; each thread
+//     loads its kScanPer slots before it counts any) and counts the packets
+//     of each bin with shared atomics (bin F collects the slots outside
+//     [0, F)).  Every warp then finds the block's (bin, chunk) pair for
+//     itself: block b takes the b-th pair in bin order, a bin of n packets
+//     having ceil(n / chunk) chunks, so at most F + 1 blocks of the grid
+//     (ceil(B / chunk) + min(F + 1, B)) have nothing to do.  A second pass
+//     over the slots kept in registers lists the packets of ranks
+//     [c·chunk, (c+1)·chunk) among the bin's in index order (one ballot
+//     per slot register, the counts scanned by every warp).  Every packet
+//     lies in exactly one chunk, so every output row is written once; the
+//     rows of bin F are written with zeros.
+//  2. Staging.  As soon as the bin is known, lanes of warp 0 issue one TMA
+//     bulk copy per table (feat, thresh, lmask, payload, tree_on of the
+//     forest; 4-byte cp.async where a table is not 16-byte aligned), which
+//     run under the second pass; each warp's first packet codes follow by
+//     cp.async.  One pass then relays the entries out entry-major as
+//     16-byte {feat, thresh, lmask, ·} records, so a lane makes one
+//     ld.shared.v4 per entry and neighbouring lanes read neighbouring
+//     records.  Tables beyond kStageLimit bytes take the same kernel with
+//     kStaged = false, reading them from global memory in their own layout.
+//  3. Lanes.  One packet per warp (16 warps: chunk 16 is one pass).  At
+//     T <= 16 two lanes per tree, each ANDing every other entry, joined by
+//     one __shfl_xor_sync(…, 16) (AND is order-free, so the result is
+//     exact); at T > 16 one lane per tree in steps of 32.  NI = 31, the
+//     serving extent, is compiled in and unrolled; other extents run the
+//     same kernel with a run-time loop.  Votes count in shared memory.
+// Chase design.  One warp per packet, lane t owns tree t (trees in steps of
+// 32), the node table read from L1/L2 in its own layout, the depth-6 walk
+// compiled in and unrolled.  Grouping by forest and staging the forest's
+// nodes, relaid out as 16-byte records with two packets per warp, was
+// measured no faster on the card (even with slots uniform over the
+// forests, slower with every packet on one forest and at B = 4099; see
+// PERF.md): its grouping-and-staging chain costs what staging saves.
+//
+// Votes reduce in uint32, where wraparound is defined and addition is
+// order-free: regress forests by a shuffle reduction, classify forests by
+// per-column counts.
+//
+// Tables are pointers in the control plane's own layouts — nodes
+// (F, T, N, 5), feat / thresh / lmask (F, T, NI), payload (F, T, L) — so
+// installing a forest never rebuilds anything; any relayout happens in
+// shared memory on every call.
 //
 // Interface: plain C entry points (bound with ctypes), launching on the
 // caller's stream, allocating nothing and returning cudaGetLastError().
+// forest_range_prologue_launch is the range kernel stopped after grouping
+// and staging (for timing the phases); forest_empty_launch is an empty
+// kernel, the launch floor.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
 constexpr int kMaxWidth = 128;
-constexpr int kMaxCols = kMaxWidth / 32;
 constexpr int kClassify = 1;  // FOREST_CLASSIFY
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kScanPer = 4;   // slots per thread per scan round
+constexpr int kWarps = 16;    // range: warps per block, one packet each
+constexpr int kThreads = kWarps * 32;
+constexpr int kChaseWarps = 8;  // chase: warps per block, one packet each
+constexpr int kServingEntries = 31;  // range NI compiled in
+constexpr int kServingDepth = 6;     // chase depth compiled in
+// largest staged range table (copy + relayout) in bytes: two blocks per SM
+constexpr int kStageLimit = 96 * 1024;
 
 __device__ __forceinline__ int32_t feature(const int32_t* xs, int32_t f,
                                            int width) {
-  return (f >= 0 && f < width) ? xs[f] : 0;
+  return static_cast<unsigned>(f) < static_cast<unsigned>(width) ? xs[f] : 0;
 }
 
-struct Chase {
-  const int32_t* nodes;  // (F, T, N, 5)
-  int n_nodes;
-  int max_depth;
+__device__ __forceinline__ int bin_of(int32_t s, int n_forests) {
+  return static_cast<unsigned>(s) < static_cast<unsigned>(n_forests)
+             ? s
+             : n_forests;
+}
 
-  __device__ __forceinline__ int32_t leaf(int ft, const int32_t* xs,
-                                          int width) const {
-    const int32_t* tn = nodes + static_cast<size_t>(ft) * n_nodes * 5;
-    int32_t cur = 0;
-    for (int d = 0; d < max_depth; ++d) {
-      int32_t f = 0, th = 0, l = 0, r = 0;  // out-of-range: all-zero record
-      if (cur >= 0 && cur < n_nodes) {
-        const int32_t* rec = tn + static_cast<size_t>(cur) * 5;
-        f = rec[0];
-        th = rec[1];
-        l = rec[2];
-        r = rec[3];
-      }
-      cur = feature(xs, f, width) <= th ? l : r;  // leaves self-loop
-    }
-    return (cur >= 0 && cur < n_nodes) ? tn[static_cast<size_t>(cur) * 5 + 4]
-                                       : 0;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spins until phase 0 of the barrier has completed (each block uses it
+// once); traps after ~2^34 cycles instead of hanging the card.
+__device__ __forceinline__ void mbar_wait0(uint32_t bar) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (true) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1LL << 34)) __trap();
+  }
+}
+
+// A global → shared copy of n int32 words for stage_tables.
+struct Copy {
+  int32_t* dst;
+  const int32_t* src;
+  int n;
+
+  __device__ __forceinline__ bool bulk() const {  // TMA: 16-byte granules
+    return n > 0 && (n & 3) == 0 &&
+           ((reinterpret_cast<uintptr_t>(src) |
+             reinterpret_cast<uintptr_t>(dst)) & 15) == 0;
   }
 };
 
-struct Range {
+// Stages a forest's tables: lane j of warp 0 issues a TMA bulk copy of
+// table j if it is aligned, completing on the barrier `bar`; a table that is not
+// 16-byte aligned is copied by every thread with 4-byte cp.async (the
+// block's current commit group).
+template <int kN>
+__device__ __forceinline__ void stage_tables(const Copy (&c)[kN],
+                                             uint32_t bar) {
+  static_assert(kN <= 32, "one copy per lane of warp 0");
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    Copy mine = c[0];
+#pragma unroll
+    for (int j = 1; j < kN; ++j) mine = lane == j ? c[j] : mine;
+    if (lane == 0) {
+      uint32_t bytes = 0;
+#pragma unroll
+      for (int j = 0; j < kN; ++j) bytes += c[j].bulk() ? 4u * c[j].n : 0u;
+      mbar_expect_tx(bar, bytes);
+    }
+    __syncwarp();
+    if (lane < kN && mine.bulk()) {
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(mine.dst)),
+          "l"(mine.src), "r"(4u * mine.n), "r"(bar)
+          : "memory");
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    if (!c[j].bulk()) {
+      for (int k = threadIdx.x; k < c[j].n; k += kThreads) {
+        cp_async4(c[j].dst + k, c[j].src + k);
+      }
+    }
+  }
+}
+
+// Shared-memory layout, in int32 words; every area starts 16-byte aligned.
+__host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
+
+struct Layout {
+  int list;   // chunk: the block's packet indices, in rank order
+  int hist;   // F + 1: packets per bin
+  int xbuf;   // 2 · kWarps · (W + 1): each warp's packet codes, twice
+  int votes;  // kWarps · W: classify vote counts
+  int on;     // T: tree_on of the block's forest (staged)
+  int raw;    // the forest's tables as copied (staged)
+  int rec;    // the relaid-out 16-byte records (staged)
+  int words;  // total
+
+  __host__ __device__ Layout(int chunk, int n_forests, int width,
+                             int n_trees, int raw_words, int rec_records,
+                             bool staged) {
+    list = 0;
+    hist = list + round4(chunk);
+    xbuf = hist + round4(n_forests + 1);
+    votes = xbuf + round4(2 * kWarps * (width + 1));
+    on = votes + round4(kWarps * width);
+    raw = on + (staged ? round4(n_trees) : 0);
+    rec = raw + (staged ? round4(raw_words) : 0);
+    words = rec + (staged ? 4 * rec_records : 0);
+  }
+};
+
+// Pass 1: packets per bin, then the (bin, chunk) pair of this block, which
+// every warp finds for itself.  Returns the bin (-1: no chunk for this
+// block) and sets *chunk_idx; the bins of the first round stay in keep[]
+// for pass 2.  Each thread loads its kScanPer slots of a round before it
+// counts any.
+__device__ __forceinline__ int find_chunk(const int32_t* __restrict__ slot,
+                                          int n_batch, int n_forests,
+                                          int chunk, int* hist,
+                                          int* chunk_idx,
+                                          int (&keep)[kScanPer]) {
+  constexpr int kT = kThreads;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int n_bins = n_forests + 1;
+  const int chunk_log2 = __ffs(chunk) - 1;  // chunk is a power of two
+  for (int j = tid; j < n_bins; j += kT) hist[j] = 0;
+  __syncthreads();
+  for (int r0 = 0; r0 < n_batch; r0 += kT * kScanPer) {
+    int b[kScanPer];
+#pragma unroll
+    for (int k = 0; k < kScanPer; ++k) {
+      const int i = r0 + k * kT + tid;
+      b[k] = i < n_batch ? bin_of(__ldg(slot + i), n_forests) : -1;
+    }
+#pragma unroll
+    for (int k = 0; k < kScanPer; ++k) {
+      if (b[k] >= 0) atomicAdd(&hist[b[k]], 1);
+      if (r0 == 0) keep[k] = b[k];
+    }
+  }
+  __syncthreads();
+  int acc = 0, found = -1, idx = 0;
+  const int b = static_cast<int>(blockIdx.x);
+  for (int j0 = 0; j0 < n_bins; j0 += 32) {
+    const int j = j0 + lane;
+    const int nch = j < n_bins ? (hist[j] + chunk - 1) >> chunk_log2 : 0;
+    int incl = nch;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += v;
+    }
+    const unsigned hit = __ballot_sync(kFull, acc + incl > b);
+    if (hit) {
+      const int l = __ffs(hit) - 1;
+      found = j0 + l;
+      idx = b - acc - __shfl_sync(kFull, incl - nch, l);
+      break;
+    }
+    acc += __shfl_sync(kFull, incl, 31);
+  }
+  *chunk_idx = idx;
+  return found;
+}
+
+// Pass 2: the indices of the packets of bin `bin` with ranks [lo, hi) in
+// index order, into list[0, hi - lo): per round, one ballot per slot
+// register; every warp scans the (register, warp) counts itself.  Stops
+// once the chunk is complete.
+__device__ __forceinline__ void collect_chunk(const int32_t* __restrict__ slot, int n_batch,
+                              int n_forests, int bin, int lo, int hi,
+                              int* list, const int (&keep)[kScanPer]) {
+  constexpr int kT = kThreads;
+  constexpr int kCells = kScanPer * kWarps;  // (register, warp), index order
+  constexpr int kPerLane = kCells / 32;
+  __shared__ int cells[kCells];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned lower = (1u << lane) - 1u;
+  int base = 0;  // matches before this round
+  for (int r0 = 0; r0 < n_batch && base < hi; r0 += kT * kScanPer) {
+    unsigned bal[kScanPer];
+#pragma unroll
+    for (int k = 0; k < kScanPer; ++k) {
+      const int i = r0 + k * kT + tid;
+      const int b = r0 == 0 ? keep[k]
+                            : (i < n_batch ? bin_of(__ldg(slot + i), n_forests)
+                                           : -1);
+      bal[k] = __ballot_sync(kFull, b == bin);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < kScanPer; ++k) cells[k * kWarps + warp] = __popc(bal[k]);
+    }
+    __syncthreads();
+    // exclusive prefix of every cell; lane l holds cells [l·E, l·E + E)
+    int ex[kPerLane], sum = 0;
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) {
+      ex[j] = sum;
+      sum += cells[lane * kPerLane + j];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += u;
+    }
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) ex[j] += incl - sum;
+#pragma unroll
+    for (int k = 0; k < kScanPer; ++k) {
+      const int c = k * kWarps + warp;  // warp-uniform
+      int e = ex[0];
+#pragma unroll
+      for (int j = 1; j < kPerLane; ++j) e = (c % kPerLane == j) ? ex[j] : e;
+      const int before = __shfl_sync(kFull, e, c / kPerLane);
+      if (bal[k] >> lane & 1u) {
+        const int rank = base + before + __popc(bal[k] & lower);
+        if (rank >= lo && rank < hi) list[rank - lo] = r0 + k * kT + tid;
+      }
+    }
+    base += __shfl_sync(kFull, incl, 31);
+    __syncthreads();  // cells are rewritten next round; list is complete
+  }
+}
+
+// The codes of packet list[q], if q < count, into a warp's buffer, by
+// cp.async; one commit group per call.
+__device__ __forceinline__ void fetch_codes(int32_t* buf,
+                                            const int32_t* __restrict__ x,
+                                            const int* list, int q, int count,
+                                            int width) {
+  if (q < count) {
+    const int32_t* src = x + static_cast<size_t>(list[q]) * width;
+    for (int c = threadIdx.x & 31; c < width; c += 32) {
+      cp_async4(buf + c, src + c);
+    }
+  }
+  cp_async_commit();
+}
+
+struct Shape {
+  int n_batch, n_forests, n_trees, width, frac, chunk;
+};
+
+// The block's grouping and the start of its staging; returns the packet
+// count (0: nothing more to do) and sets *bin_out; the packet list, the
+// staged tables and each warp's first codes are in shared memory.
+template <class Stage>
+__device__ __forceinline__ int begin_block(
+    const int32_t* __restrict__ slot, const int32_t* __restrict__ x,
+    const int32_t* __restrict__ mode, int32_t* __restrict__ out,
+    const Shape& sh, const Layout& lay, int32_t* smem, const Stage& stage,
+    int* bin_out, int* mode_out) {
+  __shared__ alignas(8) uint64_t staged_bar;
+  const uint32_t bar = smem_addr(&staged_bar);
+  if (threadIdx.x == 0) mbar_init(bar);  // published by pass 1's barriers
+  int keep[kScanPer];
+  int c = 0;
+  const int bin = find_chunk(slot, sh.n_batch, sh.n_forests, sh.chunk,
+                                 smem + lay.hist, &c, keep);
+  if (bin < 0) return 0;
+  const int n_bin = smem[lay.hist + bin];
+  const int lo = c * sh.chunk, hi = min(lo + sh.chunk, n_bin);
+  if (bin < sh.n_forests) {  // both run under pass 2
+    *mode_out = __ldg(mode + bin);
+    stage(bin, bar);
+  }
+  cp_async_commit();
+  int* list = smem + lay.list;
+  collect_chunk(slot, sh.n_batch, sh.n_forests, bin, lo, hi, list, keep);
+  const int count = hi - lo;
+  if (bin == sh.n_forests) {  // slots outside [0, F): zero rows
+    for (int e = threadIdx.x; e < count * sh.width; e += kThreads) {
+      const int q = e / sh.width;
+      out[static_cast<size_t>(list[q]) * sh.width + (e - q * sh.width)] = 0;
+    }
+    return 0;
+  }
+  const int warp = threadIdx.x >> 5;
+  fetch_codes(smem + lay.xbuf + 2 * warp * (sh.width + 1), x, list, warp,
+              count, sh.width);
+  cp_async_wait_all();
+  mbar_wait0(bar);
+  __syncthreads();
+  *bin_out = bin;
+  return count;
+}
+
+// ---------------------------------------------------------------------------
+// range
+// ---------------------------------------------------------------------------
+
+struct RangeTables {
   const int32_t* feat;     // (F, T, NI)
   const int32_t* thresh;   // (F, T, NI)
   const int32_t* lmask;    // (F, T, NI) uint32 bit patterns
   const int32_t* payload;  // (F, T, L)
   int n_entries;
   int n_leaves;
-
-  __device__ __forceinline__ int32_t leaf(int ft, const int32_t* xs,
-                                          int width) const {
-    const size_t e0 = static_cast<size_t>(ft) * n_entries;
-    uint32_t word = kFull;
-    for (int i = 0; i < n_entries; ++i) {
-      if (!(feature(xs, feat[e0 + i], width) <= thresh[e0 + i])) {
-        word &= static_cast<uint32_t>(lmask[e0 + i]);
-      }
-    }
-    const uint32_t below = (word & (0u - word)) - 1u;  // ones under the lowest set bit
-    const uint32_t low = n_leaves >= 32 ? kFull : ((1u << n_leaves) - 1u);
-    const int idx = __popc(below & low);
-    return idx < n_leaves
-               ? payload[static_cast<size_t>(ft) * n_leaves + idx]
-               : 0;
-  }
 };
 
-template <class Lane>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-forest_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ slot,
-              const int32_t* __restrict__ tree_on,
-              const int32_t* __restrict__ mode, int32_t* __restrict__ out,
-              int n_batch, int n_forests, int n_trees, int width, int frac,
-              Lane lane_fn) {
-  __shared__ int32_t xs_all[kWarpsPerBlock][kMaxWidth];
+__host__ __device__ __forceinline__ int range_raw_words(int t, int ni, int l) {
+  return round4(t * ni) * 3 + round4(t * l);
+}
+
+template <int kNI, bool kStaged, bool kPrologueOnly>
+__global__ void __launch_bounds__(kThreads)
+forest_range_kernel(const int32_t* __restrict__ x,
+                    const int32_t* __restrict__ slot,
+                    const int32_t* __restrict__ tree_on,
+                    const int32_t* __restrict__ mode,
+                    int32_t* __restrict__ out, Shape sh, RangeTables tb) {
+  extern __shared__ int4 smem4[];
+  int32_t* smem = reinterpret_cast<int32_t*>(smem4);
+  const int n_trees = sh.n_trees, width = sh.width;
+  const int ni = kNI ? kNI : tb.n_entries;
+  const int nl = tb.n_leaves;
+  const int tn = n_trees * ni;
+  const Layout lay(sh.chunk, sh.n_forests, width, n_trees,
+                   range_raw_words(n_trees, ni, nl), tn, kStaged);
+  // raw copies: feat | thresh | lmask | payload, each 16-byte aligned
+  int32_t* r_feat = smem + lay.raw;
+  int32_t* r_thr = r_feat + round4(tn);
+  int32_t* r_msk = r_thr + round4(tn);
+  int32_t* r_pay = r_msk + round4(tn);
+  int32_t* on_s = smem + lay.on;
+  int4* rec = reinterpret_cast<int4*>(smem + lay.rec);  // [ni][T]
+
+  auto stage = [&](int f, uint32_t bar) {
+    const size_t e0 = static_cast<size_t>(f) * tn;
+    const Copy c[5] = {
+        {r_feat, tb.feat + e0, kStaged ? tn : 0},
+        {r_thr, tb.thresh + e0, kStaged ? tn : 0},
+        {r_msk, tb.lmask + e0, kStaged ? tn : 0},
+        {r_pay, tb.payload + static_cast<size_t>(f) * n_trees * nl,
+         kStaged ? n_trees * nl : 0},
+        {on_s, tree_on + static_cast<size_t>(f) * n_trees,
+         kStaged ? n_trees : 0}};
+    stage_tables(c, bar);
+  };
+  int f = 0, md = 0;
+  const int count =
+      begin_block(slot, x, mode, out, sh, lay, smem, stage, &f, &md);
+  if (count == 0) return;
+  if (kStaged) {
+    for (int k = threadIdx.x; k < tn; k += kThreads) {  // entry-major
+      const int i = k / n_trees, t = k - i * n_trees;
+      const int j = t * ni + i;
+      rec[k] = make_int4(r_feat[j], r_thr[j], r_msk[j], 0);
+    }
+    __syncthreads();
+  }
+  if (kPrologueOnly) {
+    if (threadIdx.x == 0) {
+      out[static_cast<size_t>(smem[lay.list]) * width] =
+          kStaged ? rec[0].x ^ f : f;
+    }
+    return;
+  }
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int* list = smem + lay.list;
+  const bool classify = md == kClassify;
+  const uint32_t low = nl >= 32 ? kFull : ((1u << nl) - 1u);
+  const uint32_t one_q = 1u << sh.frac;
+  // T <= 16: (tree, half) per lane; else one lane per tree, steps of 32
+  const int halves = n_trees <= 16 ? 2 : 1;
+  const int step = 32 / halves;
+  const int tl = lane & (step - 1), h = lane / step;
+  const size_t ft0 = static_cast<size_t>(f) * n_trees;
+  int32_t* xbuf = smem + lay.xbuf + 2 * warp * (width + 1);
+  uint32_t* votes = reinterpret_cast<uint32_t*>(smem + lay.votes) +
+                    warp * width;
+
+  int it = 0;
+  for (int q = warp; q < count; q += kWarps, ++it) {
+    int32_t* xs = xbuf + (it & 1) * (width + 1);
+    fetch_codes(xbuf + ((it + 1) & 1) * (width + 1), x, list, q + kWarps,
+                count, width);
+    if (classify) {
+      for (int j = lane; j < width; j += 32) votes[j] = 0;
+    }
+    cp_async_wait_prior();
+    __syncwarp();
+    uint32_t reg = 0;
+    for (int t0 = 0; t0 < n_trees; t0 += step) {
+      const int t = t0 + tl;
+      const bool live =
+          t < n_trees && (kStaged ? on_s[t] : __ldg(tree_on + ft0 + t)) > 0;
+      uint32_t word = kFull;
+      if (live) {
+        if (kStaged) {
+          if (halves == 2) {
+#pragma unroll
+            for (int k = 0; k < (ni + 1) / 2; ++k) {
+              const int i = 2 * k + h;
+              if (i < ni) {
+                const int4 r = rec[i * n_trees + t];
+                if (!(feature(xs, r.x, width) <= r.y)) {
+                  word &= static_cast<uint32_t>(r.z);
+                }
+              }
+            }
+          } else {
+#pragma unroll 4
+            for (int i = 0; i < ni; ++i) {
+              const int4 r = rec[i * n_trees + t];
+              if (!(feature(xs, r.x, width) <= r.y)) {
+                word &= static_cast<uint32_t>(r.z);
+              }
+            }
+          }
+        } else {
+          const size_t e0 = (ft0 + t) * ni;
+#pragma unroll 4
+          for (int i = h; i < ni; i += halves) {
+            if (!(feature(xs, __ldg(tb.feat + e0 + i), width) <=
+                  __ldg(tb.thresh + e0 + i))) {
+              word &= static_cast<uint32_t>(__ldg(tb.lmask + e0 + i));
+            }
+          }
+        }
+      }
+      if (halves == 2) word &= __shfl_xor_sync(kFull, word, 16);
+      if (live && h == 0) {  // the second half holds the same leaf
+        const uint32_t below = (word & (0u - word)) - 1u;
+        const int idx = __popc(below & low);
+        int32_t leaf = 0;
+        if (idx < nl) {
+          leaf = kStaged ? r_pay[t * nl + idx]
+                         : __ldg(tb.payload + (ft0 + t) * nl + idx);
+        }
+        if (!classify) {
+          reg += static_cast<uint32_t>(leaf);
+        } else if (static_cast<unsigned>(leaf) <
+                   static_cast<unsigned>(width)) {  // else votes nowhere
+          atomicAdd(&votes[leaf], 1u);
+        }
+      }
+    }
+    if (classify) {
+      __syncwarp();
+    } else {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) reg += __shfl_xor_sync(kFull, reg, o);
+    }
+    int32_t* op = out + static_cast<size_t>(list[q]) * width;
+    for (int j = lane; j < width; j += 32) {
+      const uint32_t v = classify ? votes[j] * one_q : (j == 0 ? reg : 0u);
+      op[j] = static_cast<int32_t>(v);
+    }
+    __syncwarp();  // the codes and votes are rewritten next packet
+  }
+  cp_async_wait_all();
+}
+
+// ---------------------------------------------------------------------------
+// chase: one warp per packet, lane t owns tree t (trees in steps of 32), the
+// node table read from L1/L2 in its own layout
+// ---------------------------------------------------------------------------
+
+struct ChaseTables {
+  const int32_t* nodes;  // (F, T, N, 5)
+  int n_nodes;
+  int max_depth;
+};
+
+__device__ __forceinline__ bool in_bounds(int32_t i, int n) {
+  return static_cast<unsigned>(i) < static_cast<unsigned>(n);
+}
+
+template <int kDepth>
+__global__ void __launch_bounds__(kChaseWarps * 32)
+forest_chase_kernel(const int32_t* __restrict__ x,
+                    const int32_t* __restrict__ slot,
+                    const int32_t* __restrict__ tree_on,
+                    const int32_t* __restrict__ mode,
+                    int32_t* __restrict__ out, int n_batch, int n_forests,
+                    int n_trees, int width, int frac, ChaseTables tb) {
+  __shared__ int32_t xs_all[kChaseWarps][kMaxWidth];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kWarpsPerBlock + warp;
+  const int p = blockIdx.x * kChaseWarps + warp;
   if (p >= n_batch) return;  // warp-uniform
   int32_t* xs = xs_all[warp];
   const int32_t* xp = x + static_cast<size_t>(p) * width;
@@ -135,12 +628,14 @@ forest_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ slot,
   __syncwarp();
 
   const int s = slot[p];
-  uint32_t cnt[kMaxCols];
+  const int nn = tb.n_nodes;
+  const int depth = kDepth ? kDepth : tb.max_depth;
+  uint32_t cnt[kMaxWidth / 32];
 #pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) cnt[c] = 0;
+  for (int c = 0; c < kMaxWidth / 32; ++c) cnt[c] = 0;
   uint32_t reg = 0;
   bool classify = false;
-  if (s >= 0 && s < n_forests) {  // warp-uniform
+  if (in_bounds(s, n_forests)) {  // warp-uniform
     classify = mode[s] == kClassify;
     for (int t0 = 0; t0 < n_trees; t0 += 32) {
       const int t = t0 + lane;
@@ -149,7 +644,23 @@ forest_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ slot,
       if (t < n_trees) {
         const int ft = s * n_trees + t;
         live = tree_on[ft] > 0;
-        if (live) leaf = lane_fn.leaf(ft, xs, width);
+        if (live) {
+          const int32_t* tn = tb.nodes + static_cast<size_t>(ft) * nn * 5;
+          int32_t cur = 0;
+#pragma unroll
+          for (int d = 0; d < depth; ++d) {
+            int32_t f = 0, th = 0, l = 0, r = 0;  // outside [0, N): zeros
+            if (in_bounds(cur, nn)) {
+              const int32_t* rec = tn + static_cast<size_t>(cur) * 5;
+              f = rec[0];
+              th = rec[1];
+              l = rec[2];
+              r = rec[3];
+            }
+            cur = feature(xs, f, width) <= th ? l : r;  // leaves self-loop
+          }
+          leaf = in_bounds(cur, nn) ? tn[static_cast<size_t>(cur) * 5 + 4] : 0;
+        }
       }
       if (classify) {
         // a dead tree votes for column -1, i.e. nowhere
@@ -158,7 +669,7 @@ forest_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ slot,
         for (int k = 0; k < n; ++k) {
           const int32_t v = __shfl_sync(kFull, vote, k);
 #pragma unroll
-          for (int c = 0; c < kMaxCols; ++c) cnt[c] += (v == lane + 32 * c);
+          for (int c = 0; c < kMaxWidth / 32; ++c) cnt[c] += (v == lane + 32 * c);
         }
       } else if (live) {
         reg += static_cast<uint32_t>(leaf);
@@ -169,11 +680,10 @@ forest_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ slot,
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) reg += __shfl_xor_sync(kFull, reg, o);
   }
-
   int32_t* op = out + static_cast<size_t>(p) * width;
   const uint32_t one_q = 1u << frac;
 #pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) {
+  for (int c = 0; c < kMaxWidth / 32; ++c) {
     const int j = lane + 32 * c;
     if (j < width) {
       const uint32_t v = classify ? cnt[c] * one_q : (j == 0 ? reg : 0u);
@@ -182,29 +692,61 @@ forest_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ slot,
   }
 }
 
-template <class Lane>
-int launch(const void* x, const void* slot, const void* tree_on,
-           const void* mode, void* out, int n_batch, int n_forests,
-           int n_trees, int width, int frac, const Lane& lane_fn,
-           void* stream) {
-  const dim3 block(kWarpsPerBlock * 32);
-  const dim3 grid((n_batch + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  forest_kernel<Lane><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(x), static_cast<const int32_t*>(slot),
-      static_cast<const int32_t*>(tree_on), static_cast<const int32_t*>(mode),
-      static_cast<int32_t*>(out), n_batch, n_forests, n_trees, width, frac,
-      lane_fn);
-  return static_cast<int>(cudaGetLastError());
-}
+__global__ void empty_kernel() {}
 
 bool common_ok(int n_batch, int n_forests, int n_trees, int width, int frac) {
   return n_batch >= 0 && n_forests >= 1 && n_trees >= 1 && width >= 1 &&
          width <= kMaxWidth && frac >= 0 && frac <= 30;
 }
 
+template <bool kPrologueOnly>
+int range(const void* x, const void* slot, const void* feat,
+          const void* thresh, const void* lmask, const void* payload,
+          const void* tree_on, const void* mode, void* out, int n_batch,
+          int n_forests, int n_trees, int n_entries, int n_leaves, int width,
+          int frac, int chunk, int staged, void* stream) {
+  if (!common_ok(n_batch, n_forests, n_trees, width, frac) || chunk < 1 ||
+      (chunk & (chunk - 1)) != 0 || n_entries < 1 || n_leaves < 1 ||
+      n_leaves > 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_batch == 0) return static_cast<int>(cudaSuccess);
+  const Shape sh{n_batch, n_forests, n_trees, width, frac, chunk};
+  const RangeTables tb{static_cast<const int32_t*>(feat),
+                       static_cast<const int32_t*>(thresh),
+                       static_cast<const int32_t*>(lmask),
+                       static_cast<const int32_t*>(payload), n_entries,
+                       n_leaves};
+  const Layout lay(chunk, n_forests, width, n_trees,
+                   range_raw_words(n_trees, n_entries, n_leaves),
+                   n_trees * n_entries, staged);
+  if (staged && 4 * (lay.words - lay.on) > kStageLimit) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int bytes = 4 * lay.words;
+  const bool fixed = n_entries == kServingEntries;
+  auto kernel = staged ? (fixed ? forest_range_kernel<kServingEntries, true, kPrologueOnly>
+                                : forest_range_kernel<0, true, kPrologueOnly>)
+                       : (fixed ? forest_range_kernel<kServingEntries, false, kPrologueOnly>
+                                : forest_range_kernel<0, false, kPrologueOnly>);
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int grid = (n_batch + chunk - 1) / chunk + min(n_forests + 1, n_batch);
+  kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(x), static_cast<const int32_t*>(slot),
+      static_cast<const int32_t*>(tree_on), static_cast<const int32_t*>(mode),
+      static_cast<int32_t*>(out), sh, tb);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int forest_max_width() { return kMaxWidth; }
+
+extern "C" int forest_stage_limit() { return kStageLimit; }
 
 // x (B, W) int32 · slot (B,) int32 · nodes (F, T, N, 5) int32 ·
 // tree_on (F, T) int32 · mode (F,) int32 → out (B, W) int32.
@@ -219,31 +761,52 @@ extern "C" int forest_chase_launch(const void* x, const void* slot,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_batch == 0) return static_cast<int>(cudaSuccess);
-  const Chase lane_fn{static_cast<const int32_t*>(nodes), n_nodes, max_depth};
-  return launch(x, slot, tree_on, mode, out, n_batch, n_forests, n_trees,
-                width, frac, lane_fn, stream);
+  const ChaseTables tb{static_cast<const int32_t*>(nodes), n_nodes, max_depth};
+  auto kernel = max_depth == kServingDepth ? forest_chase_kernel<kServingDepth>
+                                           : forest_chase_kernel<0>;
+  const int grid = (n_batch + kChaseWarps - 1) / kChaseWarps;
+  kernel<<<grid, kChaseWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(x), static_cast<const int32_t*>(slot),
+      static_cast<const int32_t*>(tree_on), static_cast<const int32_t*>(mode),
+      static_cast<int32_t*>(out), n_batch, n_forests, n_trees, width, frac,
+      tb);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // x (B, W) int32 · slot (B,) int32 · feat, thresh, lmask (F, T, NI) int32
 // (lmask as uint32 bit patterns) · payload (F, T, L) int32 · tree_on (F, T)
-// int32 · mode (F,) int32 → out (B, W) int32.  1 <= L <= 32.
+// int32 · mode (F,) int32 → out (B, W) int32.  1 <= L <= 32.  chunk (a
+// power of two): packets of one forest per block; staged: 1 to stage the
+// forest's tables in shared memory (copy and relayout within kStageLimit
+// bytes), 0 to read them from global memory.
 extern "C" int forest_range_launch(const void* x, const void* slot,
                                    const void* feat, const void* thresh,
                                    const void* lmask, const void* payload,
                                    const void* tree_on, const void* mode,
                                    void* out, int n_batch, int n_forests,
                                    int n_trees, int n_entries, int n_leaves,
-                                   int width, int frac, void* stream) {
-  if (!common_ok(n_batch, n_forests, n_trees, width, frac) || n_entries < 1 ||
-      n_leaves < 1 || n_leaves > 32) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n_batch == 0) return static_cast<int>(cudaSuccess);
-  const Range lane_fn{static_cast<const int32_t*>(feat),
-                      static_cast<const int32_t*>(thresh),
-                      static_cast<const int32_t*>(lmask),
-                      static_cast<const int32_t*>(payload), n_entries,
-                      n_leaves};
-  return launch(x, slot, tree_on, mode, out, n_batch, n_forests, n_trees,
-                width, frac, lane_fn, stream);
+                                   int width, int frac, int chunk, int staged,
+                                   void* stream) {
+  return range<false>(x, slot, feat, thresh, lmask, payload, tree_on, mode,
+                      out, n_batch, n_forests, n_trees, n_entries, n_leaves,
+                      width, frac, chunk, staged, stream);
+}
+
+// The range kernel stopped after grouping and staging (out gets one word
+// per block, for timing the phases only).
+extern "C" int forest_range_prologue_launch(
+    const void* x, const void* slot, const void* feat, const void* thresh,
+    const void* lmask, const void* payload, const void* tree_on,
+    const void* mode, void* out, int n_batch, int n_forests, int n_trees,
+    int n_entries, int n_leaves, int width, int frac, int chunk, int staged,
+    void* stream) {
+  return range<true>(x, slot, feat, thresh, lmask, payload, tree_on, mode,
+                     out, n_batch, n_forests, n_trees, n_entries, n_leaves,
+                     width, frac, chunk, staged, stream);
+}
+
+// An empty kernel: the launch floor that the forest timings stand beside.
+extern "C" int forest_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }

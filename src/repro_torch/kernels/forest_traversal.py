@@ -16,12 +16,20 @@ For tensors on the CPU they run the plain version
 For tensors on the card they launch the kernel on the current stream or
 raise — there is no fallback.  Every launch adds one to
 ``launches[variant]``.
+
+The range kernel groups the packets by forest itself: each block serves
+:func:`plan`'s ``chunk`` packets of one forest and stages that forest's
+tables in shared memory when they fit (``staged``), else reads them from
+global memory; the plan depends on the sizes alone.  The chase kernel
+serves one packet per warp in index order.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Dict
+import functools
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -29,13 +37,16 @@ from . import _build
 from .ref import forest_range_gather_ref, forest_traverse_gather_ref
 
 __all__ = ["forest_traverse", "forest_range", "FOREST_VARIANTS", "MAX_WIDTH",
-           "launches", "reset_launches", "load_library"]
+           "STAGE_LIMIT", "Plan", "plan", "stage_bytes", "launches",
+           "reset_launches", "load_library"]
 
 # "chase": the level-bounded pointer chase (work ∝ visited nodes, serially
 # dependent steps); "range": the pForest range-table form (work ∝ all
 # internal nodes, no serial chain)
 FOREST_VARIANTS = ("chase", "range")
 MAX_WIDTH = 128  # kMaxWidth in the CUDA source
+STAGE_LIMIT = 96 * 1024  # kStageLimit: the largest staged table, bytes
+_MAX_CHUNK = 4096  # keeps the grid near one block per SM up to B ≈ 540k
 
 #: kernel launches per variant since the last :func:`reset_launches`
 launches: Dict[str, int] = {v: 0 for v in FOREST_VARIANTS}
@@ -46,16 +57,62 @@ def reset_launches() -> None:
         launches[v] = 0
 
 
+class Plan(NamedTuple):
+    chunk: int    # packets of one forest per block, a power of two
+    staged: bool  # the forest's tables staged in shared memory
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def stage_bytes(n_trees: int, n_entries: int, n_leaves: int) -> int:
+    """Shared memory the range kernel stages one forest's tables in: the
+    copies of feat, thresh, lmask and payload, their 16-byte entry
+    records and tree_on (``Layout`` in the CUDA source)."""
+    tn = n_trees * n_entries
+    raw = 3 * _round4(tn) + _round4(n_trees * n_leaves)
+    return 4 * (_round4(n_trees) + raw + 4 * tn)
+
+
+def plan(n_batch: int, n_trees: int, n_entries: int, n_leaves: int,
+         num_sms: int) -> Plan:
+    """The range kernel's launch plan from the sizes alone: ``chunk``, the
+    power of two at or above B / SMs (about one busy block per SM: every
+    block reads all of ``slot``, so the grid must not grow with B), within
+    [16, 4096] (16 is one packet per warp of a block), and the tables
+    staged when they fit :data:`STAGE_LIMIT`."""
+    chunk = 16
+    while chunk < _MAX_CHUNK and chunk * num_sms < n_batch:
+        chunk *= 2
+    staged = stage_bytes(n_trees, n_entries, n_leaves) <= STAGE_LIMIT
+    return Plan(chunk, staged)
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_chase_fn = None
+_range_fn = None
+
+
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the kernel library."""
+    global _chase_fn, _range_fn
     lib = _build.load("forest_traversal")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for fn, argtypes in (
-            (lib.forest_chase_launch, [p] * 6 + [i] * 7 + [p]),
-            (lib.forest_range_launch, [p] * 9 + [i] * 7 + [p])):
-        if fn.argtypes is None:
+    if _range_fn is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn, argtypes in (
+                (lib.forest_chase_launch, [p] * 6 + [i] * 7 + [p]),
+                (lib.forest_range_launch, [p] * 9 + [i] * 9 + [p]),
+                (lib.forest_range_prologue_launch, [p] * 9 + [i] * 9 + [p]),
+                (lib.forest_empty_launch, [p])):
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        _chase_fn = lib.forest_chase_launch
+        _range_fn = lib.forest_range_launch
     return lib
 
 
@@ -64,7 +121,7 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != torch.int32:
         raise TypeError(f"{name} has dtype {t.dtype}, expected torch.int32")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
     if not t.is_contiguous():
@@ -72,7 +129,7 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
 
 
 def _check_common(x, slot, tree_on, mode, n_forests, n_trees, frac):
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"no forest kernel for device {x.device}")
     n_batch, width = x.shape
     dev = x.device
@@ -84,7 +141,13 @@ def _check_common(x, slot, tree_on, mode, n_forests, n_trees, frac):
         raise ValueError(f"width {width} outside the kernel's [1, {MAX_WIDTH}]")
     if not 0 <= frac <= 30:
         raise ValueError(f"frac={frac} outside the kernel's [0, 30]")
-    return n_batch, width
+    return n_batch, width, dev
+
+
+def _device(index: int):
+    """No context switch when the tensors are on the current device."""
+    return (contextlib.nullcontext() if index == torch.cuda.current_device()
+            else torch.cuda.device(index))
 
 
 def _finish(rc: int, variant: str) -> None:
@@ -103,22 +166,22 @@ def forest_traverse(x_q: torch.Tensor, slot: torch.Tensor,
         return forest_traverse_gather_ref(x_q, slot, nodes, tree_on, mode,
                                           max_depth=max_depth, frac=frac)
     n_forests, n_trees, n_nodes, _ = nodes.shape
-    n_batch, width = _check_common(x_q, slot, tree_on, mode, n_forests,
-                                   n_trees, frac)
-    _check("nodes", nodes, (n_forests, n_trees, n_nodes, 5), x_q.device)
+    n_batch, width, dev = _check_common(x_q, slot, tree_on, mode, n_forests,
+                                        n_trees, frac)
+    _check("nodes", nodes, (n_forests, n_trees, n_nodes, 5), dev)
     if max_depth < 0:
         raise ValueError(f"max_depth={max_depth} < 0")
     out = torch.empty_like(x_q)
     if n_batch == 0:
         return out
-    lib = load_library()
-    with torch.cuda.device(x_q.device):
-        stream = torch.cuda.current_stream(x_q.device).cuda_stream
-        rc = lib.forest_chase_launch(
+    if _chase_fn is None:
+        load_library()
+    with _device(dev.index):
+        rc = _chase_fn(
             x_q.data_ptr(), slot.data_ptr(), nodes.data_ptr(),
             tree_on.data_ptr(), mode.data_ptr(), out.data_ptr(), n_batch,
             n_forests, n_trees, n_nodes, width, int(max_depth), int(frac),
-            stream)
+            torch._C._cuda_getCurrentRawStream(dev.index))
     _finish(rc, "chase")
     return out
 
@@ -134,9 +197,8 @@ def forest_range(x_q: torch.Tensor, slot: torch.Tensor, feat: torch.Tensor,
                                        payload, tree_on, mode, frac=frac)
     n_forests, n_trees, n_entries = feat.shape
     n_leaves = payload.shape[-1]
-    n_batch, width = _check_common(x_q, slot, tree_on, mode, n_forests,
-                                   n_trees, frac)
-    dev = x_q.device
+    n_batch, width, dev = _check_common(x_q, slot, tree_on, mode, n_forests,
+                                        n_trees, frac)
     for name, t in (("feat", feat), ("thresh", thresh), ("lmask", lmask)):
         _check(name, t, (n_forests, n_trees, n_entries), dev)
     _check("payload", payload, (n_forests, n_trees, n_leaves), dev)
@@ -148,13 +210,16 @@ def forest_range(x_q: torch.Tensor, slot: torch.Tensor, feat: torch.Tensor,
     out = torch.empty_like(x_q)
     if n_batch == 0:
         return out
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.forest_range_launch(
+    if _range_fn is None:
+        load_library()
+    chunk, staged = plan(n_batch, n_trees, n_entries, n_leaves,
+                         _num_sms(dev.index))
+    with _device(dev.index):
+        rc = _range_fn(
             x_q.data_ptr(), slot.data_ptr(), feat.data_ptr(),
             thresh.data_ptr(), lmask.data_ptr(), payload.data_ptr(),
             tree_on.data_ptr(), mode.data_ptr(), out.data_ptr(), n_batch,
-            n_forests, n_trees, n_entries, n_leaves, width, int(frac), stream)
+            n_forests, n_trees, n_entries, n_leaves, width, int(frac), chunk,
+            int(staged), torch._C._cuda_getCurrentRawStream(dev.index))
     _finish(rc, "range")
     return out

@@ -135,7 +135,8 @@ def forest_traverse(x_q: torch.Tensor, slot: torch.Tensor,
     _check_backend(backend, x_q)
     if variant not in FOREST_VARIANTS:
         raise ValueError(f"unknown forest variant: {variant!r}")
-    slot = slot.to(torch.int32).contiguous()
+    if slot.dtype != torch.int32 or not slot.is_contiguous():
+        slot = slot.to(torch.int32).contiguous()
     if variant == "range":
         if ranges is None:
             raise ValueError("variant='range' needs the compiled range "

@@ -7,7 +7,9 @@ Counterparts of ``repro.kernels.ref``: ``rounding_rshift``, ``lane_clamp``,
 the MLP lane, with ``fused_mlp_warp_ref``, the MLP kernel's decomposition;
 ``forest_traverse_ref``, ``forest_traverse_gather_ref``,
 ``forest_range_ref``, ``forest_range_gather_ref`` and ``_forest_vote`` for
-the tree-ensemble lane, and the flow engine's register-file constants,
+the tree-ensemble lane, with ``forest_range_grouped_ref``, the range
+kernel's decomposition (packets grouped by forest in ``forest_blocks``),
+and the flow engine's register-file constants,
 ``rounding_rshift_np``, ``sat_shl_np`` and the pure-Python per-packet
 oracle ``flow_update_numpy`` (numpy, copied verbatim) beside its plain
 PyTorch version ``flow_update_ref`` and ``flow_update_two_phase_ref``, the
@@ -43,7 +45,9 @@ import torch
 __all__ = ["rounding_rshift", "lane_clamp", "fused_mlp_ref",
            "fused_mlp_gather_ref", "fused_mlp_warp_ref", "forest_traverse_ref",
            "forest_traverse_gather_ref", "forest_range_ref",
-           "forest_range_gather_ref", "FOREST_REGRESS", "FOREST_CLASSIFY",
+           "forest_range_gather_ref", "forest_blocks",
+           "forest_range_grouped_ref",
+           "FOREST_REGRESS", "FOREST_CLASSIFY",
            "REG_PKT_COUNT", "REG_BYTE_COUNT", "REG_LAST_TS", "REG_FIRST_TS",
            "REG_EWMA_IAT", "REG_EWMA_LEN", "REG_MIN_LEN", "REG_MAX_LEN",
            "N_FLOW_REGISTERS", "FLOW_FEATURE_NAMES", "N_FLOW_FEATURES",
@@ -410,6 +414,100 @@ def forest_range_gather_ref(x_q: torch.Tensor, slot: torch.Tensor,
     on = tree_on[s] > 0
     md = mode[s][:, None]
     return _forest_vote(leaf, on, md, width, frac)
+
+
+def forest_blocks(slot: torch.Tensor, n_forests: int, chunk: int) -> list:
+    """The range kernel's grouping (``csrc/forest_traversal.cu``): each
+    packet's bin is its slot, or ``n_forests`` for a slot outside
+    ``[0, F)``; each bin's packets, in index order, are cut into chunks of
+    ``chunk``; the blocks take the chunks in (bin, chunk) order.  Returns one
+    ``(bin, packet indices)`` per busy block.  The grid has
+    ``ceil(B / chunk) + min(F + 1, B)`` blocks, never fewer than the
+    chunks."""
+    n_batch = slot.shape[0]
+    s = slot.to(torch.int64)
+    bins = torch.where((s >= 0) & (s < n_forests), s,
+                       torch.full_like(s, n_forests))
+    blocks = []
+    for b in range(n_forests + 1):
+        idx = torch.nonzero(bins == b).flatten()
+        blocks += [(b, idx[lo: lo + chunk]) for lo in range(0, len(idx),
+                                                              chunk)]
+    if len(blocks) > -(-n_batch // chunk) + min(n_forests + 1, n_batch):
+        raise RuntimeError("more chunks than blocks in the grid")
+    return blocks
+
+
+def _in_range(i: torch.Tensor, n: int) -> torch.Tensor:
+    """``i`` where it lies in ``[0, n)``, else ``n`` (the index of an
+    all-zero column appended to the codes)."""
+    return torch.where((i >= 0) & (i < n), i, torch.full_like(i, n))
+
+
+def forest_range_grouped_ref(x_q: torch.Tensor, slot: torch.Tensor,
+                             feat: torch.Tensor, thresh: torch.Tensor,
+                             lmask: torch.Tensor, payload: torch.Tensor,
+                             tree_on: torch.Tensor, mode: torch.Tensor, *,
+                             frac: int, chunk: int = 16) -> torch.Tensor:
+    """The range kernel's decomposition of the range-table traversal, in
+    plain PyTorch (the tests hold it to the reference's oracle, its Pallas
+    kernel and the port's gather and masked forms): packets grouped by
+    forest (:func:`forest_blocks`), every row written exactly once, the
+    rows of slots outside ``[0, F)`` with zeros; per block the forest's
+    entries staged entry-major as {feat, thresh, lmask} records; one packet
+    per warp; at T <= 16 two lanes per tree, the lane of half h ANDing the
+    failed masks of entries h, h + 2, …, and the two halves' words joined by
+    AND (the kernel's ``__shfl_xor_sync(…, 16)``); at T > 16 one lane per
+    tree, all entries.  A feature outside ``[0, W)`` reads x = 0;
+    ``word == 0`` gives leaf 0.  Same layouts as
+    :func:`forest_range_gather_ref`."""
+    n_batch, width = x_q.shape
+    n_forests, n_trees, ni = feat.shape
+    n_leaves = payload.shape[-1]
+    if not 1 <= n_leaves <= 32:
+        raise ValueError(f"{n_leaves} leaves outside the 32-bit leaf "
+                         "mask's [1, 32]")
+    halves = 2 if n_trees <= 16 else 1
+    step = 32 // halves
+    dev = x_q.device
+    l_iota = torch.arange(n_leaves, dtype=torch.int32, device=dev)
+    out = torch.empty_like(x_q)
+    written = torch.zeros(n_batch, dtype=torch.int64, device=dev)
+    # column W reads as 0: a feature index outside [0, W)
+    xz = torch.cat([x_q, x_q.new_zeros((n_batch, 1))], 1)
+    for f, idx in forest_blocks(slot, n_forests, chunk):
+        written[idx] += 1
+        if f == n_forests:
+            out[idx] = 0
+            continue
+        xs = xz[idx]
+        rec = torch.stack([feat[f], thresh[f], lmask[f]], -1).transpose(0, 1)
+        leaf = torch.zeros((len(idx), n_trees), dtype=torch.int32,
+                           device=dev)
+        for t0 in range(0, n_trees, step):
+            t = torch.arange(t0, min(t0 + step, n_trees), device=dev)
+            word = torch.full((len(idx), len(t)), -1, dtype=torch.int32,
+                              device=dev)
+            for h in range(halves):
+                half = torch.full_like(word, -1)
+                for i in range(h, ni, halves):
+                    r = rec[i, t]                          # (t, 3)
+                    xv = xs[:, _in_range(r[:, 0].to(torch.int64), width)]
+                    half = half & torch.where(xv <= r[:, 1], -1, r[:, 2])
+                word = word & half
+            below = (word & (~word + 1)) - 1
+            li = ((below[..., None] >> l_iota) & 1).sum(-1, dtype=torch.int32)
+            pay = payload[f, t].expand(len(idx), -1, -1)
+            got = pay.gather(2, li.clamp(max=n_leaves - 1).to(torch.int64)
+                             [..., None])[..., 0]
+            leaf[:, t0: t0 + len(t)] = torch.where(li < n_leaves, got,
+                                                   torch.zeros_like(got))
+        live = (tree_on[f] > 0).expand(len(idx), n_trees)
+        out[idx] = _forest_vote(leaf, live, mode[f].expand(len(idx), 1),
+                                width, frac)
+    if not bool((written == 1).all()):
+        raise RuntimeError("an output row was not written exactly once")
+    return out
 
 
 # ---------------------------------------------------------------------------

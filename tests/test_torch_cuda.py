@@ -19,7 +19,8 @@ from repro_torch.core.packet import HEADER_BYTES, encode_packets_np
 from repro_torch.core.taylor import scaled_constants
 from repro_torch.data.packets import anomaly_dataset, qos_dataset, raw_trace
 from repro_torch.forest import train_forest
-from repro_torch.forest.synthetic import random_forest_tables, stack_ranges
+from repro_torch.forest.synthetic import (random_forest_tables,
+                                          rejected_tables, stack_ranges)
 from repro_torch.kernels import fixedpoint_mlp as fmlp
 from repro_torch.kernels import flow_update as fuk
 from repro_torch.kernels import forest_traversal as ftk
@@ -211,6 +212,149 @@ def test_forest_kernels_equal_plain_versions(card, n_batch, extent):
         assert torch.equal(chase, w)
     for w in want_range:
         assert torch.equal(rng_out, w)
+
+
+def _forest_tables(rng, extent):
+    """Random tables at ``extent``; range tables of shallower trees where
+    the chase's trees have more leaves than the 32-bit leaf mask holds."""
+    n_forests, n_trees, n_nodes, width, depth, ni, nl = extent
+    nodes, tree_on, mode = random_forest_tables(
+        rng, n_forests, width, depth, n_trees=n_trees, n_nodes=n_nodes)
+    try:
+        ranges = stack_ranges(nodes, tree_on, depth, n_entries=ni,
+                              n_leaves=nl)
+    except ValueError:
+        shallow, on2, _ = random_forest_tables(
+            rng, n_forests, width, 5, n_trees=n_trees, n_nodes=n_nodes)
+        ranges = stack_ranges(shallow, on2, 5, n_entries=ni, n_leaves=nl)
+    return nodes, tree_on, mode, ranges
+
+
+def _forest_run(card, x, slot, nodes, tree_on, mode, ranges, depth, *,
+                gather=True):
+    """Both kernels on the card, one launch each, against the masked plain
+    versions (and the gather ones when ``gather``); the inputs must come
+    back unmodified."""
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=card)
+
+    args = [t(a) for a in (x, slot, nodes, tree_on, mode)]
+    rng_t = [t(a) for a in ranges]
+    before_in = [a.clone() for a in args + rng_t]
+    before = dict(ftk.launches)
+    got = {"chase": ftk.forest_traverse(*args, max_depth=depth, frac=FRAC),
+           "range": ftk.forest_range(*args[:2], *rng_t, *args[3:],
+                                     frac=FRAC)}
+    assert ftk.launches == {v: before[v] + 1 for v in ftk.FOREST_VARIANTS}
+    kw = dict(max_depth=depth, frac=FRAC, backend="ref", ranges=rng_t)
+    want = {v: [ops.forest_traverse(*args, **kw, variant=v)]
+            for v in ("chase", "range")}
+    if gather:
+        want["chase"].append(forest_traverse_gather_ref(
+            *args, max_depth=depth, frac=FRAC))
+        want["range"].append(forest_range_gather_ref(
+            *args[:2], *rng_t, *args[3:], frac=FRAC))
+    torch.cuda.synchronize()
+    for v in got:
+        for w in want[v]:
+            assert torch.equal(got[v], w), v
+    for a, b in zip(args + rng_t, before_in):
+        assert torch.equal(a, b)
+    return got
+
+
+@pytest.mark.parametrize("slots", ["uniform", "one_forest"])
+@pytest.mark.parametrize("extent", [
+    (4, 1, 16, 32, 4, 7, 8), (4, 15, 16, 32, 5, 31, 32),
+    (4, 16, 16, 32, 5, 31, 32), (4, 17, 16, 32, 5, 31, 32),
+    (3, 32, 16, 32, 4, 7, 8), (3, 33, 16, 32, 4, 7, 8),
+    (2, 64, 16, 32, 4, 1, 8), (8, 16, 64, 32, 6, 31, 32),
+    (2, 16, 64, 128, 6, 31, 32), (2, 16, 64, 33, 6, 7, 8)])
+def test_forest_kernels_at_lane_edges(card, extent, slots):
+    """The range lane split changes at T = 16 and T = 32 (the chase's trees
+    go in steps of 32); NI = 31 and depth 6 are compiled in, the others run
+    the run-time loops; W = 33 and 128 take more than one output column per
+    lane."""
+    n_forests, n_trees, n_nodes, width, depth, ni, nl = extent
+    rng = np.random.default_rng(n_trees * 1000 + width + len(slots))
+    nodes, tree_on, mode, ranges = _forest_tables(rng, extent)
+    assert ftk.plan(2049, n_trees, ranges[0].shape[-1], nl, 132).staged
+    for n_batch in (1, 2049):
+        x = rng.integers(-1000, 1000, (n_batch, width)).astype(np.int32)
+        slot = (rng.integers(0, n_forests, n_batch) if slots == "uniform"
+                else np.full(n_batch, n_forests - 1)).astype(np.int32)
+        _forest_run(card, x, slot, nodes, tree_on, mode, ranges, depth)
+
+
+@pytest.mark.parametrize("extent", [(2, 64, 256, 32, 8, 31, 32),
+                                    (2, 128, 64, 32, 6, 31, 32)])
+def test_forest_kernels_tables_beyond_shared_memory(card, extent):
+    """Range tables past the staging limit (T = 128) take the global-memory
+    path of the same kernel, the plan says so from the sizes alone; the
+    chase at N = 256 and depth 8 (run-time depth)."""
+    n_forests, n_trees, n_nodes, width, depth, ni, nl = extent
+    rng = np.random.default_rng(n_trees + n_nodes)
+    nodes, tree_on, mode, ranges = _forest_tables(rng, extent)
+    staged = ftk.plan(2048, n_trees, ranges[0].shape[-1], nl, 132).staged
+    assert staged == (n_trees <= 64)
+    for n_batch, slots in ((2048, "uniform"), (300, "one_forest")):
+        x = rng.integers(-1000, 1000, (n_batch, width)).astype(np.int32)
+        slot = (rng.integers(0, n_forests, n_batch) if slots == "uniform"
+                else np.zeros(n_batch)).astype(np.int32)
+        _forest_run(card, x, slot, nodes, tree_on, mode, ranges, depth)
+
+
+def test_forest_kernels_large_batch(card):
+    """B = 50000: the range plan's chunk past 256 packets a block (16 warps
+    serving each chunk in turns), slots uniform and on one forest."""
+    rng = np.random.default_rng(9)
+    extent = (8, 16, 64, 32, 6, 31, 32)
+    nodes, tree_on, mode, ranges = _forest_tables(rng, extent)
+    assert ftk.plan(50_000, 16, ranges[0].shape[-1], 32, 132).chunk == 512
+    x = rng.integers(-1000, 1000, (50_000, 32)).astype(np.int32)
+    for slot in (rng.integers(0, 8, 50_000), np.full(50_000, 3)):
+        _forest_run(card, x, slot.astype(np.int32), nodes, tree_on, mode,
+                    ranges, 6)
+
+
+@pytest.mark.parametrize("n_trees", [1, 16, 17, 33])
+def test_forest_kernels_on_rejected_tables_and_slots(card, n_trees):
+    """Tables install_forest rejects, and slots outside [0, F) (zero rows),
+    against the masked forms, which define them."""
+    rng = np.random.default_rng(40 + n_trees)
+    n_forests, width, depth, n_nodes = 5, 32, 5, 32
+    nodes, tree_on, mode, ranges = rejected_tables(
+        rng, n_forests, n_trees, n_nodes, width, depth, 15, 16)
+    for n_batch in (7, 2048, 4099):
+        x = rng.integers(-800, 800, (n_batch, width)).astype(np.int32)
+        slot = rng.integers(-3, n_forests + 3, n_batch).astype(np.int32)
+        slot[:2] = [-(2 ** 31), 2 ** 31 - 1]
+        got = _forest_run(card, x, slot, nodes, tree_on, mode, ranges,
+                          depth, gather=False)
+        outside = torch.as_tensor((slot < 0) | (slot >= n_forests),
+                                  device=card)
+        for v in got:
+            assert not got[v][outside].any()
+
+
+def test_forest_kernels_all_slots_outside(card):
+    """A batch whose every slot lies outside [0, F): one launch each, all
+    rows zero."""
+    rng = np.random.default_rng(3)
+    extent = (3, 16, 16, 32, 4, 7, 8)
+    nodes, tree_on, mode, ranges = _forest_tables(rng, extent)
+    x = rng.integers(-800, 800, (500, 32)).astype(np.int32)
+    slot = np.full(500, 3, np.int32)
+    got = _forest_run(card, x, slot, nodes, tree_on, mode, ranges, 4,
+                      gather=False)
+    for v in got:
+        assert not got[v].any()
+
+
+def test_forest_library_constants_match_wrapper(card):
+    lib = ftk.load_library()
+    assert lib.forest_max_width() == ftk.MAX_WIDTH
+    assert lib.forest_stage_limit() == ftk.STAGE_LIMIT
 
 
 def test_forest_kernels_reject_bad_arguments(card):

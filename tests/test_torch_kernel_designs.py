@@ -19,7 +19,14 @@ JAX reference where it has a counterpart:
     installed JAX) and the port's ``flow_update_ref``, bit for bit;
   * the MLP kernel's decomposition (``ref.fused_mlp_warp_ref``) against the
     reference's gather form and its Pallas kernel in interpret mode, bit for
-    bit, in both weight lanes, with slots outside ``[0, M)``.
+    bit, in both weight lanes, with slots outside ``[0, M)``;
+  * the range kernel's decomposition (packets grouped by forest in
+    ``ref.forest_blocks``, per-forest staging, the half-warp AND split:
+    ``ref.forest_range_grouped_ref``) against the reference's scalar oracle
+    ``forest_traverse_numpy``, the port's gather and masked forms and, at
+    small extents, the Pallas range kernel in interpret mode, bit for bit
+    (the chase's plain versions beside it on the same tables); and the
+    wrapper's pure-Python launch plan (``forest_traversal.plan``).
 """
 
 import importlib
@@ -40,6 +47,10 @@ from repro_torch.core.taylor import scaled_constants
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.models import params_from_numpy
+
+from repro_torch.forest.synthetic import (random_forest_tables,
+                                          rejected_tables, stack_ranges)
+from repro_torch.kernels import forest_traversal as ftk
 
 fmm = importlib.import_module("repro_torch.kernels.fixedpoint_matmul")
 fmlp = importlib.import_module("repro_torch.kernels.fixedpoint_mlp")
@@ -437,3 +448,192 @@ def test_mlp_warp_decomposition_matches_reference_and_pallas(variant, width):
     np.testing.assert_array_equal(
         fmlp.fixedpoint_mlp(**tc, variant=variant, **kw).numpy(),
         got[valid])
+
+
+# ---------------------------------------------------------------------------
+# the forest kernels' decomposition: grouped by forest, staged, lane split
+# ---------------------------------------------------------------------------
+
+FOREST_FRAC = 8
+# NI (range entries) → the tree depth and node count that need that many
+NI_TREES = {1: (1, 3), 7: (3, 15), 31: (5, 63)}
+
+
+def _forest_case(seed, n_forests, n_trees, ni, width=16, n_batch=48):
+    rng = np.random.default_rng(seed)
+    depth, n_nodes = NI_TREES[ni]
+    nodes, tree_on, mode = random_forest_tables(
+        rng, n_forests, width, depth, n_trees=n_trees, n_nodes=n_nodes)
+    ranges = stack_ranges(nodes, tree_on, depth, n_entries=ni, n_leaves=8)
+    x = rng.integers(-1000, 1000, (n_batch, width)).astype(np.int32)
+    x[rng.random(n_batch) < 0.1] = np.iinfo(np.int32).max
+    slot = rng.integers(0, n_forests, n_batch).astype(np.int32)
+    return rng, depth, x, slot, nodes, tree_on, mode, ranges
+
+
+def _grouped(x, slot, tree_on, mode, ranges, chunk=16):
+    t = [torch.as_tensor(np.ascontiguousarray(a))
+         for a in (x, slot, tree_on, mode, *ranges)]
+    return tref.forest_range_grouped_ref(*t[:2], *t[4:], *t[2:4],
+                                         frac=FOREST_FRAC, chunk=chunk)
+
+
+def _masked(x, slot, nodes, tree_on, mode, ranges, depth):
+    t = [torch.as_tensor(np.ascontiguousarray(a))
+         for a in (x, slot, nodes, tree_on, mode)]
+    rt = tuple(torch.as_tensor(a) for a in ranges)
+    return {v: ops.forest_traverse(*t, max_depth=depth, frac=FOREST_FRAC,
+                                   backend="ref", variant=v, ranges=rt)
+            for v in ("chase", "range")}
+
+
+def _pallas(x, slot, nodes, tree_on, mode, ranges, depth,
+            variants=("chase", "range")):
+    args = [jnp.asarray(a) for a in (x, slot, nodes, tree_on, mode)]
+    u32 = ranges[:2] + (ranges[2].view(np.uint32),) + ranges[3:]
+    return {v: np.asarray(jops.forest_traverse(
+        *args, max_depth=depth, frac=FOREST_FRAC, backend="pallas",
+        variant=v, ranges=u32 if v == "range" else None))
+        for v in variants}
+
+
+@pytest.mark.parametrize("slots", ["uniform", "one_forest"])
+@pytest.mark.parametrize("ni", [1, 7, 31])
+@pytest.mark.parametrize("n_trees", [1, 15, 16, 17, 33])
+def test_forest_grouped_decomposition_matches_oracle_and_plain(n_trees, ni,
+                                                              slots):
+    """The range lane split changes at T = 16 (two lanes per tree) and
+    T = 32 (trees in steps of 32); NI = 31 is the compiled-in serving
+    extent.  The chase's plain versions are held to the oracle beside it."""
+    _, depth, x, slot, nodes, tree_on, mode, ranges = _forest_case(
+        n_trees * 10 + ni, 3, n_trees, ni)
+    if slots == "one_forest":
+        slot[:] = 2
+    want = jref.forest_traverse_numpy(x, slot, nodes, tree_on, mode,
+                                      max_depth=depth, frac=FOREST_FRAC)
+    got = _grouped(x, slot, tree_on, mode, ranges)
+    masked = _masked(x, slot, nodes, tree_on, mode, ranges, depth)
+    t = [torch.as_tensor(a) for a in (x, slot, nodes, tree_on, mode)]
+    gather = {
+        "chase": tref.forest_traverse_gather_ref(
+            *t, max_depth=depth, frac=FOREST_FRAC),
+        "range": tref.forest_range_gather_ref(
+            *t[:2], *(torch.as_tensor(a) for a in ranges), *t[3:],
+            frac=FOREST_FRAC)}
+    np.testing.assert_array_equal(got.numpy(), want)
+    for v in ("chase", "range"):
+        np.testing.assert_array_equal(masked[v].numpy(), want, err_msg=v)
+        np.testing.assert_array_equal(gather[v].numpy(), want, err_msg=v)
+
+
+@pytest.mark.parametrize("n_trees,ni,slots", [
+    (1, 7, "uniform"), (15, 1, "one_forest"), (16, 7, "uniform"),
+    (17, 1, "uniform"), (16, 7, "one_forest")])
+def test_forest_grouped_decomposition_matches_pallas(n_trees, ni, slots):
+    """At small extents, against the Pallas range kernel (interpret mode)
+    on the same inputs."""
+    _, depth, x, slot, nodes, tree_on, mode, ranges = _forest_case(
+        n_trees + ni, 2, n_trees, ni, n_batch=40)
+    if slots == "one_forest":
+        slot[:] = 0
+    got = _grouped(x, slot, tree_on, mode, ranges, chunk=16)
+    want = _pallas(x, slot, nodes, tree_on, mode, ranges, depth, ("range",))
+    np.testing.assert_array_equal(got.numpy(), want["range"])
+
+
+@pytest.mark.parametrize("n_trees", [1, 15, 16, 17, 33])
+def test_forest_grouped_decomposition_on_rejected_tables(n_trees):
+    """Tables install_forest rejects and slots outside [0, F): the masked
+    forms define the result (all-zero records, x = 0 for a feature outside
+    [0, W), classify leaves that vote nowhere, zero rows)."""
+    rng = np.random.default_rng(n_trees)
+    n_forests, width, depth, n_nodes = 3, 16, 4, 16
+    nodes, tree_on, mode, ranges = rejected_tables(
+        rng, n_forests, n_trees, n_nodes, width, depth, 7, 8)
+    x = rng.integers(-600, 600, (60, width)).astype(np.int32)
+    slot = rng.integers(-2, n_forests + 3, 60).astype(np.int32)
+    slot[:3] = [-(2 ** 31), 2 ** 31 - 1, n_forests]
+    got = _grouped(x, slot, tree_on, mode, ranges, chunk=8).numpy()
+    want = _masked(x, slot, nodes, tree_on, mode, ranges, depth)
+    outside = (slot < 0) | (slot >= n_forests)
+    np.testing.assert_array_equal(got, want["range"].numpy())
+    assert not got[outside].any()
+    if n_trees <= 16:  # the Pallas kernels at the small extents
+        pallas = _pallas(x, slot, nodes, tree_on, mode, ranges, depth)
+        np.testing.assert_array_equal(got, pallas["range"])
+        np.testing.assert_array_equal(want["chase"].numpy(), pallas["chase"])
+
+
+@pytest.mark.parametrize("n_batch,n_forests,chunk", [
+    (0, 3, 16), (1, 3, 16), (37, 1, 8), (200, 4, 16), (200, 4, 1),
+    (257, 9, 32), (5, 9, 16)])
+def test_forest_blocks_cover_every_packet_once_in_bin_order(n_batch,
+                                                           n_forests, chunk):
+    rng = np.random.default_rng(n_batch + chunk)
+    slot = torch.as_tensor(rng.integers(-2, n_forests + 2, n_batch)
+                           .astype(np.int32))
+    blocks = tref.forest_blocks(slot, n_forests, chunk)
+    seen = torch.cat([idx for _, idx in blocks]) if blocks else \
+        torch.zeros(0, dtype=torch.int64)
+    assert sorted(seen.tolist()) == list(range(n_batch))
+    bins = [b for b, _ in blocks]
+    assert bins == sorted(bins)
+    for b, idx in blocks:
+        assert 1 <= len(idx) <= chunk and bool((idx[1:] > idx[:-1]).all())
+        s = slot[idx].to(torch.int64)
+        if b == n_forests:
+            assert bool(((s < 0) | (s >= n_forests)).all())
+        else:
+            assert bool((s == b).all())
+    grid = -(-n_batch // chunk) + min(n_forests + 1, n_batch)
+    assert len(blocks) <= grid
+
+
+# (B, T, NI, L) → the range plan on an H100's 132 SMs: 16 packets a block
+# up to B = 2112, then the next power of two, at most 4096; tables staged
+# up to 96 KB
+FOREST_PLANS = [
+    ((2048, 16, 31, 32), (16, True)),     # the serving extents
+    ((2112, 16, 31, 32), (16, True)),
+    ((2113, 16, 31, 32), (32, True)),
+    ((4099, 16, 31, 32), (32, True)),
+    ((1, 16, 31, 32), (16, True)),
+    ((4225, 16, 31, 32), (64, True)),
+    ((8448, 16, 31, 32), (64, True)),
+    ((8449, 16, 31, 32), (128, True)),
+    ((33_792, 16, 31, 32), (256, True)),
+    ((200_000, 16, 31, 32), (2048, True)),
+    ((1_000_000, 16, 31, 32), (4096, True)),
+    ((2048, 1, 1, 1), (16, True)),
+    ((2048, 64, 31, 32), (16, True)),     # 62.5 KB
+    ((2048, 96, 31, 32), (16, True)),     # 93.8 KB
+    ((2048, 128, 31, 32), (16, False)),   # 125 KB
+    ((2048, 16, 255, 32), (16, False)),   # 102 KB
+]
+
+
+@pytest.mark.parametrize("args,want", FOREST_PLANS)
+def test_forest_plan_from_sizes(args, want):
+    assert tuple(ftk.plan(*args, num_sms=H100_SMS)) == want
+
+
+def test_forest_stage_bytes_match_the_kernel_layout():
+    """At the serving extents: 3 copied (16, 31) tables + the (16, 32)
+    payload + 496 16-byte records + tree_on; each copy padded to 16 bytes."""
+    assert ftk.stage_bytes(16, 31, 32) == 4 * (16 + 3 * 496 + 512 + 4 * 496)
+    assert ftk.stage_bytes(3, 5, 7) == 4 * (4 + 3 * 16 + 24 + 4 * 15)
+
+
+def test_forest_wrapper_cpu_route_launches_nothing():
+    _, depth, x, slot, nodes, tree_on, mode, ranges = _forest_case(5, 3, 16,
+                                                                   7)
+    t = [torch.as_tensor(a) for a in (x, slot, nodes, tree_on, mode)]
+    rt = [torch.as_tensor(a) for a in ranges]
+    before = dict(ftk.launches)
+    got = {"chase": ftk.forest_traverse(*t, max_depth=depth,
+                                        frac=FOREST_FRAC),
+           "range": ftk.forest_range(*t[:2], *rt, *t[3:], frac=FOREST_FRAC)}
+    assert ftk.launches == before
+    assert torch.equal(got["range"], _grouped(x, slot, tree_on, mode, ranges))
+    assert torch.equal(got["chase"], tref.forest_traverse_gather_ref(
+        *t, max_depth=depth, frac=FOREST_FRAC))
