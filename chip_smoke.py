@@ -69,6 +69,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                  * 50k packets over 2048 flows through the one-dispatch
                    flow.serve_raw_fused on the card, against submit_raw on
                    a second card server: egress and registers equal.
+               Then the sharded fabric (ShardedPacketServer, 4 shards on
+               the one card, the PacketServer defaults, strict Model IDs)
+               against the port's PacketServer(device="cpu") on the same
+               calls:
+                 * the flow 200k run's chunks with an MLP hot-swap and a
+                   forest reinstall midway: egress and error slots, every
+                   flow's registers over the union of the shards and the
+                   fabric's sketch equal, every shard's recompiles flat,
+                   one snapshot upload per generation on the card, int16,
+                   range and flow_update launched on every shard; a
+                   1-shard PacketServer on the card beside it;
+                 * the same at 50k packets on the pointer chase;
+                 * failover: 50k packets over 2048 flows, kill_shard(1)
+                   halfway (every ticket equal to the oracle, the migrated
+                   rows the dead shard's registers, survivors' recompiles
+                   flat), then kills down to the last shard, which refuses;
+                 * transient dispatch faults on every fifth event: the
+                   drain equal to the unfaulted run, every shard retried;
+                 * SLO budgets, reflex programs, a watermark and a capacity
+                   with the "overload" site on shard 0: sheds only on shard
+                   0's chunks, reflex rows equal to reflex_oracle,
+                   model-lane rows equal to the oracle's;
+                 * python -m repro_torch.launch.serve --shards 4 on the
+                   card and on the CPU: the same metric names.
                Then the paper's C1/C2 library path at the width of
                qwen2-1.5b (d_model 1536, kv 256, d_ff 8960): quantize_tree
                on a seeded float32 decoder layer, matmul(x, leaf,
@@ -115,7 +139,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                timed in turns on one card; the WKV scan at the prefill
                geometry, its two device kernels split by the profiler; also each
                path's packets per second with its engine-call and kernel
-               shares of the wall time; for the flow path also the longest
+               shares of the wall time (for the fabric runs also each
+               kernel's launches per shard and a 1-shard PacketServer's
+               packets per second on the same calls); for the flow path also the longest
                flow chain of the
                timed batch, the register file's host↔card round trip and
                the share of the wall inside FlowFrontend.extract; for the
@@ -134,6 +160,7 @@ import functools
 import importlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -171,7 +198,12 @@ from repro_torch.kernels.ref import (FLOW_CODE_MAX,  # noqa: E402
                                      forest_traverse_gather_ref,
                                      fused_mlp_gather_ref, fused_mlp_warp_ref,
                                      wkv_scan_ref)
-from repro_torch.launch.serve import LMServer, PacketServer  # noqa: E402
+from repro_torch.core.ingress import DEADLINE_SHED, PacketError  # noqa: E402
+from repro_torch.core.packet import FLAG_REFLEX, emit_results_np  # noqa: E402
+from repro_torch.launch.serve import (LMServer, PacketServer,  # noqa: E402
+                                      ShardedPacketServer)
+from repro_torch.serve import (FaultPlan, FaultSpec,  # noqa: E402
+                               ReflexProgram, reflex_oracle)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import rwkv6  # noqa: E402
@@ -1185,6 +1217,434 @@ def run_fused_path(dev, n_packets: int, card: str, forests) -> dict:
                 engine_s=0.0)
 
 
+# ---------------------------------------------------------------------------
+# the sharded serving fabric
+# ---------------------------------------------------------------------------
+
+# the mid-trace MLP hot-swap of the fabric runs: a retrained 4-layer model
+# under MLP id 2
+SWAP_ID = MLP_IDS[1]
+SWAP_ACTS = ["relu", "sigmoid", "leaky_relu"]
+
+
+def swap_layers() -> list:
+    rng = np.random.default_rng(SEED + 9)
+    return [(rng.normal(size=(WIDTH, WIDTH)).astype(np.float32) * 0.2,
+             rng.normal(size=(WIDTH,)).astype(np.float32) * 0.1)
+            for _ in range(4)]
+
+
+def fabric_server(dev, forests, n_shards: int = 4, **kw):
+    """ShardedPacketServer at the PacketServer defaults on ``dev`` with
+    strict Model IDs, the installs of ``flow_server``, and all three lane
+    programs warmed on every shard."""
+    fab = ShardedPacketServer(n_shards=n_shards, device=dev,
+                              strict_model_ids=True, **kw)
+    install_models(fab, np.random.default_rng(SEED + 4), ids=MLP_IDS)
+    for mid, forest in forests.items():
+        fab.install_forest(mid, forest)
+    for mid in MLP_IDS:
+        fab.install_feature_spec(mid, MLP_SPEC)
+    for mid in FOREST_IDS:
+        fab.install_feature_spec(mid, FOREST_SPEC)
+    for sh in fab.shards:
+        sh.engine.warm(sh.pipeline.batch_size, HEADER_BYTES + 4 * WIDTH,
+                       lanes=("mlp", "forest", "both"))
+    return fab
+
+
+def engines(srv) -> list:
+    return ([sh.engine for sh in srv.shards] if hasattr(srv, "shards")
+            else [srv.engine])
+
+
+def recompiles(srv) -> list:
+    return [e.trace_count for e in engines(srv)]
+
+
+def flow_rows(tables) -> dict:
+    """key bytes → register row over the union of ``tables``; a flow that
+    lives in two tables fails the run."""
+    rows = {}
+    for t in tables:
+        snap = t.snapshot()
+        for k, r in zip(snap["keys"], snap["registers"]):
+            key = k.tobytes()
+            if key in rows:
+                raise SystemExit("fabric: a flow lives on two shards")
+            rows[key] = r.tobytes()
+    return rows
+
+
+def alive_tables(srv) -> list:
+    if not hasattr(srv, "shards"):
+        return [srv.flow.table]
+    return [srv.shards[s].flow.table for s in srv.alive_shards
+            if srv.shards[s]._flow is not None]
+
+
+def attribute_launches(srv) -> tuple:
+    """Wrap each shard's (or the server's) engine call and flow extract:
+    the launch-counter deltas inside each call are credited to its shard,
+    and the engine call's seconds summed.  Returns (per-shard counters,
+    engine seconds cell)."""
+    stacks = (list(srv.shards) if hasattr(srv, "shards") else [srv])
+    per = [dict() for _ in stacks]
+    engine_s = [0.0]
+
+    def wrap(fn, counts, timed):
+        def call(*a, **kw):
+            before = read_launches()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if timed:
+                    engine_s[0] += time.perf_counter() - t
+                for k, v in read_launches().items():
+                    if v != before[k]:
+                        counts[k] = counts.get(k, 0) + v - before[k]
+        return call
+
+    for st, counts in zip(stacks, per):
+        st.engine.run_features = wrap(st.engine.run_features, counts, True)
+        st.flow.extract = wrap(st.flow.extract, counts, False)
+    return per, engine_s
+
+
+def flush(srv) -> None:
+    """Dispatch and retire every staged row of a fabric's shards or of a
+    single server."""
+    for pipe in ([sh.pipeline for sh in srv.shards] if hasattr(srv, "shards")
+                 else [srv.ingress]):
+        pipe.flush()
+
+
+def serve_fabric(srv, chunks, drifted, *, swap: bool = True) -> dict:
+    """Serve raw chunks through ``srv.submit_raw`` (a fabric or a single
+    server), hot-swapping MLP ``SWAP_ID`` and reinstalling forest 9 at the
+    midpoint when ``swap``.  The installs follow a flush, as the
+    reference's fence test does (tests/test_sharded.py:187-208): a row
+    staged before an install dispatches under the new tables, and each of
+    N shards fills its batches N times slower than one server, so without
+    it the two would serve different rows under the new generation.  The
+    launch counters are zeroed right before the trace and read right
+    after it."""
+    per, engine_s = attribute_launches(srv)
+    mid = len(chunks) // 2
+    rc_before = recompiles(srv)
+    on_card = engines(srv)[0].device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for i, chunk in enumerate(chunks):
+        if i == mid and swap:
+            flush(srv)
+            srv.install(SWAP_ID, swap_layers(), SWAP_ACTS,
+                        final_activation="sigmoid")
+            srv.install_forest(FOREST_IDS[0], drifted)
+        srv.submit_raw(chunk)
+    out = srv.drain_packets()
+    if on_card:
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    cms = srv.cms if hasattr(srv, "shards") else srv.flow.cms
+    return dict(egress=egress_list(out), seconds=dt, engine_s=engine_s[0],
+                launches=read_launches(), per_shard=per,
+                rc_before=rc_before, rc_after=recompiles(srv),
+                rows=flow_rows(alive_tables(srv)), cms=cms.copy())
+
+
+def check_same(label: str, run: dict, ref: dict) -> None:
+    """Egress and error slots, every flow's registers and the sketch of a
+    card run against its CPU oracle."""
+    if run["egress"] != ref["egress"]:
+        diff = [i for i, (a, b) in enumerate(zip(run["egress"],
+                                                 ref["egress"])) if a != b]
+        raise SystemExit(f"{label}: egress differs from the CPU oracle at "
+                         f"{len(diff)} packets, first {diff[:5]}")
+    if run["rows"] != ref["rows"]:
+        raise SystemExit(f"{label}: flow registers differ from the CPU "
+                         "oracle's")
+    if not np.array_equal(run["cms"], ref["cms"]):
+        raise SystemExit(f"{label}: the fabric's sketch differs from the "
+                         "CPU oracle's")
+
+
+def run_fabric_path(dev, label: str, chunks, card: str, forests, drifted,
+                    kernels: tuple, **kw) -> dict:
+    """The 4-shard fabric on the card against the port's PacketServer on
+    the CPU on the same calls, and a 1-shard PacketServer on the card
+    beside it."""
+    n = sum(len(c) for c in chunks)
+    ref = serve_fabric(flow_server(torch.device("cpu"), forests,
+                                   strict_model_ids=True, **kw),
+                       chunks, drifted)
+    fab = fabric_server(dev, forests, **kw)
+    run = serve_fabric(fab, chunks, drifted)
+    check_same(f"fabric {label}", run, ref)
+    one = serve_fabric(flow_server(dev, forests, strict_model_ids=True,
+                                   **kw), chunks, drifted)
+    check_same(f"fabric {label} (one card server)", one, ref)
+    n_err = sum(isinstance(e, str) for e in run["egress"])
+    launches = {k: run["launches"][k] for k in kernels}
+    per_shard = [{k: c.get(k, 0) for k in kernels} for c in run["per_shard"]]
+    uploads = sorted(str(d) for d in fab.control_plane._snapshot)
+    log(f"fabric {label}: 4 shards on {dev}, {n} raw packets in "
+        f"{len(chunks)} chunks, egress byte-identical to the CPU port's "
+        f"PacketServer ({n_err} error slots), registers of "
+        f"{len(run['rows'])} flows and the sketch equal; launches "
+        f"{launches}, per shard {per_shard}; recompiles "
+        f"{run['rc_before']} -> {run['rc_after']}; snapshot uploads keyed "
+        f"{uploads}; {n / run['seconds']:.0f} packets/s ({run['seconds']:.3f}"
+        f" s, of which {run['engine_s']:.3f} s inside the shards' "
+        f"engine.run_features); 1-shard PacketServer on the card "
+        f"{n / one['seconds']:.0f} packets/s ({one['seconds']:.3f} s); the "
+        f"CPU port {n / ref['seconds']:.0f} packets/s [{card}]")
+    for k, v in launches.items():
+        if v == 0:
+            raise SystemExit(f"kernel {k} never launched on the fabric "
+                             f"{label} run")
+    if any(min(c.values()) == 0 for c in per_shard):
+        raise SystemExit(f"fabric {label}: a shard launched no kernel of "
+                         f"{kernels}: {per_shard}")
+    if run["rc_before"] != run["rc_after"]:
+        raise SystemExit(f"fabric {label}: installs changed a shard's "
+                         f"serving configurations: {run['rc_before']} -> "
+                         f"{run['rc_after']}")
+    if uploads != [str(dev)]:
+        raise SystemExit(f"fabric {label}: expected one snapshot per "
+                         f"generation on {dev}, got {uploads}")
+    if n_err == 0:
+        raise SystemExit(f"fabric {label}: expected error slots")
+    return dict(launches=launches, per_shard=per_shard,
+                packets_per_s=n / run["seconds"], seconds=run["seconds"],
+                engine_s=run["engine_s"],
+                one_server_packets_per_s=n / one["seconds"])
+
+
+def drill_chunks() -> list:
+    """The drills' trace: 50k raw packets over 2048 flows in 20 chunks."""
+    raw = raw_trace(np.random.default_rng(SEED + 8), 50_000, n_flows=2048,
+                    model_ids=tuple(MLP_IDS + FOREST_IDS), pattern="mixed")
+    return np.array_split(raw, 20)
+
+
+def run_failover_drill(dev, chunks, oracle, forests, card: str) -> None:
+    """4 shards, kill shard 1 halfway: every ticket resolves and equals the
+    CPU oracle, the migrated flows' rows are the dead shard's registers,
+    the survivors add no serving configuration; then the cascade down to
+    the last shard, which refuses to die, and one more window."""
+    fab = fabric_server(dev, forests)
+    rc0 = recompiles(fab)
+    dead_rows = moved = None
+    for i, chunk in enumerate(chunks):
+        if i == len(chunks) // 2:
+            dead_rows = flow_rows([fab.shards[1].flow.table])
+            if not fab.kill_shard(1, "drill"):
+                raise SystemExit("failover: kill_shard(1) refused")
+            after = flow_rows(alive_tables(fab))
+            moved = sum(after.get(k) == v for k, v in dead_rows.items())
+            if moved != len(dead_rows):
+                raise SystemExit(f"failover: {len(dead_rows) - moved} of "
+                                 f"{len(dead_rows)} migrated flows differ "
+                                 "from the dead shard's registers")
+        fab.submit_raw(chunk)
+    out = egress_list(fab.drain_packets())
+    if out != oracle["egress"]:
+        raise SystemExit("failover: the drain differs from the CPU oracle")
+    if flow_rows(alive_tables(fab)) != oracle["rows"]:
+        raise SystemExit("failover: the survivors' registers differ from "
+                         "the CPU oracle's")
+    rc1 = recompiles(fab)
+    if any(rc1[s] != rc0[s] for s in fab.alive_shards):
+        raise SystemExit(f"failover: survivors recompiled {rc0} -> {rc1}")
+    faults = fab.stats()["faults"]
+    cascade = [fab.kill_shard(2), fab.kill_shard(3), fab.kill_shard(0)]
+    if cascade != [True, True, False] or fab.alive_shards != [0]:
+        raise SystemExit(f"failover: cascade {cascade}, alive "
+                         f"{fab.alive_shards}")
+    tail = chunks[0]
+    fab.submit_raw(tail)
+    oracle["server"].submit_raw(tail)
+    if egress_list(fab.drain_packets()) != egress_list(
+            oracle["server"].drain_packets()):
+        raise SystemExit("failover: the last shard's window differs from "
+                         "the CPU oracle")
+    log(f"fabric failover: 4 shards on {dev}, {sum(map(len, chunks))} raw "
+        f"packets over 2048 flows, kill_shard(1) after chunk "
+        f"{len(chunks) // 2}: every ticket resolved and equal to the CPU "
+        f"oracle; {moved} migrated flows' registers bit-exact; survivors' "
+        f"recompiles {rc0} -> {rc1}; fault_stats deaths "
+        f"{faults['fabric_deaths_total']}, migrated "
+        f"{faults['fabric_migrated_flows_total']}; kill 2, 3, 0 -> "
+        f"{cascade}; the last shard's next window equal [{card}]")
+
+
+def run_transient_drill(dev, chunks, oracle, forests, card: str) -> None:
+    """Every fifth dispatch of every shard fails once and is retried: the
+    drain equals the unfaulted CPU oracle's and every shard retried."""
+    fab = fabric_server(dev, forests)
+    FaultPlan(seed=SEED, specs=[FaultSpec(site="dispatch", every=5,
+                                          count=1 << 40)]).install(fab)
+    for chunk in chunks:
+        fab.submit_raw(chunk)
+    out = egress_list(fab.drain_packets())
+    retries = [sh.pipeline.stats["ingress_dispatch_retries_total"]
+               for sh in fab.shards]
+    log(f"fabric transient faults: 4 shards on {dev}, dispatch fault every "
+        f"5th event: drain {'equal' if out == oracle['egress'] else 'DIFFERS'}"
+        f" to the unfaulted CPU oracle; dispatch retries per shard "
+        f"{retries} [{card}]")
+    if out != oracle["egress"]:
+        raise SystemExit("transient faults: the drain differs from the "
+                         "unfaulted run's")
+    if min(retries) == 0:
+        raise SystemExit(f"transient faults: a shard never retried: "
+                         f"{retries}")
+
+
+def run_slo_reflex_drill(dev, card: str) -> dict:
+    """2 shards with latency budgets, reflex programs on MLP ids 1–4, a
+    high watermark and a hard capacity, and the "overload" site on shard 0
+    (as the reference's tests/test_slo.py:462-485): every ticket resolves;
+    shed slots fall only on shard 0's chunks, each DEADLINE_SHED; every
+    reflex-flagged row equals reflex_oracle on its features; every
+    model-lane row equals an unconstrained CPU server's row."""
+    chunk, n_warm, n_burst = 256, 4, 16
+    kw = dict(ingress_batch=chunk, queue_high_watermark=3 * chunk,
+              queue_capacity=4 * chunk)
+    fab = ShardedPacketServer(n_shards=2, device=dev, **kw)
+    oracle = PacketServer(device="cpu", ingress_batch=chunk)
+    rng = np.random.default_rng(SEED + 10)
+    for srv in (fab, oracle):
+        install_models(srv, np.random.default_rng(SEED + 4), ids=MLP_IDS)
+    progs = {mid: ReflexProgram.threshold(
+        lane=mid % WIDTH, threshold=0, on_true=(1 << FRAC, 0),
+        on_false=(0, 1 << FRAC)) for mid in MLP_IDS[:4]}
+    for mid in MLP_IDS:
+        fab.install_slo_budget(mid, 500.0)
+    for mid, prog in progs.items():
+        fab.install_reflex(mid, prog)
+    feats = np.round(rng.normal(size=((n_warm + n_burst) * chunk, WIDTH))
+                     * (1 << FRAC)).astype(np.int32)
+    mids = rng.choice(np.asarray(MLP_IDS, np.int32), feats.shape[0])
+    wire = encode_packets_np(mids, FRAC, feats)
+    chunks = np.split(wire, n_warm + n_burst)
+    for c in chunks[:n_warm]:           # warm both shards, seed the EWMAs
+        fab.submit_packets(c)
+    fab.drain_packets()
+    for sh in fab.shards:               # pin the measured cost
+        sh.pipeline.dispatch_cost_ewma = 2e-3
+    FaultPlan([FaultSpec(site="overload", shard=0, slowdown=50.0,
+                         count=1 << 40)]).install(fab)
+    for c in chunks[n_warm:]:           # burst: chunks round-robin
+        fab.submit_packets(c)
+    out = fab.drain_packets(timeout_us=10e6)
+    for c in chunks:
+        oracle.submit_packets(c)
+    want = oracle.drain_packets()[n_warm * chunk:]
+    feats, mids = feats[n_warm * chunk:], mids[n_warm * chunk:]
+    if len(out) != n_burst * chunk:
+        raise SystemExit(f"slo drill: {len(out)} results for "
+                         f"{n_burst * chunk} tickets")
+    shed, reflex, model = [], 0, 0
+    for i, o in enumerate(out):
+        if isinstance(o, PacketError):
+            shed.append(i)
+            if o.reason != DEADLINE_SHED:
+                raise SystemExit(f"slo drill: slot {i} is {o.reason!r}")
+        elif int(o[6]) & FLAG_REFLEX:
+            reflex += 1
+            codes = np.zeros(WIDTH, np.int32)
+            prog = progs[int(mids[i])]
+            codes[:prog.out_dim] = reflex_oracle(prog, feats[i])
+            row = emit_results_np(mids[i: i + 1], np.asarray([int(o[6])]),
+                                  codes[None], FRAC)[0]
+            if not np.array_equal(o, row):
+                raise SystemExit(f"slo drill: reflex row {i} differs from "
+                                 "reflex_oracle")
+        else:
+            model += 1
+            if not np.array_equal(o, want[i]):
+                raise SystemExit(f"slo drill: model-lane row {i} differs "
+                                 "from the CPU oracle")
+    shed_per = [sh.pipeline.stats["ingress_shed_total"] for sh in fab.shards]
+    if not shed or any((i // chunk) % 2 for i in shed) or shed_per[1]:
+        raise SystemExit(f"slo drill: shed slots must fall on shard 0's "
+                         f"chunks only (per shard {shed_per})")
+    confs = [sh.pipeline.reflex_confirm for sh in fab.shards]
+    pairs = sum(c.pairs for c in confs)
+    agree = sum(int(c._c_agree.value) for c in confs)
+    if reflex == 0 or pairs != reflex:
+        raise SystemExit(f"slo drill: {reflex} reflex rows, {pairs} "
+                         "confirmed")
+    log(f"fabric slo/reflex: 2 shards on {dev}, overload x50 on shard 0, "
+        f"{len(out)} packets: {model} model-lane rows equal to the CPU "
+        f"oracle, {reflex} reflex rows equal to reflex_oracle, {len(shed)} "
+        f"DEADLINE_SHED slots all on shard 0's chunks (shed per shard "
+        f"{shed_per}); reflex_agreement {agree / pairs:.4f} over {pairs} "
+        f"pairs [{card}]")
+    return dict(reflex_agreement=agree / pairs)
+
+
+def run_serve_cli(card: str) -> None:
+    """``python -m repro_torch.launch.serve --packets 8192 --shards 4`` on
+    the card and on the CPU: both exit 0 and write the same metric
+    names."""
+    root = Path(__file__).resolve().parent
+    out_dir = root / "build" / "serve_cli"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    names = {}
+    for dev in ("cuda", "cpu"):
+        path = out_dir / f"{dev}.json"
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                            "--packets", "8192", "--shards", "4",
+                            "--device", dev, "--metrics-json", str(path)],
+                           cwd=root, env=env, capture_output=True, text=True,
+                           timeout=300)
+        if r.returncode != 0:
+            raise SystemExit(f"serve CLI --device {dev} exited "
+                             f"{r.returncode}: {r.stderr[-2000:]}")
+        snap = json.loads(path.read_text())
+        names[dev] = sorted(snap["metrics"])
+        log(f"serve CLI --device {dev} --shards 4: {r.stdout.strip()} "
+            f"({time.perf_counter() - t0:.1f} s with the interpreter's "
+            f"start) [{card}]")
+    if names["cuda"] != names["cpu"]:
+        raise SystemExit("serve CLI: the card's metric names differ from "
+                         "the CPU's")
+
+
+def run_fabric_phase(dev, card: str, forests, drifted, flow_chunks) -> dict:
+    """The fabric phase: the 200k and chase runs, the failover, transient
+    and SLO/reflex drills and the CLI.  Returns the runs' path entries."""
+    t0 = time.perf_counter()
+    paths = {
+        "fabric": run_fabric_path(dev, "200k", flow_chunks, card, forests,
+                                  drifted, ("int16", "range", "flow_update")),
+        "fabric chase": run_fabric_path(
+            dev, "chase", flow_trace(50_000, N_FLOWS, list(MLP_IDS)
+                                     + list(FOREST_IDS) + [999]),
+            card, forests, drifted, ("int16", "chase", "flow_update"),
+            forest_variant="chase"),
+    }
+    chunks = drill_chunks()
+    oracle_srv = flow_server(torch.device("cpu"), forests,
+                             strict_model_ids=True)
+    oracle = serve_fabric(oracle_srv, chunks, None, swap=False)
+    oracle["server"] = oracle_srv
+    run_failover_drill(dev, chunks, oracle, forests, card)
+    run_transient_drill(dev, chunks, oracle, forests, card)
+    paths["fabric"].update(run_slo_reflex_drill(dev, card))
+    run_serve_cli(card)
+    log(f"fabric phase: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def flow_profile(args) -> dict:
     """The flow kernel's two device kernels by name (profiler, 10 calls),
     ms per call each."""
@@ -2165,6 +2625,8 @@ def main() -> int:
     path["flow"] = flow
     path["flow overflow"] = overflow
     path["flow fused"] = run_fused_path(dev, 50_000, smi, forests)
+    path.update(run_fabric_phase(dev, smi, forests, drifted,
+                                 flow["chunks"]))
     c1c2 = run_c1c2_path(dev, smi)
     t0 = time.perf_counter()
     lm = run_rwkv6_path(dev, smi)
@@ -2254,12 +2716,18 @@ def main() -> int:
         log(f"path {label}: {p['packets_per_s']:.0f} packets/s, engine call "
             f"share {p['engine_s'] / p['seconds']:.4f}, kernel share "
             f"{kernel_s / p['seconds']:.5f} of the path's wall time "
+            "(estimated as launches x per-call ms, host launch time included) "
             f"(launches {p['launches']}) [{smi}]")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
         "device check")
     print(json.dumps({"kernels": kernels,
                       "path_packets_per_s": {v: path[v]["packets_per_s"]
                                              for v in path},
+                      "fabric": {v: dict(
+                          launches_per_shard=path[v]["per_shard"],
+                          one_server_packets_per_s=path[v][
+                              "one_server_packets_per_s"])
+                          for v in ("fabric", "fabric chase")},
                       "rwkv6_tokens_per_s": {
                           "prefill": lm["prefill_tokens_per_s"],
                           "generate": lm["generate_tokens_per_s"]}}),

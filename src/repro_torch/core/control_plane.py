@@ -18,8 +18,10 @@ publish two lowerings in one swap: the dense node tables
 (:class:`ForestTables`, the pointer chase) and their range-table
 compilation (:class:`RangeTables`).  The feature-spec family
 (:class:`FeatureSpec`) is host-only state the flow frontend reads, swapped
-under the same discipline.  The SLO and reflex families arrive with their
-slices; until then their ``*_active`` latches read ``False``.
+under the same discipline, and so are the latency-SLO family (per-model
+budgets the ingress deadline scheduler reads) and the reflex family
+(per-model threshold/vote programs the ingress answers overload packets
+with, evaluated in host numpy with the reference's integer arithmetic).
 
 At LM scale, :class:`WeightRegistry` holds named parameter trees with the
 same hot-swap rule: a checkpoint of the installed structure swaps in, a
@@ -295,6 +297,24 @@ class ControlPlane:
         # per-generation read table (identity row prepended so slot -1 maps
         # to it via +1): the frontend's hot path is one gather
         self._spec_read_cache: Optional[Tuple] = None
+        # -- latency-SLO family (host-only: per-model budgets in µs read by
+        #    the ingress deadline scheduler; inf = no budget) --
+        self._slo_us = np.full((_N_MODEL_IDS,), np.inf, np.float64)
+        self._slo_models: Dict[int, float] = {}
+        self._slo_any = False  # monotone: ingress gates its deadline math
+        # -- reflex family (host-only: serve.reflex.ReflexProgram packed
+        #    into dense padded arrays, same prepare-then-commit swap) --
+        self._rx_map = np.full((_N_MODEL_IDS,), -1, np.int32)
+        self._rx_lane = np.zeros((0, max_width), np.int32)
+        self._rx_thr = np.zeros((0, max_width), np.int32)
+        self._rx_w = np.zeros((0, max_width), np.int32)
+        self._rx_bias = np.zeros((0,), np.int64)
+        self._rx_true = np.zeros((0, max_width), np.int32)
+        self._rx_false = np.zeros((0, max_width), np.int32)
+        self._rx_out_dim = np.zeros((0,), np.int32)
+        self._rx_programs: Dict[int, object] = {}
+        self._rx_any = False   # monotone: ingress gates its reflex lane
+        self._rx_read_cache: Optional[Tuple] = None
         self._version = 0
         # per-family write counters: the shared ``_version`` is the cache
         # and staleness key, but snapshots re-upload per family, so a swap
@@ -330,13 +350,17 @@ class ControlPlane:
     def install(self, model_id: int,
                 layers: Sequence[Tuple[np.ndarray, np.ndarray]],
                 activations: Sequence[str],
-                final_activation: str = "none") -> int:
+                final_activation: str = "none",
+                slo_budget_us: Optional[float] = None) -> int:
         """Quantize and install (or hot-swap) a model.  Returns its slot.
 
         ``layers``: [(W0, b0), …] with ``W_l`` of shape (in, out) floats.
         ``activations``: one name per hidden layer; the last layer uses
-        ``final_activation``.
+        ``final_activation``.  ``slo_budget_us`` optionally installs the
+        model's latency budget in the same generation swap
+        (:meth:`install_slo_budget`).
         """
+        slo = self._check_slo(slo_budget_us)
         if len(layers) > self.max_layers:
             raise ValueError(f"model has {len(layers)} layers > max {self.max_layers}")
         acts = list(activations) + [final_activation]
@@ -386,6 +410,7 @@ class ControlPlane:
                 act[slot, l] = opcode
                 layer_on[slot, l] = 1
             out_dim[slot] = int(np.asarray(layers[-1][0]).shape[1])
+            slo_us = self._prep_slo(model_id, slo)
             self._fire_fault("install")
             # -- commit (atomic under the lock) --
             self._w, self._b, self._act = w, b, act
@@ -393,6 +418,7 @@ class ControlPlane:
             self._id_map = id_map
             self._slots, self._free_slots = slots, free
             self._next_slot = next_slot
+            self._commit_slo(model_id, slo, slo_us)
             self._mlp_gen += 1
             self._version += 1
             self._emit("install", model_id, family="mlp", slot=slot)
@@ -433,7 +459,8 @@ class ControlPlane:
 
     # -- tree-ensemble family -------------------------------------------
 
-    def install_forest(self, model_id: int, forest) -> int:
+    def install_forest(self, model_id: int, forest,
+                       slo_budget_us: Optional[float] = None) -> int:
         """Quantize, pack and install (or hot-swap) a tree ensemble.
         Returns its forest slot.
 
@@ -442,7 +469,8 @@ class ControlPlane:
         :class:`repro_torch.forest.PackedForest`.  Same all-or-nothing
         generation swap as :meth:`install`: everything is validated,
         quantized and range-compiled before any table state is touched, and
-        both lowerings publish in one version bump.
+        both lowerings publish in one version bump (with the optional
+        ``slo_budget_us``).
         """
         from ..forest.compile import Forest, PackedForest, pack_forest
         if isinstance(forest, Forest):
@@ -498,6 +526,7 @@ class ControlPlane:
         # range compilation before any table state is touched: its walk
         # also validates tree structure (acyclicity, depth, leaf budget)
         # that the bounds checks above cannot see
+        slo = self._check_slo(slo_budget_us)
         ranges = None
         if self.range_available:
             from ..forest.ranges import pack_forest_ranges
@@ -547,6 +576,7 @@ class ControlPlane:
                 r_mask[slot, :n_trees, :ni] = torch.from_numpy(ranges.lmask)
                 r_payload[slot, :n_trees, :nl] = torch.from_numpy(
                     ranges.payload)
+            slo_us = self._prep_slo(model_id, slo)
             self._fire_fault("install")
             # -- commit (atomic under the lock) --
             self._f_nodes, self._f_tree_on = f_nodes, f_tree_on
@@ -557,6 +587,7 @@ class ControlPlane:
             if ranges is not None:
                 self._r_feat, self._r_th = r_feat, r_th
                 self._r_mask, self._r_payload = r_mask, r_payload
+            self._commit_slo(model_id, slo, slo_us)
             self._forest_ever = True
             self._forest_gen += 1
             self._version += 1
@@ -671,19 +702,232 @@ class ControlPlane:
                 axis=1)
         return cols, np.minimum(lens_ext[slot], width)
 
-    # -- latches of the families still to port ----------------------------
+    # -- latency-SLO family ---------------------------------------------
+
+    @staticmethod
+    def _check_slo(budget_us) -> Optional[float]:
+        """Validate an SLO budget before any table state is touched (the
+        all-or-nothing install contract extends to a budget riding along)."""
+        if budget_us is None:
+            return None
+        b = float(budget_us)
+        if not (b > 0.0 and np.isfinite(b)):
+            raise ValueError(
+                f"slo_budget_us must be a positive finite microsecond "
+                f"count, got {budget_us!r}")
+        return b
+
+    def _prep_slo(self, model_id: int, slo: Optional[float]):
+        """Copy-on-write budget row for an install's prepare block (caller
+        holds the lock; None when no budget rides this install)."""
+        if slo is None:
+            return None
+        slo_us = self._slo_us.copy()
+        slo_us[int(model_id)] = slo
+        return slo_us
+
+    def _commit_slo(self, model_id: int, slo, slo_us) -> None:
+        if slo_us is None:
+            return
+        self._slo_us = slo_us
+        self._slo_models[int(model_id)] = slo
+        self._slo_any = True
+
+    def install_slo_budget(self, model_id: int, budget_us: float) -> None:
+        """Install (or hot-swap) ``model_id``'s latency budget in
+        microseconds, under the same prepare-then-commit generation swap.
+        The ingress deadline scheduler reads it per packet at staging time
+        and ships a short batch rather than let the oldest packet's
+        remaining budget drop below the measured dispatch cost.  Like a
+        feature spec, the budget belongs to the Model ID: it may precede
+        the model and it survives ``remove()``."""
+        slo = self._check_slo(budget_us)
+        if slo is None:
+            raise ValueError(
+                "budget_us is required (remove_slo_budget() clears one)")
+        if not 0 <= int(model_id) < _N_MODEL_IDS:
+            raise ValueError(f"model id {model_id} outside the 16-bit "
+                             "Model ID field")
+        with self._lock:
+            slo_us = self._prep_slo(model_id, slo)
+            self._fire_fault("install")
+            # -- commit (atomic under the lock) --
+            self._commit_slo(model_id, slo, slo_us)
+            self._version += 1
+            self._emit("install_slo", model_id, budget_us=slo)
+
+    def remove_slo_budget(self, model_id: int) -> None:
+        """Clear a model's latency budget (no-op if none installed)."""
+        with self._lock:
+            if self._slo_models.pop(int(model_id), None) is None:
+                return
+            self._slo_us = self._slo_us.copy()
+            self._slo_us[int(model_id)] = np.inf
+            self._version += 1
+            self._emit("remove", model_id, family="slo")
+
+    def slo_budget(self, model_id: int) -> float:
+        """This model's latency budget in µs (inf when none installed)."""
+        with self._lock:
+            return float(self._slo_us[int(model_id) & 0xFFFF])
+
+    def slo_budget_rows(self, model_ids: np.ndarray) -> np.ndarray:
+        """Vectorized per-packet budget gather (µs, float64; inf = no
+        budget).  Copy-on-write publishes make the grabbed array an
+        immutable snapshot, so the gather runs outside the lock."""
+        with self._lock:
+            slo = self._slo_us
+        return slo[np.asarray(model_ids, np.int64).reshape(-1)]
 
     @property
     def slo_active(self) -> bool:
-        """True once a latency budget was ever installed; always False until
-        the SLO family is ported."""
-        return False
+        """True once any latency budget has ever been installed (monotone:
+        the ingress deadline scheduler's cheap per-batch gate)."""
+        return self._slo_any
+
+    # -- reflex family ---------------------------------------------------
+
+    def install_reflex(self, model_id: int, program) -> int:
+        """Install (or hot-swap) ``model_id``'s reflex program — a
+        vectorized threshold/vote rule (:class:`repro_torch.serve.
+        ReflexProgram`) that answers on the host when the model lane would
+        blow the packet's budget — packed into dense padded arrays under
+        the same prepare-then-commit generation swap.  Returns the reflex
+        slot.  The program is duck-read (``lanes``/``thresholds``/
+        ``weights``/``bias``/``on_true``/``on_false``)."""
+        lanes = np.asarray(program.lanes, np.int64).reshape(-1)
+        thr = np.asarray(program.thresholds, np.int64).reshape(-1)
+        wts = np.asarray(program.weights, np.int64).reshape(-1)
+        bias = int(getattr(program, "bias", 0))
+        on_true = np.asarray(program.on_true, np.int64).reshape(-1)
+        on_false = np.asarray(program.on_false, np.int64).reshape(-1)
+        if lanes.size == 0 or not (lanes.size == thr.size == wts.size):
+            raise ValueError("reflex program needs equal-length, non-empty "
+                             "lanes/thresholds/weights")
+        if lanes.size > self.max_width:
+            raise ValueError(f"reflex program has {lanes.size} terms > "
+                             f"max_width={self.max_width}")
+        if int(lanes.min()) < 0 or int(lanes.max()) >= self.max_width:
+            raise ValueError(
+                f"reflex lane outside [0, max_width={self.max_width})")
+        if on_true.size == 0 or on_true.size != on_false.size \
+                or on_true.size > self.max_width:
+            raise ValueError("reflex output rows must be equal length in "
+                             f"[1, max_width={self.max_width}]")
+        i32 = np.iinfo(np.int32)
+        for name, a in (("thresholds", thr), ("weights", wts),
+                        ("on_true", on_true), ("on_false", on_false)):
+            if int(a.min()) < i32.min or int(a.max()) > i32.max:
+                raise ValueError(f"reflex {name} outside int32 code range")
+        if not 0 <= int(model_id) < _N_MODEL_IDS:
+            raise ValueError(f"model id {model_id} outside the 16-bit "
+                             "Model ID field")
+        with self._lock:
+            # prepare-then-commit (same crash-safety contract as install())
+            rmap = self._rx_map
+            lane_t, thr_t = self._rx_lane.copy(), self._rx_thr.copy()
+            w_t, bias_t = self._rx_w.copy(), self._rx_bias.copy()
+            true_t, false_t = self._rx_true.copy(), self._rx_false.copy()
+            od_t = self._rx_out_dim.copy()
+            slot = int(rmap[model_id])
+            if slot < 0:
+                rmap = rmap.copy()
+                slot = lane_t.shape[0]
+
+                def _grow(a):
+                    return np.concatenate(
+                        [a, np.zeros((1,) + a.shape[1:], a.dtype)])
+                lane_t, thr_t, w_t = _grow(lane_t), _grow(thr_t), _grow(w_t)
+                bias_t = _grow(bias_t)
+                true_t, false_t = _grow(true_t), _grow(false_t)
+                od_t = _grow(od_t)
+                rmap[model_id] = slot
+            k, d = lanes.size, on_true.size
+            # padding terms carry weight 0, so they never vote
+            lane_t[slot] = 0
+            thr_t[slot] = i32.max
+            w_t[slot] = 0
+            lane_t[slot, :k], thr_t[slot, :k], w_t[slot, :k] = lanes, thr, wts
+            bias_t[slot] = bias
+            true_t[slot] = 0
+            false_t[slot] = 0
+            true_t[slot, :d], false_t[slot, :d] = on_true, on_false
+            od_t[slot] = d
+            self._fire_fault("install")
+            # -- commit (atomic under the lock) --
+            self._rx_map = rmap
+            self._rx_lane, self._rx_thr, self._rx_w = lane_t, thr_t, w_t
+            self._rx_bias = bias_t
+            self._rx_true, self._rx_false = true_t, false_t
+            self._rx_out_dim = od_t
+            self._rx_programs[int(model_id)] = program
+            self._rx_any = True
+            self._version += 1
+            self._emit("install_reflex", model_id, slot=slot)
+            return slot
+
+    def remove_reflex(self, model_id: int) -> None:
+        """Uninstall a reflex program; the model id falls back to the
+        model lane alone (no-op if none installed)."""
+        with self._lock:
+            if self._rx_programs.pop(int(model_id), None) is None:
+                return
+            self._rx_map = self._rx_map.copy()
+            self._rx_map[int(model_id)] = -1  # slot retired (programs tiny)
+            self._version += 1
+            self._emit("remove", model_id, family="reflex")
+
+    def reflex_program(self, model_id: int):
+        with self._lock:
+            return self._rx_programs.get(int(model_id))
+
+    def reflex_mask(self, model_ids: np.ndarray) -> np.ndarray:
+        """Vectorized: True where a Model ID has a reflex program (the
+        watermark controller's "can this packet take the reflex lane"
+        check)."""
+        with self._lock:
+            rmap = self._rx_map
+        return rmap[np.asarray(model_ids, np.int64).reshape(-1)] >= 0
+
+    def reflex_evaluate(self, model_ids: np.ndarray, x0: np.ndarray
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+        """Vectorized reflex-lane evaluation.  For each packet whose Model
+        ID has a program: ``votes = bias + Σ_k w_k·[x[lane_k] ≥ thr_k]``
+        (int64); the output code row is ``on_true`` when votes ≥ 0 else
+        ``on_false``.  Returns ``(mask, out)`` with ``out`` of shape
+        ``(B, max_width)`` int32 (zero rows where ``mask`` is False).  Host
+        numpy; the per-generation read cache makes the steady-state cost
+        one map gather plus the term math."""
+        mids = np.asarray(model_ids, np.int64).reshape(-1)
+        with self._lock:
+            cache = self._rx_read_cache
+            if cache is None or cache[0] != self._version:
+                cache = (self._version, self._rx_map, self._rx_lane,
+                         self._rx_thr, self._rx_w, self._rx_bias,
+                         self._rx_true, self._rx_false)
+                self._rx_read_cache = cache
+        _, rmap, lane, thr, w, bias, tr, fl = cache
+        slot = rmap[mids]
+        mask = slot >= 0
+        out = np.zeros((mids.size, self.max_width), np.int32)
+        if not mask.any():
+            return mask, out
+        s = slot[mask]
+        x = np.asarray(x0)[mask]
+        # lanes are validated < max_width at install; a narrower serving
+        # width clamps (clamped padding terms carry weight 0 regardless)
+        idx = np.minimum(lane[s], x.shape[1] - 1)
+        terms = (np.take_along_axis(x, idx, axis=1) >= thr[s])
+        votes = bias[s] + np.einsum("bk,bk->b", w[s].astype(np.int64),
+                                    terms.astype(np.int64))
+        out[mask] = np.where((votes >= 0)[:, None], tr[s], fl[s])
+        return mask, out
 
     @property
     def reflex_active(self) -> bool:
-        """True once a reflex program was ever installed; always False until
-        the reflex family is ported."""
-        return False
+        """True once any reflex program has ever been installed (monotone:
+        the ingress watermark controller's cheap gate)."""
+        return self._rx_any
 
     # -- data-plane reads -------------------------------------------------
 

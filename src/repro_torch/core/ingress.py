@@ -1315,19 +1315,25 @@ class IngressPipeline:
         """Retire in-flight batches whose device future has already
         completed (non-blocking, oldest-first; stops at the first batch
         still cooking or held by the overload chaos site)."""
-        while self._inflight:
-            rec = self._inflight[0]
-            if rec.hold_until and self._clock() < rec.hold_until:
-                break
-            ready = getattr(rec.future, "is_ready", None)
-            if ready is None:
-                break
-            try:
-                if not ready():
-                    break
-            except Exception:  # noqa: BLE001 — a dying future is retired
-                pass           # via _retire_oldest's salvage path below
+        while self._inflight and self._batch_ready(self._inflight[0],
+                                                   self._clock()):
             self._retire_oldest()
+
+    def _batch_ready(self, rec: _InFlight, by: float) -> bool:
+        """Whether ``rec`` can retire at time ``by`` without blocking: the
+        overload chaos site holds it no later than ``by``, and its
+        completion event (``DeviceResult.is_ready``) has fired.  A future
+        without an event counts as not ready; one whose poll raises counts
+        as ready — :meth:`_retire_oldest` salvages it."""
+        if rec.hold_until and rec.hold_until > by:
+            return False
+        ready = getattr(rec.future, "is_ready", None)
+        if ready is None:
+            return False
+        try:
+            return bool(ready())
+        except Exception:  # noqa: BLE001 — retired via the salvage path
+            return True
 
     def _admission_actions(self, mid: np.ndarray,
                            pos: np.ndarray) -> Optional[np.ndarray]:
@@ -1847,13 +1853,20 @@ class IngressPipeline:
         ``PacketError(DRAIN_TIMEOUT)`` instead of blocking on a wedged
         device.  The bound is best-effort by one step — a single retire
         that wedges *inside* the window can overshoot it by its own
-        duration (retires block; there is no preemption)."""
+        duration (retires block; there is no preemption).  On the card a
+        bounded flush polls each batch's completion event
+        (``DeviceResult.is_ready``) against the window before it retires
+        the batch, so it never blocks on a device queue, and a batch that
+        the ``"overload"`` chaos site holds past the window counts as not
+        ready."""
         deadline = (None if timeout_us is None
                     else self._clock() + float(timeout_us) * 1e-6)
         expired = False
         self._dispatch()
         while self._inflight:
-            if deadline is not None and self._clock() >= deadline:
+            if deadline is not None and (
+                    self._clock() >= deadline
+                    or not self._ready_by(self._inflight[0], deadline)):
                 expired = True
                 break
             self._retire_oldest()
@@ -1866,6 +1879,18 @@ class IngressPipeline:
         if expired:
             self._abandon_pending()
         assert not self._chunks, "unresolved chunks after full retire"
+
+    _POLL_S = 20e-6  # sleep between completion-event polls
+
+    def _ready_by(self, rec: _InFlight, deadline: float) -> bool:
+        """Poll :meth:`_batch_ready` until ``rec`` can retire by the
+        bounded flush's ``deadline`` (True) or the deadline passes, or the
+        overload site holds ``rec`` past it (False)."""
+        while not self._batch_ready(rec, deadline):
+            if rec.hold_until > deadline or self._clock() >= deadline:
+                return False
+            time.sleep(self._POLL_S)
+        return True
 
     def _abandon_pending(self) -> None:
         """A bounded drain expired: resolve every still-PENDING ticket as

@@ -187,7 +187,8 @@ class FlowFrontend:
 
     # -- feature extraction -------------------------------------------------
 
-    def extract(self, raw, *, fields: Optional[RawHeaderBatch] = None
+    def extract(self, raw, *, fields: Optional[RawHeaderBatch] = None,
+                cms_est_q: Optional[np.ndarray] = None
                 ) -> Tuple[np.ndarray, RawHeaderBatch, np.ndarray,
                            np.ndarray]:
         """Run the stateful stage for one raw header batch: resolve flows,
@@ -199,8 +200,14 @@ class FlowFrontend:
         must not be served — ``submit_raw`` turns it into a per-packet
         error slot; rejected flows never touch register or sketch state).
 
-        ``fields`` lets a caller that already parsed the headers skip the
-        second parse.
+        ``fields`` lets a caller that already parsed the headers (the
+        sharded fabric's dispatcher hashes the 5-tuples before routing)
+        skip the second parse.  ``cms_est_q`` overrides the count-min
+        feature lane with externally computed codes: the fabric keeps one
+        sketch across its shards (heavy-hitter counts are a whole-fabric
+        property), so the flow update still runs on this frontend's own
+        sketch, and the fabric's per-packet estimates replace lane
+        ``N_FLOW_FEATURES - 1`` once the features are back on the host.
         """
         if fields is None:
             fields = parse_raw_headers(raw)
@@ -230,6 +237,10 @@ class FlowFrontend:
         else:
             feats = self._update(slots, cells, fields.ts, fields.length,
                                  rank)
+        if cms_est_q is not None:
+            if not feats.flags.writeable:
+                feats = np.array(feats)
+            feats[:, N_FLOW_FEATURES - 1] = cms_est_q
         return feats, fields, is_new, rejected
 
     # -- serving -------------------------------------------------------------
@@ -248,6 +259,7 @@ class FlowFrontend:
         return np.ascontiguousarray(feats_z[self._arange[:n], cols])
 
     def submit_raw(self, raw, *, fields: Optional[RawHeaderBatch] = None,
+                   cms_est_q: Optional[np.ndarray] = None,
                    drop_mask: Optional[np.ndarray] = None,
                    drop_reason: str = "malformed raw header"
                    ) -> Tuple[int, int]:
@@ -263,12 +275,15 @@ class FlowFrontend:
         ``drop_reason``, interleaved at their submission-order positions.
         Flow-table overflow rejections from :meth:`extract` degrade the
         same way (reason ``"flow table overflow — flow rejected"``).
+        ``fields``/``cms_est_q`` pass through to :meth:`extract` (the
+        sharded fabric's pre-parsed, global-sketch entry).
         """
         if drop_mask is not None and drop_mask.any():
-            return self._submit_raw_partial(raw, fields,
+            return self._submit_raw_partial(raw, fields, cms_est_q,
                                             np.asarray(drop_mask, bool),
                                             drop_reason)
-        feats, fields, _, rejected = self.extract(raw, fields=fields)
+        feats, fields, _, rejected = self.extract(raw, fields=fields,
+                                                  cms_est_q=cms_est_q)
         n = feats.shape[0]
         if n == 0:
             return self.pipeline.submit_features(
@@ -280,7 +295,7 @@ class FlowFrontend:
                 error_reason="flow table overflow — flow rejected")
         return self.pipeline.submit_features(gathered, fields.model_id)
 
-    def _submit_raw_partial(self, raw, fields,
+    def _submit_raw_partial(self, raw, fields, cms_est_q,
                             drop: np.ndarray, drop_reason: str
                             ) -> Tuple[int, int]:
         """Validation-rejected rows interleave as error tickets while the
@@ -303,7 +318,9 @@ class FlowFrontend:
                 sub_fields = None
                 sub_raw = np.ascontiguousarray(
                     np.asarray(raw), np.uint8)[good]
-            feats, f2, _, rejected = self.extract(sub_raw, fields=sub_fields)
+            sub_est = None if cms_est_q is None else cms_est_q[good]
+            feats, f2, _, rejected = self.extract(
+                sub_raw, fields=sub_fields, cms_est_q=sub_est)
             x_full[good] = self._gather(feats, f2.model_id)
             mid_full[good] = f2.model_id
             if rejected.any():

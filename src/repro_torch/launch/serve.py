@@ -15,8 +15,16 @@ enter through :meth:`PacketServer.submit_raw`: the flow engine
 (``repro_torch.flow``) resolves each packet's flow, updates its registers
 with the flow-update kernel and builds each model's inputs from its
 FeatureSpec.  Egress rows come back in exact submission order,
-byte-identical to the reference's.  SLO budgets and reflex programs arrive
-with their slices.
+byte-identical to the reference's.  Per-model latency budgets
+(:meth:`PacketServer.install_slo_budget`) drive the ingress deadline
+scheduler, and reflex programs (:meth:`PacketServer.install_reflex`)
+answer packets past the queue's high watermark on the host, confirmed
+asynchronously on the model lane.  The drift monitor, the shadow lane and
+the ``slo:submit_p99`` health rule are constructor options.
+
+:class:`~repro_torch.serve.ShardedPacketServer` (re-exported here) is the
+N-shard fabric with the same surface, and :func:`main` the operator CLI
+(``python -m repro_torch.launch.serve``).
 
 :class:`LMServer` is the LM-scale counterpart: a batched decode loop over
 a model from ``repro_torch.models`` with control-plane weight hot-swap
@@ -27,7 +35,7 @@ from __future__ import annotations
 
 import time
 from collections import deque
-from typing import TYPE_CHECKING, Dict, List, Optional, Union
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -38,11 +46,12 @@ from ..core.ingress import BatchError, IngressPipeline
 from ..core.packet import HEADER_BYTES
 from ..models.api import build_model
 from ..obs import Observability
+from ..serve import ShardedPacketServer
 
 if TYPE_CHECKING:
     from ..flow import FlowFrontend
 
-__all__ = ["PacketServer", "BatchError", "LMServer"]
+__all__ = ["PacketServer", "ShardedPacketServer", "LMServer", "BatchError"]
 
 
 class PacketServer:
@@ -72,7 +81,14 @@ class PacketServer:
     ``"auto"`` is the range form on the card and the chase on the CPU.
     ``flow_capacity_pow2`` and ``flow_idle_timeout`` size and age the flow
     table; ``strict_model_ids=True`` turns raw rows whose Model ID is not
-    installed into per-packet error slots.
+    installed into per-packet error slots.  ``queue_capacity`` and
+    ``queue_high_watermark`` bound the model lane's queue (past the
+    watermark, packets of a model with a reflex program answer on the
+    reflex lane; past the capacity, packets shed).  ``drift_window``,
+    ``drift_lanes`` and ``psi_threshold`` turn on the drift monitor,
+    ``shadow_model``/``shadow_every`` shadow-score a packet sample against
+    another model, and ``slo_budget`` (seconds) adds the
+    ``slo:submit_p99`` health rule over the submit latency.
     """
 
     def __init__(self, *, max_models: int = 16, max_layers: int = 4,
@@ -90,8 +106,13 @@ class PacketServer:
                  flow_idle_timeout: Optional[int] = None,
                  strict_model_ids: bool = False,
                  queue_capacity: Optional[int] = None,
+                 queue_high_watermark: Optional[int] = None,
                  max_retries: int = 2, retry_backoff: float = 0.0,
                  clock=None, obs=None, trace_every: int = 0,
+                 drift_window: int = 0, drift_lanes: int = 8,
+                 psi_threshold: float = 0.25,
+                 shadow_model: Optional[int] = None, shadow_every: int = 8,
+                 slo_budget: Optional[float] = None,
                  device="cuda"):
         if max_inflight < 1:
             raise ValueError("max_inflight must be >= 1")
@@ -118,8 +139,19 @@ class PacketServer:
             cache_capacity_pow2=cache_capacity_pow2,
             flush_after=flush_after, adaptive_batch=adaptive_batch,
             max_retries=max_retries, retry_backoff=retry_backoff,
-            clock=clock, queue_capacity=queue_capacity, obs=obs)
+            clock=clock, queue_capacity=queue_capacity,
+            queue_high_watermark=queue_high_watermark, obs=obs)
         self.control_plane.events = obs.events
+        # -- model-quality plane: drift taps + shadow lane + SLO ----------
+        obs.enable_quality_plane(
+            self.control_plane, [self.ingress], drift_window=drift_window,
+            drift_lanes=drift_lanes, psi_threshold=psi_threshold,
+            shadow_model=shadow_model, shadow_every=shadow_every,
+            slo_budget=slo_budget, slo_rule="slo:submit_p99",
+            submit_p99=lambda: (self._submit_h.percentile(99.0)
+                                if self._submit_h.count else None))
+        self._submit_h = (None if slo_budget is None else
+                          obs.registry.histogram("server_submit_seconds"))
         self.max_inflight = max_inflight
         self.strict_model_ids = strict_model_ids
         self._inflight: deque = deque()
@@ -191,6 +223,27 @@ class PacketServer:
         configuration."""
         return self.control_plane.install_feature_spec(model_id, columns)
 
+    def install_slo_budget(self, model_id: int, budget_us: float) -> int:
+        """Install (hot-swap) a model's per-packet latency budget: the
+        deadline-aware batch closer ships a short batch rather than let a
+        staged packet's remaining budget drop below the measured dispatch
+        cost."""
+        return self.control_plane.install_slo_budget(model_id, budget_us)
+
+    def install_reflex(self, model_id: int, program) -> int:
+        """Install (hot-swap) a model's reflex fallback program
+        (:class:`~repro_torch.serve.reflex.ReflexProgram`) and attach the
+        asynchronous model-lane confirmer, so ``reflex_agreement`` is
+        measured."""
+        gen = self.control_plane.install_reflex(model_id, program)
+        if self.ingress.reflex_confirm is None:
+            from ..serve.reflex import ReflexConfirmer
+            self.ingress.reflex_confirm = ReflexConfirmer(self.ingress)
+        return gen
+
+    def remove_reflex(self, model_id: int) -> None:
+        self.control_plane.remove_reflex(model_id)
+
     def submit_raw(self, raw) -> tuple:
         """Feed one batch of **raw 5-tuple headers**
         (``repro_torch.data.packets.RAW_HEADER_BYTES``-byte rows) through
@@ -212,9 +265,15 @@ class PacketServer:
         known = (self.control_plane.installed_ids()
                  if self.strict_model_ids else None)
         rows, bad, reasons = validate_raw_rows(raw, known_model_ids=known)
-        if bad is None:
-            return self.flow.submit_raw(rows)
-        return self.flow.submit_raw(rows, drop_mask=bad, drop_reason=reasons)
+        t0 = time.perf_counter() if self._submit_h is not None else 0.0
+        try:
+            if bad is None:
+                return self.flow.submit_raw(rows)
+            return self.flow.submit_raw(rows, drop_mask=bad,
+                                        drop_reason=reasons)
+        finally:
+            if self._submit_h is not None:
+                self._submit_h.observe(time.perf_counter() - t0)
 
     # -- streaming ingress (coalescing queue + duplicate cache) ------------
 
@@ -224,15 +283,27 @@ class PacketServer:
         order via :meth:`drain_packets`."""
         if self._window_t0 is None:
             self._window_t0 = time.perf_counter()
-        return self.ingress.submit(packets)
+        if self._submit_h is None:
+            return self.ingress.submit(packets)
+        t0 = time.perf_counter()
+        try:
+            return self.ingress.submit(packets)
+        finally:
+            self._submit_h.observe(time.perf_counter() - t0)
 
     def drain_packets(self, timeout_us: Optional[float] = None) -> list:
         """Flush the pipeline and return one entry per submitted packet in
         submission order: an egress row (``np.ndarray``) or a
         :class:`~repro_torch.core.ingress.PacketError` slot.
-        ``timeout_us`` bounds the drain."""
+        ``timeout_us`` bounds the drain: unresolved tickets backfill as
+        ``PacketError(DRAIN_TIMEOUT)`` instead of waiting on a wedged
+        device."""
         out = self.ingress.drain(timeout_us)
         self._close_window()
+        if self.obs.health is not None:
+            # step alert rules once per drain window (drift rules also step
+            # on the monitor's own window cadence)
+            self.obs.health.evaluate()
         return out
 
     def _close_window(self) -> None:
@@ -333,13 +404,17 @@ class PacketServer:
         return outs
 
     def stats(self) -> Dict[str, float]:
-        return {"packets_per_s": self.engine.packets_per_second(),
-                "throughput_gbps": self.engine.throughput_gbps(),
-                "recompiles": self.engine.trace_count,
-                "table_generation": self.control_plane.version,
-                "cache_hit_rate": self.ingress.cache_hit_rate(),
-                "cache_entries": (len(self.ingress.cache)
-                                  if self.ingress.cache is not None else 0)}
+        out = {"packets_per_s": self.engine.packets_per_second(),
+               "throughput_gbps": self.engine.throughput_gbps(),
+               "recompiles": self.engine.trace_count,
+               "table_generation": self.control_plane.version,
+               "cache_hit_rate": self.ingress.cache_hit_rate(),
+               "cache_entries": (len(self.ingress.cache)
+                                 if self.ingress.cache is not None else 0)}
+        if self._flow is not None:
+            out["flow_table_hit_rate"] = self._flow.flow_table_hit_rate()
+            out["flows"] = len(self._flow.table)
+        return out
 
 
 def _leaf_signature(tree, path: str = "") -> tuple:
@@ -439,3 +514,97 @@ class LMServer:
     def tokens_per_second(self) -> float:
         s = self.stats
         return s["tokens"] / s["seconds"] if s["seconds"] else 0.0
+
+
+def main(argv=None) -> int:
+    """``python -m repro_torch.launch.serve`` — drive a synthetic raw-header
+    trace through a (possibly sharded) server and export the telemetry
+    snapshot.  ``--metrics-json`` writes the snapshot as JSON and
+    ``--prometheus`` prints the text exposition.  The server runs on the
+    card unless ``--device cpu`` is given."""
+    import argparse
+    import json
+
+    p = argparse.ArgumentParser(
+        prog="repro_torch.launch.serve",
+        description="serve a synthetic raw trace; export telemetry")
+    p.add_argument("--packets", type=int, default=4096,
+                   help="total raw packets to serve (default 4096)")
+    p.add_argument("--shards", type=int, default=1,
+                   help="1 = PacketServer, >1 = ShardedPacketServer")
+    p.add_argument("--flows", type=int, default=64,
+                   help="synthetic flow count (default 64)")
+    p.add_argument("--chunk", type=int, default=512,
+                   help="submit chunk size (default 512)")
+    p.add_argument("--trace-every", type=int, default=0,
+                   help="sample 1-in-N packet lifecycles (0 = off)")
+    p.add_argument("--drift-window", type=int, default=0,
+                   help="enable the drift monitor with this window size "
+                        "(feature rows per model; 0 = off)")
+    p.add_argument("--shadow-model", type=int, default=None,
+                   help="shadow-score a deterministic packet sample "
+                        "against this Model ID (installs a copy of the "
+                        "primary under that id)")
+    p.add_argument("--metrics-json", metavar="PATH", default=None,
+                   help="write the observability snapshot as JSON")
+    p.add_argument("--prometheus", action="store_true",
+                   help="print the Prometheus text exposition to stdout")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="device to serve on (default cuda; cpu for the "
+                        "host)")
+    args = p.parse_args(argv)
+
+    from ..data.packets import raw_trace
+
+    width = 16
+    kw: Dict[str, Any] = dict(
+        max_models=4, max_width=width, ingress_batch=256, max_inflight=2,
+        flow_capacity_pow2=12, trace_every=args.trace_every,
+        drift_window=args.drift_window, shadow_model=args.shadow_model,
+        device=args.device)
+    if args.shards > 1:
+        srv: Any = ShardedPacketServer(n_shards=args.shards, **kw)
+    else:
+        srv = PacketServer(**kw)
+    rng = np.random.default_rng(args.seed)
+    r = np.random.default_rng(args.seed + 1)
+    w1 = r.normal(size=(width, width)).astype(np.float32) * 0.3
+    w2 = r.normal(size=(width, 4)).astype(np.float32) * 0.3
+    layers = [(w1, np.zeros(width, np.float32)),
+              (w2, np.zeros(4, np.float32))]
+    srv.install(1, layers, ["relu"], final_activation="sigmoid")
+    srv.install_feature_spec(1, (2, 3, 4, 5) * (width // 4))
+    if args.shadow_model is not None:
+        # identical copy — the shadow lane should report full agreement
+        srv.install(args.shadow_model, layers, ["relu"],
+                    final_activation="sigmoid")
+
+    raw = raw_trace(rng, args.packets, n_flows=args.flows,
+                    model_ids=(1,), pattern="mixed")
+    t0 = time.perf_counter()
+    for i in range(0, raw.shape[0], args.chunk):
+        srv.submit_raw(raw[i: i + args.chunk])
+    out = srv.drain_packets()
+    dt = time.perf_counter() - t0
+    n_err = sum(1 for o in out if not isinstance(o, np.ndarray))
+
+    snap = srv.obs.snapshot()
+    snap["run"] = {"packets": int(raw.shape[0]), "errors": int(n_err),
+                   "seconds": dt, "packets_per_s": raw.shape[0] / dt,
+                   "shards": args.shards, "device": str(args.device)}
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as f:
+            json.dump(snap, f, indent=2, sort_keys=True, default=str)
+    if args.prometheus:
+        print(srv.obs.to_prometheus_text(), end="")
+    print(f"served {raw.shape[0]} packets on {args.shards} shard(s) "
+          f"({args.device}) in {dt * 1e3:.1f} ms "
+          f"({raw.shape[0] / dt:,.0f} pkt/s), {n_err} error slots"
+          + (f"; metrics -> {args.metrics_json}"
+             if args.metrics_json else ""))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -22,7 +22,7 @@ device and never adds a serving configuration.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 from .drift import DriftMonitor, ShadowScorer, drift_scores
 from .events import EVENT_KINDS, Event, EventLog
@@ -82,6 +82,39 @@ class Observability:
                 categorical_lanes=categorical_lanes, cat_cap=cat_cap,
                 health=self.health)
         return self.drift
+
+    def enable_quality_plane(self, control_plane, pipelines, *,
+                             drift_window: int, drift_lanes: int,
+                             psi_threshold: float,
+                             shadow_model: Optional[int], shadow_every: int,
+                             slo_budget: Optional[float], slo_rule: str,
+                             submit_p99: Callable[[], Optional[float]]
+                             ) -> None:
+        """A server's model-quality plane, built when any of
+        ``drift_window``, ``shadow_model`` or ``slo_budget`` is set: drift
+        taps whose reference window freezes at every committed install, a
+        shadow lane on each of ``pipelines``, and the ``slo_rule`` health
+        rule, which burns ``submit_p99()`` (the submit latency's p99 in
+        seconds, ``None`` before the first sample) over ``slo_budget``."""
+        if not (drift_window or shadow_model is not None
+                or slo_budget is not None):
+            return
+        if slo_budget is not None and slo_budget <= 0:
+            raise ValueError("slo_budget must be positive (or None)")
+        mon = self.enable_drift(window=drift_window or 4096,
+                                n_lanes=drift_lanes,
+                                psi_threshold=psi_threshold)
+        control_plane.install_listeners.append(mon.on_install)
+        if shadow_model is not None:
+            for pipeline in pipelines:
+                mon.attach_shadow(pipeline, shadow_model, every=shadow_every)
+        if slo_budget is not None:
+            def _burn() -> float:
+                p99 = submit_p99()
+                return float("nan") if p99 is None else p99 / slo_budget
+
+            self.health.add_rule(slo_rule, "slo_burn", _burn, 1.0,
+                                 budget_s=slo_budget)
 
     def make_tracer(self, shard: int = 0, clock=None) -> Optional[PacketTracer]:
         """Per-pipeline tracer (or ``None`` when tracing is off)."""

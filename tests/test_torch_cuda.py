@@ -1018,3 +1018,176 @@ def test_lm_server_on_card_matches_cpu_port(card):
     srv.install("m", other)
     srv.generate("m", prompt, 3)
     assert srv.trace_count == 1
+
+
+# ---------------------------------------------------------------------------
+# the sharded serving fabric on the card
+# ---------------------------------------------------------------------------
+
+
+def _fabric_pair(card, n_shards, **extra):
+    """A fabric on the card and the same fabric on the CPU, with the MLPs,
+    forests and FeatureSpecs of ``_flow_servers``."""
+    from repro_torch.serve import ShardedPacketServer
+    kw = dict(dict(max_models=4, max_layers=3, max_width=16,
+                   ingress_batch=128, max_forests=4, max_trees=4,
+                   max_nodes=31, max_tree_depth=4, strict_model_ids=True),
+              **extra)
+    fabs = [ShardedPacketServer(n_shards=n_shards, device=card, **kw),
+            ShardedPacketServer(n_shards=n_shards, device="cpu", **kw)]
+    rng = np.random.default_rng(3)
+    forests = _forests()
+    for m in range(4):
+        layers = [(rng.normal(size=(16, 16)).astype(np.float32) * 0.4,
+                   rng.normal(size=(16,)).astype(np.float32) * 0.1)
+                  for _ in range(3)]
+        for f in fabs:
+            f.install(m + 1, layers, ["sigmoid", "leaky_relu"],
+                      final_activation="hard_sigmoid")
+    for f in fabs:
+        for mid, forest in forests.items():
+            f.install_forest(mid, forest)
+        for mid in (1, 2, 3, 4):
+            f.install_feature_spec(mid, (2, 3, 4, 5) * 4)
+        for mid in forests:
+            f.install_feature_spec(mid, (4, 5, 2, 3, 0, 7, 1, 6))
+    return fabs
+
+
+def _fabric_egress(fab):
+    return [o.tobytes() if isinstance(o, np.ndarray) else o.reason
+            for o in fab.drain_packets()]
+
+
+def _flow_rows(fab):
+    rows = {}
+    for sh in fab.shards:
+        if sh._flow is not None:
+            snap = sh.flow.table.snapshot()
+            for k, r in zip(snap["keys"], snap["registers"]):
+                rows[k.tobytes()] = r.tolist()
+    return rows
+
+
+def test_fabric_on_card_matches_cpu_port(card):
+    """2 shards on the one card against the same fabric on the CPU, 4096
+    raw packets with a forest reinstall and a kill midway: egress and error
+    slots, every flow's registers and the fabric's sketch equal; the flow,
+    MLP and forest kernels launched; recompiles flat."""
+    from repro_torch.launch.mesh import shard_devices
+    assert shard_devices(3) == [torch.device("cuda", i % torch.cuda.
+                                             device_count())
+                                for i in range(3)]
+    fabs = _fabric_pair(card, 2)
+    assert all(sh.engine.device.type == "cuda" for sh in fabs[0].shards)
+    raw = raw_trace(np.random.default_rng(4), 4096, n_flows=256,
+                    model_ids=(1, 5, 2, 6, 3, 7, 4, 999), pattern="mixed")
+    retrained = _forests()[5]
+    for f in fabs:
+        for sh in f.shards:
+            sh.engine.warm(128, HEADER_BYTES + 4 * 16,
+                           lanes=("mlp", "forest", "both"))
+    rc0 = [sh.engine.trace_count for sh in fabs[0].shards]
+    before = {k: dict(m.launches) for k, m in (("flow", fuk), ("mlp", fmlp),
+                                                ("forest", ftk))}
+    outs = []
+    for f in fabs:
+        for i in range(0, 4096, 300):
+            if i == 2100:  # the reference's fence: flush, then install
+                for sh in f.shards:
+                    sh.pipeline.flush()
+                f.install_forest(5, retrained)
+            f.submit_raw(raw[i: i + 300])
+        outs.append(_fabric_egress(f))
+    assert outs[0] == outs[1]
+    assert sum(isinstance(o, str) for o in outs[0]) > 0
+    assert _flow_rows(fabs[0]) == _flow_rows(fabs[1])
+    np.testing.assert_array_equal(fabs[0].cms, fabs[1].cms)
+    assert fuk.launches["flow_update"] > before["flow"]["flow_update"]
+    assert fmlp.launches["int16"] > before["mlp"]["int16"]
+    assert ftk.launches["range"] > before["forest"]["range"]
+    assert [sh.engine.trace_count for sh in fabs[0].shards] == rc0
+    # failover on the card: the migrated flows continue as on the CPU
+    for f in fabs:
+        assert f.kill_shard(0, "drill") is True
+        f.submit_raw(raw[:1000])
+    assert _fabric_egress(fabs[0]) == _fabric_egress(fabs[1])
+    assert _flow_rows(fabs[0]) == _flow_rows(fabs[1])
+
+
+def test_fabric_bounded_drain_with_a_stalled_shard_on_card(card):
+    """A bounded fabric drain polls shard 0's in-flight batch's completion
+    event and retires it within the window, then shard 1's dispatch stalls
+    past the window: its tickets come back as DRAIN_TIMEOUT slots, and the
+    drain returns after the one stalled step."""
+    import time
+    from repro_torch.core.ingress import DRAIN_TIMEOUT, PacketError
+    from repro_torch.serve import FaultPlan, FaultSpec
+    fab = _fabric_pair(card, 2, ingress_batch=16)[0]
+    FaultPlan([FaultSpec(site="stall", shard=1, latency=0.3,
+                         count=1)]).install(fab)
+    rng = np.random.default_rng(4)
+
+    def wire(n):
+        codes = rng.integers(-2000, 2000, (n, 16)).astype(np.int32)
+        return encode_packets_np(np.ones(n, np.int32), FRAC, codes)
+
+    fab.submit_packets(wire(16))    # shard 0: a full batch, in flight
+    fab.submit_packets(wire(8))     # shard 1: a partial batch
+    t0 = time.perf_counter()
+    out = fab.drain_packets(timeout_us=50_000.0)
+    assert time.perf_counter() - t0 < 1.0
+    assert len(out) == 24
+    assert not any(isinstance(o, PacketError) for o in out[:16])
+    assert all(isinstance(o, PacketError) and o.reason == DRAIN_TIMEOUT
+               for o in out[16:])
+    fab.submit_packets(wire(8))     # the next window serves normally
+    assert not any(isinstance(o, PacketError) for o in fab.drain_packets())
+
+
+def test_reflex_confirmer_rescores_on_the_mlp_kernel(card):
+    from repro_torch.serve import ReflexProgram
+    servers = [PacketServer(device=d, max_width=16, ingress_batch=16,
+                            max_inflight=2, queue_high_watermark=8,
+                            use_cache=False) for d in (card, "cpu")]
+    rng = np.random.default_rng(7)
+    layers = [(rng.normal(size=(16, 16)).astype(np.float32) * 0.3,
+               np.zeros(16, np.float32)),
+              (rng.normal(size=(16, 2)).astype(np.float32) * 0.3,
+               np.zeros(2, np.float32))]
+    codes = rng.integers(-2000, 2000, (64, 16)).astype(np.int32)
+    wire = encode_packets_np(np.ones(64, np.int32), FRAC, codes)
+    outs = []
+    for s in servers:
+        s.install(1, layers, ["relu"], final_activation="sigmoid")
+        s.install_reflex(1, ReflexProgram.threshold(
+            0, 0, on_true=(256, 0), on_false=(0, 256)))
+        before = fmlp.launches["int16"]
+        s.submit_packets(wire)
+        outs.append([o.tobytes() for o in s.drain_packets()])
+        if s.device.type == "cuda":
+            assert fmlp.launches["int16"] > before
+    assert outs[0] == outs[1]
+    conf = [s.ingress.reflex_confirm.snapshot() for s in servers]
+    assert conf[0] == conf[1] and conf[0]["pairs"] == 56
+
+
+def test_serve_cli_on_card(card, tmp_path):
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    names = []
+    for dev in ("cuda", "cpu"):
+        path = tmp_path / f"{dev}.json"
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--packets",
+             "2048", "--shards", "2", "--device", dev, "--metrics-json",
+             str(path)], cwd=root, env=env, capture_output=True, text=True,
+            timeout=300)
+        assert r.returncode == 0, r.stderr
+        names.append(sorted(json.loads(path.read_text())["metrics"]))
+    assert names[0] == names[1]

@@ -57,6 +57,9 @@ def _run(imports: str):
     "repro_torch.configs.deepseek_v2_236b, repro_torch.configs.zamba2_2_7b, "
     "repro_torch.configs.pixtral_12b, repro_torch.configs.whisper_base",
     "from repro_torch.launch.serve import LMServer, PacketServer",
+    "import repro_torch.serve.fabric, repro_torch.serve.reflex, "
+    "repro_torch.launch.mesh",
+    "from repro_torch.launch.serve import ShardedPacketServer, main",
     "sys.path.insert(0, '.'); import chip_smoke",
 ])
 def test_port_imports_no_jax_and_no_reference(imports):
