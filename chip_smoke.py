@@ -125,7 +125,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                wkv_scan launches; NMSE against the float logits below the
                reference's 0.15); and two
                layers at full width in float32 on the card against the CPU
-               port (forward and prefill logits).
+               port (forward and prefill logits).  Then the transformer
+               families: qwen2-1.5b at full width and depth (28 layers,
+               seeded float32 parameters, bf16 activations):
+               build_model(cfg).prefill on 4 × 2048 tokens (the flash
+               route, no kernel of the port's own), the attention of one
+               layer against F.scaled_dot_product_attention in turns,
+               LMServer(batch=8, max_seq=256) generating 32 greedy tokens
+               with a same-structure hot swap (trace_count flat), and the
+               quantized prefill (quantize_tree at full depth: 196
+               fixedpoint_matmul launches, all wgmma with no layout copy,
+               each equal to the plain version on the operands the path
+               gave it; NMSE at 2 layers below 0.15); the 7 transformer
+               configs at full width, 2 layers (deepseek-v2: 1), float32,
+               forward and prefill on the card against the CPU port
+               (qwen2 also at T = 640, the padded flash route; chatglm3's
+               int8 KV cache decode), decode against forward (MoE
+               dropless, 0.03) and deepseek-v2's absorbed MLA against the
+               expanded form (2e-3); granite-moe-3b-a800m at full depth
+               (prefill 4 × 2048, the MoE layers' device time split by the
+               profiler into expert GEMMs and routing, dispatch and
+               combine); pixtral-12b at full width cut to 4 layers
+               (prefill 4 × (256 patches + 1792 tokens)).
   5. numbers — per-kernel time (CUDA events: per call as the path issues
                it, and queued behind a device sleep, device only), the
                plain version's time, the least time the card could take
@@ -146,7 +167,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                timed batch, the register file's host↔card round trip and
                the share of the wall inside FlowFrontend.extract; for the
                LM path prefill and generate tokens per second and the WKV
-               kernel's share of the prefill.
+               kernel's share of the prefill; for the transformer path
+               prefill and decode tokens per second.
 
 Output: a JSON line of per-kernel numbers, the card's name and power limit,
 and, as the last line, {"ok": true, "device": {...}}.  Imports nothing of
@@ -206,7 +228,10 @@ from repro_torch.serve import (FaultPlan, FaultSpec,  # noqa: E402
                                ReflexProgram, reflex_oracle)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models import rwkv6  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
+from repro_torch.models import mla as MLA  # noqa: E402
+from repro_torch.models import rwkv6, transformer  # noqa: E402
+from repro_torch.models.layers import layer_params  # noqa: E402
 
 # the C1/C2 kernel modules (``repro_torch.kernels`` exports their wrappers,
 # which share the modules' names)
@@ -2501,6 +2526,7 @@ def run_rwkv6_path(dev, card: str) -> dict:
 
     heads, chunk = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_chunk
     return dict(launches=launches, prefill_s=prefill_s, gemm_err=gemm_err,
+                gemm_launches=q_launches["fixedpoint_matmul"],
                 prefill_tokens_per_s=LM_BATCH * LM_SEQ / prefill_s,
                 generate_tokens_per_s=gen_tps, n_layers=cfg.n_layers,
                 wkv_shape=(LM_BATCH * heads, -(-LM_SEQ // chunk), chunk,
@@ -2552,6 +2578,462 @@ def wkv_numbers(dev, lm: dict, worst: float, card: str) -> dict:
     return dict(KERNELS["wkv_scan"], launches=lm["launches"]["wkv_scan"],
                 max_abs_err=worst, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
+
+
+# ---------------------------------------------------------------------------
+# the transformer families: dense (qwen2-1.5b), MoE with MLA, VLM
+# ---------------------------------------------------------------------------
+
+# qwen2-1.5b at its own width and depth (src/repro/configs/qwen2_1_5b.py: 28
+# layers, d_model 1536, 12 heads of 128, 2 KV heads, d_ff 8960, vocab
+# 151936, bf16 activations, float32 parameters); prefill on B sequences of
+# T seeded tokens, so attention takes the flash route (4 × 4 blocks of 512)
+TF_ARCH = "qwen2-1.5b"
+TF_BATCH, TF_SEQ = 4, 2048
+TF_PROJECTIONS = 7  # wq wk wv wo up gate down: W8A8 GEMMs per layer
+# the 7 transformer configs, at full width and 2 layers (deepseek-v2: 1,
+# its expert stack is ≈15 GB a layer) in float32, card against CPU port
+TF_CONFIGS = ("gemma-7b", "qwen2-1.5b", "chatglm3-6b", "granite-20b",
+              "granite-moe-3b-a800m", "deepseek-v2-236b", "pixtral-12b")
+TF_CARD_VS_CPU = 1e-3      # float32: summation order only
+TF_DECODE_VS_FORWARD = 0.03  # the reference's (tests/test_arch_smoke.py:139)
+TF_ABSORBED_VS_EXPANDED = 2e-3  # the reference's (tests/test_models_deep.py:41)
+TF_PIXTRAL_LAYERS = 4      # of 40: 40 layers are ≈49 GB in float32
+
+
+def transformer_params(cfg, seed: int, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return transformer.init(g, cfg, device=dev), g
+
+
+def free_card() -> None:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def checked_gemms(record: dict):
+    """Every W8A8 GEMM the path launches, held ``torch.equal`` to its plain
+    version on the operands the path gave it, at the call (the plain
+    version launches nothing); ``record`` counts the calls by (M, K, N),
+    the largest |Δ| and the weight layouts."""
+    wrapper = fmm.fixedpoint_matmul
+    record.update(shapes={}, err=0.0, calls=0, row_major=0, differ=0)
+
+    def checked(xc, wc, xs, ws):
+        out = wrapper(xc, wc, xs, ws)
+        want = ops.fixedpoint_matmul(xc, wc, xs, ws, backend="ref")
+        shape = (xc.shape[0], xc.shape[1], wc.shape[1])
+        record["shapes"][shape] = record["shapes"].get(shape, 0) + 1
+        record["err"] = max(record["err"], float((out - want).abs().max()))
+        record["calls"] += 1
+        record["row_major"] += wc.stride() != (1, wc.shape[0])
+        record["differ"] += not torch.equal(out, want)
+        return out
+
+    fmm.fixedpoint_matmul = checked
+    try:
+        yield
+    finally:
+        fmm.fixedpoint_matmul = wrapper
+
+
+def attention_vs_sdpa(dev, cfg, card: str) -> dict:
+    """One layer's attention at the prefill's shapes (B=4, T=2048, 12 query
+    and 2 KV heads of 128, bf16): the port's causal attention (the
+    KV repetition and the flash route) against
+    ``F.scaled_dot_product_attention`` on the same operands, timed in
+    turns.  SDPA is not on the path: its bf16 rounding is not the
+    reference's."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    shape = (TF_BATCH, TF_SEQ)
+    q = torch.randn((*shape, cfg.n_heads, cfg.head_dim), generator=g,
+                    device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((*shape, cfg.n_kv_heads, cfg.head_dim), generator=g,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    try:
+        sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        gqa = dict(enable_gqa=True)
+    except TypeError:  # an older PyTorch: repeat the KV heads beforehand
+        n_rep = cfg.n_heads // cfg.n_kv_heads
+        kt, vt = (t.repeat_interleave(n_rep, dim=1) for t in (kt, vt))
+        gqa = {}
+
+    calls = {"port": lambda: TL._sdpa_causal(q, k, v, cfg),
+             "sdpa": lambda: sdpa(qt, kt, vt, is_causal=True, **gqa)}
+    ms = in_turns(calls, functools.partial(cuda_ms, reps=5, inner=3))
+    diff = rel_err(calls["sdpa"]().transpose(1, 2), calls["port"]())
+    log(f"time attention per layer {TF_ARCH} B={TF_BATCH} T={TF_SEQ} "
+        f"H={cfg.n_heads} H_kv={cfg.n_kv_heads} D={cfg.head_dim} bf16, in "
+        f"turns: the port (flash route, 512-blocks) {ms['port']:.4f} ms, "
+        f"F.scaled_dot_product_attention {ms['sdpa']:.4f} ms "
+        f"({ms['port'] / ms['sdpa']:.2f}x){'' if gqa else ' (KV repeated first)'}"
+        f"; max |Δ| / max |port| {diff:.3e} (bf16 rounding differs) "
+        f"[{card}]")
+    return dict(port_ms=ms["port"], sdpa_ms=ms["sdpa"])
+
+
+def run_qwen2_full(dev, card: str) -> dict:
+    """qwen2-1.5b at full width and depth: the float prefill (no kernel of
+    the port's own; attention on the flash route), the attention against
+    SDPA, ``LMServer`` with a same-structure hot swap, and the quantized
+    prefill with every projection on the W8A8 kernel."""
+    cfg = get_config(TF_ARCH)
+    params, g = transformer_params(cfg, SEED + 31, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (TF_BATCH, TF_SEQ),
+                           generator=g, device=dev)
+    n_params = tree_numel(params)
+    model = build_model(cfg, device=dev)
+
+    torch.cuda.synchronize()
+    reset_launches()
+    logits = model.prefill(params, tokens=tokens)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_launches().items() if v}
+    if launches:
+        raise SystemExit(f"{TF_ARCH} float prefill launched {launches}: "
+                         "expected no kernel of the port's own")
+    check_logits(f"{TF_ARCH} prefill", logits,
+                 (TF_BATCH, 1, cfg.vocab_size))
+    t0 = time.perf_counter()
+    model.prefill(params, tokens=tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    log(f"path transformer prefill {TF_ARCH} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params / 1e9:.3f}e9 float32 parameters, bf16 "
+        f"activations) on B={TF_BATCH} T={TF_SEQ}: last-position logits "
+        f"{tuple(logits.shape)}, finite; {prefill_s:.4f} s, "
+        f"{TF_BATCH * TF_SEQ / prefill_s:.0f} tokens/s (warm, host wall "
+        f"with the card synchronised) [{card}]")
+    attn = attention_vs_sdpa(dev, cfg, card)
+
+    # LMServer at full width and depth, with a same-structure hot swap
+    srv = LMServer(cfg, batch=8, max_seq=256, device=dev)
+    srv.install(TF_ARCH, params)
+    prompt = np.random.default_rng(SEED + 32).integers(0, cfg.vocab_size,
+                                                       (8, 16))
+    out = srv.generate(TF_ARCH, prompt, 32)
+    decode_tps = srv.tokens_per_second()
+    traces = srv.trace_count
+    params_b, _ = transformer_params(cfg, SEED + 33, dev)
+    srv.install(TF_ARCH, params_b)
+    out_b = srv.generate(TF_ARCH, prompt, 4)
+    traces_b = srv.trace_count
+    del params_b, srv
+    free_card()
+    log(f"path transformer LMServer(batch=8, max_seq=256) {TF_ARCH} at full "
+        f"width and depth: 16-token prompt + 32 greedy tokens, then 4 after "
+        f"a same-structure install: trace_count {traces} then {traces_b}; "
+        f"{decode_tps:.1f} tokens/s (prompt and new tokens, one decode_step "
+        f"per position, host wall with the card synchronised) [{card}]")
+    if (out.shape != (8, 32) or out_b.shape != (8, 4) or out.min() < 0
+            or out.max() >= cfg.vocab_size or traces != 1 or traces_b != 1):
+        raise SystemExit(f"transformer LMServer: tokens {out.shape} "
+                         f"{out_b.shape}, trace_count {traces} {traces_b}")
+
+    # the quantized prefill at full depth: every projection on the kernel
+    q = tq.quantize_tree(params)
+    record = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    with checked_gemms(record):
+        lq = model.prefill(q, tokens=tokens)
+    torch.cuda.synchronize()
+    q_launches = {k: v for k, v in read_launches().items() if v}
+    want = TF_PROJECTIONS * cfg.n_layers
+    if q_launches != {"fixedpoint_matmul": want}:
+        raise SystemExit(f"quantized {TF_ARCH} prefill launches {q_launches}, "
+                         f"expected fixedpoint_matmul {want}")
+    if fmm.relayouts["fixedpoint_matmul"] or record["row_major"]:
+        raise SystemExit(f"quantized {TF_ARCH} prefill: GEMM layout copies "
+                         f"{fmm.relayouts}, row-major codes "
+                         f"{record['row_major']}: expected none")
+    if record["calls"] != want or record["differ"]:
+        raise SystemExit(f"quantized {TF_ARCH} prefill: {record['calls']} "
+                         f"GEMM calls, {record['differ']} differ from the "
+                         "plain version")
+    check_logits(f"quantized {TF_ARCH} prefill", lq,
+                 (TF_BATCH, 1, cfg.vocab_size))
+    log(f"kernel fixedpoint_matmul {TF_ARCH} quantized prefill at full depth "
+        f"({cfg.n_layers} layers, B={TF_BATCH} T={TF_SEQ}), the path's own "
+        f"operands (K-major slices of the stacked codes): launches "
+        f"{q_launches}, GEMM layout copies 0; all {record['calls']} calls "
+        f"equal to the plain version at (M, K, N) {record['shapes']} "
+        f"(max_abs_err {record['err']})")
+    t0 = time.perf_counter()
+    model.prefill(q, tokens=tokens)
+    torch.cuda.synchronize()
+    q_prefill_s = time.perf_counter() - t0
+    del q, lq
+    # NMSE against the float logits at 2 layers, the reference's budget
+    cfg2 = cfg.replace(n_layers=2)
+    p2 = layer_slice(params, 2)
+    model2 = build_model(cfg2, device=dev)
+    q_nmse = nmse(model2.prefill(p2, tokens=tokens).float(),
+                  model2.prefill(tq.quantize_tree(p2), tokens=tokens).float())
+    log(f"path transformer quantized prefill {TF_ARCH}: {q_prefill_s:.4f} s "
+        f"at full depth, {TF_BATCH * TF_SEQ / q_prefill_s:.0f} tokens/s "
+        f"({TF_PROJECTIONS * cfg.n_layers} W8A8 GEMMs); at 2 layers NMSE of "
+        f"the last-position logits against the float prefill {q_nmse:.3e} "
+        f"(bound {LM_QUANT_NMSE}) [{card}]")
+    if not q_nmse < LM_QUANT_NMSE:
+        raise SystemExit(f"quantized {TF_ARCH} prefill: NMSE {q_nmse}")
+    del params, p2, logits
+    free_card()
+    return dict(launches=q_launches, gemm_err=record["err"],
+                prefill_tokens_per_s=TF_BATCH * TF_SEQ / prefill_s,
+                quantized_prefill_tokens_per_s=TF_BATCH * TF_SEQ / q_prefill_s,
+                decode_tokens_per_s=decode_tps, **attn)
+
+
+def host_gib_available() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2 ** 20
+    return 0.0
+
+
+def card_vs_cpu(label: str, fn, params, on_cpu, args, cpu_args) -> float:
+    on_card = fn(params, *args)
+    if not bool(torch.isfinite(on_card).all()):
+        raise SystemExit(f"{label}: non-finite logits on the card")
+    err = rel_err(on_card.cpu(), fn(on_cpu, *cpu_args))
+    if not err < TF_CARD_VS_CPU:
+        raise SystemExit(f"{label}: card vs CPU port {err} (bound "
+                         f"{TF_CARD_VS_CPU})")
+    return err
+
+
+def decode_vs_forward(params, tok, cfg) -> float:
+    """16 decode steps from zeroed caches against the forward logits."""
+    full, _ = transformer.forward(params, tok, cfg)
+    caches = transformer.init_caches(cfg, tok.shape[0], tok.shape[1],
+                                     device=tok.device)
+    steps = []
+    for t in range(tok.shape[1]):
+        pos = torch.full((tok.shape[0],), t, dtype=torch.int32,
+                         device=tok.device)
+        step, caches = transformer.decode_step(params, caches,
+                                               tok[:, t:t + 1], pos, cfg)
+        steps.append(step[:, 0])
+    return rel_err(torch.stack(steps, dim=1), full)
+
+
+def check_config(dev, arch: str, seed: int, card: str) -> None:
+    """One config at full width, 2 layers (deepseek-v2: 1), float32:
+    forward and prefill on the card against the CPU port, decode against
+    forward on the card (MoE dropless), and the config's own checks."""
+    cfg = get_config(arch)
+    cfg = cfg.replace(n_layers=1 if cfg.mla else 2, dtype="float32")
+    params, g = transformer_params(cfg, seed, dev)
+    tok = torch.randint(0, cfg.vocab_size, (2, 64), generator=g, device=dev)
+    pe = (torch.randn((2, cfg.n_patches, cfg.d_model), generator=g,
+                      device=dev) if cfg.family == "vlm" else None)
+    gib = 4 * tree_numel(params) / 2 ** 30
+    avail = host_gib_available()
+    fns = {"forward": lambda p, t, e: transformer.forward(
+               p, t, cfg, patch_embeds=e)[0],
+           "prefill": lambda p, t, e: transformer.prefill(
+               p, t, cfg, patch_embeds=e)}
+    errs = {}
+    if avail > 2.5 * gib:
+        on_cpu = tree_to(params, "cpu")
+        cpu_pe = None if pe is None else pe.cpu()
+        for name, fn in fns.items():
+            errs[name] = card_vs_cpu(f"{arch} {name}", fn, params, on_cpu,
+                                     (tok, pe), (tok.cpu(), cpu_pe))
+        if arch == TF_ARCH:  # the padded flash route: 640 = 512 + 128
+            long = torch.randint(0, cfg.vocab_size, (2, 640), generator=g,
+                                 device=dev)
+            for name, fn in fns.items():
+                errs[f"{name} T=640"] = card_vs_cpu(
+                    f"{arch} {name} T=640", fn, params, on_cpu,
+                    (long, None), (long.cpu(), None))
+        if cfg.kv_cache_bits == 0 and arch == "chatglm3-6b":
+            cfg8 = cfg.replace(kv_cache_bits=8)
+            got, want = [], []
+            for p, out, d in ((params, got, dev), (on_cpu, want, "cpu")):
+                caches = transformer.init_caches(cfg8, 2, 16, device=d)
+                for t in range(16):
+                    pos = torch.full((2,), t, dtype=torch.int32, device=d)
+                    step, caches = transformer.decode_step(
+                        p, caches, tok[:, t:t + 1].to(d), pos, cfg8)
+                    out.append(step[:, 0].float().cpu())
+            errs["int8 KV decode"] = rel_err(torch.stack(got, 1),
+                                             torch.stack(want, 1))
+            same = bool(torch.equal(torch.stack(got, 1).argmax(-1),
+                                    torch.stack(want, 1).argmax(-1)))
+            if not (errs["int8 KV decode"] < TF_CARD_VS_CPU and same):
+                raise SystemExit(f"{arch} int8 KV decode, card vs CPU: "
+                                 f"{errs['int8 KV decode']}, greedy tokens "
+                                 f"{'equal' if same else 'differ'}")
+        del on_cpu
+    else:  # the host cannot hold a CPU copy: the attention alone there
+        blk = layer_params(params["blocks"], 0)
+        x = torch.randn((2, 64, cfg.d_model), generator=g, device=dev) * 0.3
+        attn = MLA.mla_attention if cfg.mla else TL.attention
+        errs["attention alone"] = rel_err(
+            attn(blk["attn"], x, cfg)[0].cpu(),
+            attn(tree_to(blk["attn"], "cpu"), x.cpu(), cfg)[0])
+        if not errs["attention alone"] < TF_CARD_VS_CPU:
+            raise SystemExit(f"{arch} attention alone, card vs CPU: {errs}")
+    cfg_d = cfg.replace(moe_capacity_factor=float(cfg.n_experts or 1.25))
+    errs["decode vs forward"] = decode_vs_forward(params, tok[:, :16], cfg_d)
+    if not errs["decode vs forward"] < TF_DECODE_VS_FORWARD:
+        raise SystemExit(f"{arch} decode vs forward on the card: {errs}")
+    if cfg.mla:
+        blk = layer_params(params["blocks"], 0)["attn"]
+        x = torch.randn((2, 16, cfg.d_model), generator=g, device=dev) * 0.3
+        full, _ = MLA.mla_attention(blk, x, cfg)
+        cache = MLA.init_mla_cache(cfg, 2, 16, torch.float32, device=dev)
+        outs = []
+        for t in range(16):
+            o, cache = MLA.mla_attention(
+                blk, x[:, t:t + 1], cfg, cache=cache,
+                pos=torch.full((2,), t, dtype=torch.int32, device=dev))
+            outs.append(o[:, 0])
+        errs["MLA absorbed vs expanded"] = rel_err(torch.stack(outs, 1), full)
+        if not errs["MLA absorbed vs expanded"] < TF_ABSORBED_VS_EXPANDED:
+            raise SystemExit(f"{arch} MLA absorbed vs expanded: {errs}")
+    log(f"path transformer {arch} at full width (d_model {cfg.d_model}), "
+        f"{cfg.n_layers} layer(s), float32, B=2 T=64"
+        f"{f' + {cfg.n_patches} patches' if pe is not None else ''} "
+        f"({gib:.1f} GiB of parameters; {avail:.0f} GiB free on the host): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (bounds: card vs CPU {TF_CARD_VS_CPU}, decode "
+        f"{TF_DECODE_VS_FORWARD}, MLA {TF_ABSORBED_VS_EXPANDED}) [{card}]")
+    del params
+    free_card()
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """Profiler ranges around each MoE layer and around its expert GEMMs
+    (the three einsums over the expert axis), by patching the module's
+    ``moe_ffn`` and ``torch.einsum`` for the profiled run only."""
+    moe, einsum = TL.moe_ffn, torch.einsum
+    experts = {"ecd,edf->ecf", "ecf,efd->ecd"}
+
+    def ranged_moe(*a, **kw):
+        with torch.profiler.record_function("moe_ffn"):
+            return moe(*a, **kw)
+
+    def ranged_einsum(eq, *a, **kw):
+        if eq in experts:
+            with torch.profiler.record_function("moe_experts"):
+                return einsum(eq, *a, **kw)
+        return einsum(eq, *a, **kw)
+
+    TL.moe_ffn, torch.einsum = ranged_moe, ranged_einsum
+    try:
+        yield
+    finally:
+        TL.moe_ffn, torch.einsum = moe, einsum
+
+
+def run_granite_moe_full(dev, card: str) -> dict:
+    """granite-moe-3b-a800m at full width and depth (32 layers, 40 experts,
+    top-8): prefill on 4 × 2048 tokens, and the MoE layers' device time
+    split by the profiler into the expert GEMMs and the rest (routing,
+    dispatch and combine)."""
+    cfg = get_config("granite-moe-3b-a800m")
+    params, g = transformer_params(cfg, SEED + 50, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (TF_BATCH, TF_SEQ),
+                           generator=g, device=dev)
+    model = build_model(cfg, device=dev)
+    logits = model.prefill(params, tokens=tokens)
+    check_logits("granite-moe prefill", logits, (TF_BATCH, 1, cfg.vocab_size))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(params, tokens=tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with moe_ranges():
+            model.prefill(params, tokens=tokens)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    ms = {e.key: e.device_time_total / 1e3 for e in events
+          if e.key in ("moe_ffn", "moe_experts")}
+    # the kernels themselves (an operator's entry repeats its kernels' time)
+    total = sum(e.self_device_time_total for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.key not in ms) / 1e3
+    moe_ms, exp_ms = ms.get("moe_ffn", 0.0), ms.get("moe_experts", 0.0)
+    share = (moe_ms - exp_ms) / total if total else float("nan")
+    # a cross-check by CUDA events: one MoE layer on a seeded hidden state
+    h = torch.randn((TF_BATCH * TF_SEQ, cfg.d_model), generator=g,
+                    device=dev).to(torch.bfloat16)
+    blk = layer_params(params["blocks"], 0)["moe"]
+    layer_ms = cuda_ms(lambda: TL.moe_ffn(blk, h, cfg), reps=5, inner=2)
+    log(f"path transformer prefill granite-moe-3b-a800m ({cfg.n_layers} "
+        f"layers, {cfg.n_experts} experts top-{cfg.top_k}, "
+        f"{tree_numel(params) / 1e9:.3f}e9 float32 parameters) on "
+        f"B={TF_BATCH} T={TF_SEQ}: {prefill_s:.4f} s, "
+        f"{TF_BATCH * TF_SEQ / prefill_s:.0f} tokens/s (warm, host wall) "
+        f"[{card}]")
+    log(f"time granite-moe prefill by the profiler (device time, one "
+        f"prefill): all kernels {total:.2f} ms; MoE layers {moe_ms:.2f} ms, "
+        f"of which the expert GEMMs {exp_ms:.2f} ms and routing, dispatch "
+        f"and combine {moe_ms - exp_ms:.2f} ms ({share:.4f} of the "
+        f"prefill's device time); one MoE layer on a seeded hidden state "
+        f"by CUDA events {layer_ms:.4f} ms (x {cfg.n_layers} = "
+        f"{layer_ms * cfg.n_layers:.2f} ms) [{card}]")
+    del params, logits
+    free_card()
+    return dict(prefill_tokens_per_s=TF_BATCH * TF_SEQ / prefill_s,
+                device_ms=total, moe_ms=moe_ms, experts_ms=exp_ms,
+                dispatch_share=share)
+
+
+def run_pixtral_cut(dev, card: str) -> dict:
+    """pixtral-12b at full width, cut to 4 of its 40 layers: prefill on
+    4 × (256 patch embeddings + 1792 text tokens)."""
+    cfg = get_config("pixtral-12b").replace(n_layers=TF_PIXTRAL_LAYERS)
+    params, g = transformer_params(cfg, SEED + 51, dev)
+    text = TF_SEQ - cfg.n_patches
+    tokens = torch.randint(0, cfg.vocab_size, (TF_BATCH, text), generator=g,
+                           device=dev)
+    pe = torch.randn((TF_BATCH, cfg.n_patches, cfg.d_model), generator=g,
+                     device=dev)
+    model = build_model(cfg, device=dev)
+    logits = model.prefill(params, tokens=tokens, patch_embeds=pe)
+    check_logits("pixtral prefill", logits, (TF_BATCH, 1, cfg.vocab_size))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(params, tokens=tokens, patch_embeds=pe)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    log(f"path transformer prefill pixtral-12b at full width (d_model "
+        f"{cfg.d_model}), cut to {cfg.n_layers} of 40 layers "
+        f"({tree_numel(params) / 1e9:.3f}e9 float32 parameters) on "
+        f"B={TF_BATCH} x ({cfg.n_patches} patches + {text} tokens): "
+        f"{prefill_s:.4f} s, {TF_BATCH * TF_SEQ / prefill_s:.0f} positions/s "
+        f"(warm, host wall) [{card}]")
+    del params, logits
+    free_card()
+    return dict(prefill_tokens_per_s=TF_BATCH * TF_SEQ / prefill_s,
+                n_layers=cfg.n_layers)
+
+
+def run_transformer_path(dev, card: str) -> dict:
+    """The transformer families: qwen2-1.5b at full width and depth (float
+    and quantized prefill, LMServer), the 7 configs at full width against
+    the CPU port, granite-moe-3b-a800m at full depth and pixtral-12b cut to
+    4 layers.  One model on the card at a time."""
+    t0 = time.perf_counter()
+    qwen = run_qwen2_full(dev, card)
+    for i, arch in enumerate(TF_CONFIGS):
+        check_config(dev, arch, SEED + 40 + i, card)
+    moe = run_granite_moe_full(dev, card)
+    pix = run_pixtral_cut(dev, card)
+    log(f"transformer path: {time.perf_counter() - t0:.1f} s")
+    return dict(qwen=qwen, moe=moe, pixtral=pix)
 
 
 def main() -> int:
@@ -2633,6 +3115,9 @@ def main() -> int:
     worst["fixedpoint_matmul"] = max(worst["fixedpoint_matmul"],
                                      lm["gemm_err"])
     log(f"rwkv6 path: {time.perf_counter() - t0:.1f} s")
+    tf = run_transformer_path(dev, smi)
+    worst["fixedpoint_matmul"] = max(worst["fixedpoint_matmul"],
+                                     tf["qwen"]["gemm_err"])
 
     # -- 5. numbers -----------------------------------------------------------
     rng = np.random.default_rng(SEED + 2)
@@ -2709,7 +3194,17 @@ def main() -> int:
     entry = flow_numbers(dev, flow, worst["flow_update"], smi)
     k_ms["flow_update"] = entry["ms"]
     kernels.append(entry)
-    kernels.extend(c1c2_numbers(dev, c1c2, worst, smi))
+    gemm, taylor = c1c2_numbers(dev, c1c2, worst, smi)
+    # the GEMM's launches on every path that runs it: the C1/C2 layer, the
+    # quantized rwkv6 prefill (2 layers) and the quantized qwen2-1.5b
+    # prefill at full depth
+    by_path = {"C1/C2 layer": c1c2["launches"]["fixedpoint_matmul"],
+               "rwkv6 quantized prefill": lm["gemm_launches"],
+               "qwen2-1.5b quantized prefill": tf["qwen"]["launches"][
+                   "fixedpoint_matmul"]}
+    gemm["launches"] = sum(by_path.values())
+    log(f"kernel fixedpoint_matmul launches by path: {by_path}")
+    kernels.extend([gemm, taylor])
     kernels.append(wkv_numbers(dev, lm, worst["wkv_scan"], smi))
     for label, p in path.items():
         kernel_s = sum(n * k_ms[k] * 1e-3 for k, n in p["launches"].items())
@@ -2730,7 +3225,23 @@ def main() -> int:
                           for v in ("fabric", "fabric chase")},
                       "rwkv6_tokens_per_s": {
                           "prefill": lm["prefill_tokens_per_s"],
-                          "generate": lm["generate_tokens_per_s"]}}),
+                          "generate": lm["generate_tokens_per_s"]},
+                      "transformer": {
+                          "qwen2_prefill_tokens_per_s": tf["qwen"][
+                              "prefill_tokens_per_s"],
+                          "qwen2_quantized_prefill_tokens_per_s": tf["qwen"][
+                              "quantized_prefill_tokens_per_s"],
+                          "qwen2_decode_tokens_per_s": tf["qwen"][
+                              "decode_tokens_per_s"],
+                          "attention_ms": tf["qwen"]["port_ms"],
+                          "sdpa_ms": tf["qwen"]["sdpa_ms"],
+                          "granite_moe_prefill_tokens_per_s": tf["moe"][
+                              "prefill_tokens_per_s"],
+                          "granite_moe_dispatch_share": tf["moe"][
+                              "dispatch_share"],
+                          "pixtral_prefill_positions_per_s": tf["pixtral"][
+                              "prefill_tokens_per_s"],
+                          "pixtral_layers": tf["pixtral"]["n_layers"]}}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

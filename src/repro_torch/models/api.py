@@ -1,10 +1,11 @@
 """Unified model API: ``build_model(cfg)`` → one object with the same entry
 points for every family.
 
-Counterpart of ``repro.models.api`` for the families the port has: RWKV-6
-so far.  The others raise ``NotImplementedError`` naming the slice that
-brings them.  The reference's dry-run helpers (``abstract_params``,
-``abstract_caches``, ``input_specs``) come with the distribution slice.
+Counterpart of ``repro.models.api`` for the families the port has: the
+transformer families (dense, moe, vlm) and RWKV-6.  The others (hybrid,
+encdec) raise ``NotImplementedError`` naming the slice that brings them.
+The reference's dry-run helpers (``abstract_params``, ``abstract_caches``,
+``input_specs``) come with the distribution slice.
 
 ``params_from_numpy`` carries the reference's parameters across: a tree of
 numpy arrays (``jax.tree.map(np.asarray, params)``) becomes the same tree of
@@ -22,7 +23,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.inference import resolve_device
 from ..core.quantize import k_major_pairs
-from . import rwkv6
+from . import rwkv6, transformer
 
 __all__ = ["Model", "build_model", "params_from_numpy"]
 
@@ -30,9 +31,6 @@ Params = Dict[str, Any]
 
 # families of later slices (ROADMAP §1)
 _LATER = {
-    "dense": "LM slice B (the transformer families)",
-    "moe": "LM slice B (the transformer families)",
-    "vlm": "LM slice B (the transformer families)",
     "hybrid": "LM slice C (models/ssm.py)",
     "encdec": "LM slice C (models/encdec.py)",
 }
@@ -52,9 +50,25 @@ class Model:
 def build_model(cfg: ModelConfig, *, wkv: str = "scan",
                 device="cuda") -> Model:
     """The family's entry points bound to ``cfg``.  ``wkv`` picks the
-    RWKV-6 chunked-WKV route (``rwkv6.WKV_ROUTES``); ``device`` is where
-    ``init`` and ``init_caches`` allocate (the card unless the caller asks
-    for the CPU; raises when there is no card)."""
+    RWKV-6 chunked-WKV route (``rwkv6.WKV_ROUTES``; the other families
+    ignore it); ``device`` is where ``init`` and ``init_caches`` allocate
+    (the card unless the caller asks for the CPU; raises when there is no
+    card).  The VLM's ``prefill`` takes ``patch_embeds`` (B, n_patches,
+    d_model) beside ``tokens``."""
+    if cfg.family in ("dense", "moe", "vlm"):
+        dev = resolve_device(device)
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init=lambda g: transformer.init(g, cfg, device=dev),
+            loss_fn=lambda p, b: transformer.loss_fn(p, b, cfg),
+            prefill=lambda p, **inp: transformer.prefill(
+                p, inp["tokens"], cfg, patch_embeds=inp.get("patch_embeds")),
+            decode_step=lambda p, c, t, pos: transformer.decode_step(
+                p, c, t, pos, cfg),
+            init_caches=lambda b, s: transformer.init_caches(cfg, b, s,
+                                                             device=dev),
+        )
     if cfg.family == "rwkv6":
         rwkv6.check_wkv(wkv)
         dev = resolve_device(device)

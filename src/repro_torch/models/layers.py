@@ -1,21 +1,34 @@
 """Shared model building blocks: linear layers in the paper's numeric modes,
-norms and activations.
+norms, RoPE, activations, attention (MHA/GQA/MQA, full and Taylor-linear,
+with a float or int8 KV cache), MLPs (gated/plain, Taylor-approximated) and
+the grouped-dispatch MoE.
 
-Counterpart of the parts of ``repro.models.layers`` that the RWKV-6 family
-calls (``init_linear``, ``linear``, ``init_norm``, ``norm``, ``act_fn``);
-attention, RoPE, the MLPs and the MoE come with the transformer families.
-Parameters are plain dicts of tensors with the reference's leaf names, so
-``core.quantize.quantize_tree`` finds the same weight leaves.  The paper's
-numerics plug in through ``cfg.quant_mode`` (fixed-point GEMMs, C1) and
-``cfg.taylor_order`` (polynomial activations, C2); a ``(codes, scale)``
-weight leaf installed by ``quantize_tree`` runs the integer datapath, which
-on the card is the hand-written W8A8 kernel.
+Counterpart of ``repro.models.layers``.  Parameters are plain dicts of
+tensors with the reference's leaf names, so ``core.quantize.quantize_tree``
+finds the same weight leaves.  The paper's numerics plug in through
+``cfg.quant_mode`` (fixed-point GEMMs, C1), ``cfg.taylor_order``
+(polynomial activations, C2) and ``cfg.attention_impl='taylor_linear'``
+(Taylor-softmax linear attention); a ``(codes, scale)`` weight leaf
+installed by ``quantize_tree`` runs the integer datapath, which on the card
+is the hand-written W8A8 kernel.
+
+The reference computes attention, its chunked (flash) form and the MoE
+dispatch in plain ``jax.numpy``, outside any Pallas kernel, so the port
+follows the same math in plain PyTorch, with the reference's casts in the
+reference's order: QK logits in the activation dtype, then float32; masks
+filled with ``finfo(float32).min``; the softmax in float32 and its
+probabilities cast back before the PV product.
+
+The ``init_*`` functions draw from a ``torch.Generator`` that lives on
+``device``; ``lead`` prepends axes to every leaf (a stacked layer axis).
+Their bits cannot match ``jax.random``: the tests carry the reference's own
+init across with ``models.api.params_from_numpy``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,22 +36,70 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..core import quantize as qz
 from ..core import taylor as ty
+from ..core.fixedpoint import true_divide
+from ..distributed.constrain import constrain, constrain_batch, mesh_axis_size
 
-__all__ = ["init_linear", "linear", "init_norm", "norm", "act_fn"]
+__all__ = ["init_linear", "linear", "init_norm", "norm", "rope", "act_fn",
+           "softmax_fn", "init_mlp", "mlp", "init_attention", "attention",
+           "maybe_quantize_kv", "dequantize_kv", "init_kv_cache",
+           "taylor_linear_attention", "init_taylor_linear_cache",
+           "taylor_linear_decode", "init_moe", "moe_ffn", "layer_params",
+           "stack_layers"]
 
 Params = Dict[str, Any]
+_NEG = torch.finfo(torch.float32).min
+
+
+# ---------------------------------------------------------------------------
+# the layer axis
+# ---------------------------------------------------------------------------
+
+
+def layer_params(tree, i: int):
+    """Layer ``i`` of a tree whose tensors carry a leading layer axis;
+    ``(codes, scale)`` pairs stay pairs."""
+    if isinstance(tree, dict):
+        return {k: layer_params(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(layer_params(v, i) for v in tree)
+    return tree[i]
+
+
+def stack_layers(trees: List):
+    """The inverse of :func:`layer_params`: stack per-layer trees along a
+    new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_layers([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(stack_layers([t[j] for t in trees])
+                           for j in range(len(first)))
+    return torch.stack(trees)
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+
+def _dense_init(generator: torch.Generator, din: int, dout: int, *,
+                dtype=torch.float32, scale: Optional[float] = None,
+                device="cpu", lead: tuple = ()) -> torch.Tensor:
+    """N(0, 1) · ``scale`` (default 1/√din) of shape (*lead, din, dout)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(din)
+    return torch.randn((*lead, din, dout), generator=generator, dtype=dtype,
+                       device=device).mul_(scale)
 
 
 def init_linear(generator: torch.Generator, din: int, dout: int, *,
                 bias: bool = False, dtype=torch.float32,
-                device="cpu") -> Params:
+                device="cpu", lead: tuple = ()) -> Params:
     """``w`` ~ N(0, 1/din) of shape (din, dout), drawn from ``generator``
     (which must live on ``device``); a zero bias when asked."""
-    w = torch.randn((din, dout), generator=generator, dtype=dtype,
-                    device=device) * (1.0 / math.sqrt(din))
-    p = {"w": w}
+    p = {"w": _dense_init(generator, din, dout, dtype=dtype, device=device,
+                          lead=lead)}
     if bias:
-        p["b"] = torch.zeros((dout,), dtype=dtype, device=device)
+        p["b"] = torch.zeros((*lead, dout), dtype=dtype, device=device)
     return p
 
 
@@ -58,14 +119,19 @@ def linear(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return y
 
 
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
 def init_norm(cfg: ModelConfig, d: Optional[int] = None,
-              device="cpu") -> Params:
+              device="cpu", lead: tuple = ()) -> Params:
     d = d or cfg.d_model
     if cfg.norm == "layernorm":
-        return {"scale": torch.ones((d,), device=device),
-                "bias": torch.zeros((d,), device=device)}
+        return {"scale": torch.ones((*lead, d), device=device),
+                "bias": torch.zeros((*lead, d), device=device)}
     init = torch.zeros if cfg.gemma_style else torch.ones
-    return {"scale": init((d,), device=device)}
+    return {"scale": init((*lead, d), device=device)}
 
 
 def norm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -81,6 +147,41 @@ def norm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         scale = (1.0 + p["scale"]) if cfg.gemma_style else p["scale"]
         y = y * scale
     return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope(x: torch.Tensor, pos: torch.Tensor, theta: float,
+         fraction: float = 1.0) -> torch.Tensor:
+    """Rotary embedding on the leading ``fraction`` of each head's dims.
+
+    x: (B, S, H, Dh); pos: (B, S) absolute positions.  The frequencies and
+    angles are float32; the rotation acts on the two halves of the rotated
+    dims (not on interleaved pairs).  ``fraction=0.5`` is chatglm3's
+    2D-RoPE (half the dims stay unrotated)."""
+    d = x.shape[-1]
+    d_rot = int(d * fraction)
+    d_rot -= d_rot % 2
+    xr, xp = x[..., :d_rot], x[..., d_rot:]
+    half = d_rot // 2
+    f32 = torch.float32
+    expo = true_divide(-torch.arange(0, half, dtype=f32, device=x.device),
+                       half)
+    freqs = torch.pow(torch.full((), theta, dtype=f32, device=x.device), expo)
+    ang = pos[:, :, None, None].to(f32) * freqs[None, None, None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = xr[..., :half], xr[..., half:]
+    rotated = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                        dim=-1).to(x.dtype)
+    return torch.cat([rotated, xp], dim=-1) if d_rot < d else rotated
+
+
+# ---------------------------------------------------------------------------
+# activations (exact ↔ Taylor per config — contribution C2)
+# ---------------------------------------------------------------------------
 
 
 def act_fn(x: torch.Tensor, cfg: ModelConfig,
@@ -100,3 +201,427 @@ def act_fn(x: torch.Tensor, cfg: ModelConfig,
     if base == "silu":
         return ty.silu_taylor(x, cfg.taylor_order)
     return ty.gelu_taylor(x, cfg.taylor_order)
+
+
+def softmax_fn(x: torch.Tensor, cfg: ModelConfig, axis: int = -1
+               ) -> torch.Tensor:
+    if cfg.attention_impl == "taylor_linear":
+        return ty.taylor_softmax(x, order=2, axis=axis)
+    return torch.softmax(x, dim=axis)
+
+
+# ---------------------------------------------------------------------------
+# MLP (gated / plain)
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(generator: torch.Generator, cfg: ModelConfig,
+             d_ff: Optional[int] = None, *, device="cpu",
+             lead: tuple = ()) -> Params:
+    d_ff = d_ff or cfg.d_ff
+    kw = dict(device=device, lead=lead)
+    p = {"up": init_linear(generator, cfg.d_model, d_ff, **kw)}
+    if cfg.activation in ("silu", "geglu"):
+        p["gate"] = init_linear(generator, cfg.d_model, d_ff, **kw)
+    p["down"] = init_linear(generator, d_ff, cfg.d_model, **kw)
+    return p
+
+
+def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    up = linear(p["up"], x, cfg)
+    if "gate" in p:
+        h = act_fn(linear(p["gate"], x, cfg), cfg) * up
+    else:
+        h = act_fn(up, cfg)
+    return linear(p["down"], h, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Attention — GQA/MQA full + decode + Taylor-linear
+# ---------------------------------------------------------------------------
+
+
+def init_attention(generator: torch.Generator, cfg: ModelConfig, *,
+                   device="cpu", lead: tuple = ()) -> Params:
+    kw = dict(device=device, lead=lead)
+    return {
+        "wq": init_linear(generator, cfg.d_model, cfg.q_dim,
+                          bias=cfg.qkv_bias, **kw),
+        "wk": init_linear(generator, cfg.d_model, cfg.kv_dim,
+                          bias=cfg.qkv_bias, **kw),
+        "wv": init_linear(generator, cfg.d_model, cfg.kv_dim,
+                          bias=cfg.qkv_bias, **kw),
+        "wo": init_linear(generator, cfg.q_dim, cfg.d_model, **kw),
+    }
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, H_kv, D) → (B, S, H_kv·n_rep, D): query head ``i`` reads KV
+    head ``i // n_rep`` (each KV head repeated in place, not tiled)."""
+    if n_rep == 1:
+        return k
+    return torch.repeat_interleave(k, n_rep, dim=2)
+
+
+_ATTN_CHUNK = 512  # flash-style block size
+
+
+def _sdpa_causal(q, k, v, cfg: ModelConfig, q_pos0: int = 0) -> torch.Tensor:
+    """Causal attention. q: (B,Sq,H,D), k/v: (B,Sk,H_kv,D).
+
+    Short sequences use the exact materialized form; sequences longer than
+    one 512-block (with as many keys as queries) use the flash/online-softmax
+    chunked form (`_sdpa_causal_chunked`), so the S×S probability matrix
+    never exists."""
+    if q.shape[1] > _ATTN_CHUNK and q.shape[1] == k.shape[1]:
+        return _sdpa_causal_chunked(q, k, v, cfg)
+    n_rep = q.shape[2] // k.shape[2]
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
+    sq, sk = q.shape[1], k.shape[1]
+    qi = torch.arange(sq, device=q.device)[:, None] + q_pos0
+    ki = torch.arange(sk, device=q.device)[None, :]
+    logits = logits.masked_fill(~(qi >= ki)[None, None], _NEG)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _sdpa_causal_chunked(q, k, v, cfg: ModelConfig,
+                         chunk: int = _ATTN_CHUNK) -> torch.Tensor:
+    """Flash attention (online softmax, ``models/flash.py``): the peak
+    attention temporary is one (B, H, chunk, chunk) tile.  ``q`` is scaled
+    by 1/√d rounded to its dtype."""
+    from .flash import flash_attention
+    n_rep = q.shape[2] // k.shape[2]
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    scale = torch.full((), 1.0 / math.sqrt(q.shape[-1]), dtype=q.dtype,
+                       device=q.device)
+    out = flash_attention((q * scale).transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), True, chunk)
+    return out.transpose(1, 2)
+
+
+def _sdpa_decode(q, k_cache, v_cache, pos, cfg: ModelConfig) -> torch.Tensor:
+    """One-token attention against a KV cache. q: (B,1,H,D); caches
+    (B,S_max,H_kv,D); ``pos``: (B,) current position (tokens < pos valid,
+    plus the current token already written at ``pos``)."""
+    n_rep = q.shape[2] // k_cache.shape[2]
+    k = _repeat_kv(k_cache, n_rep)
+    v = _repeat_kv(v_cache, n_rep)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
+    valid = (torch.arange(k.shape[1], device=q.device)[None, :]
+             <= pos.to(q.device)[:, None])  # (B, S)
+    logits = logits.masked_fill(~valid[:, None, None, :], _NEG)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+# ---- fixed-point KV cache (paper C1 applied to the decode bottleneck) ------
+
+
+def maybe_quantize_kv(x: torch.Tensor, cfg: ModelConfig):
+    """Return cache-resident representation of new K/V entries."""
+    if cfg.kv_cache_bits == 0:
+        return x
+    codes, scale = qz.absmax_quantize(x, bits=cfg.kv_cache_bits, axis=-1)
+    return {"codes": codes, "scale": scale.to(torch.float32)}
+
+
+def dequantize_kv(c, dtype):
+    if isinstance(c, dict):
+        return (c["codes"].to(torch.float32) * c["scale"]).to(dtype)
+    return c
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, *,
+                  device="cpu") -> Params:
+    shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.kv_cache_bits:
+        def leaf():
+            return {"codes": torch.zeros(shape, dtype=torch.int8,
+                                         device=device),
+                    "scale": torch.zeros((*shape[:-1], 1),
+                                         dtype=torch.float32, device=device)}
+        return {"k": leaf(), "v": leaf()}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _cache_write(cache_leaf, new, pos):
+    """Write (B,1,...) ``new`` at time ``pos`` into a copy of the (B,S,...)
+    cache, placing the start as the reference's ``dynamic_update_slice``
+    does: a negative position counts from the end once, then the start is
+    clamped into [0, S-1] (a position past the end writes the last slot)."""
+    def upd(buf, val):
+        out = buf.clone()
+        s = buf.shape[1]
+        p = pos.to(device=buf.device, dtype=torch.long)
+        p = torch.where(p < 0, p + s, p).clamp(0, s - 1)
+        out[torch.arange(buf.shape[0], device=buf.device), p] = val[:, 0].to(
+            buf.dtype)
+        return out
+    if isinstance(cache_leaf, dict):
+        return {k: upd(cache_leaf[k], new[k]) for k in cache_leaf}
+    return upd(cache_leaf, new)
+
+
+def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+              pos: Optional[torch.Tensor] = None,
+              cache: Optional[Params] = None,
+              ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Unified attention: train/prefill (cache=None → full causal) or decode
+    (cache given, x is (B,1,D), pos (B,))."""
+    b, s, _ = x.shape
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = linear(p["wq"], x, cfg).reshape(b, s, h, dh)
+    k = linear(p["wk"], x, cfg).reshape(b, s, hkv, dh)
+    v = linear(p["wv"], x, cfg).reshape(b, s, hkv, dh)
+    if pos is not None:
+        pos = torch.as_tensor(pos, device=x.device)
+    if cfg.use_rope:
+        if pos is None:
+            pos_arr = torch.arange(s, device=x.device)[None].expand(b, s)
+        else:
+            pos_arr = pos[:, None] if pos.dim() == 1 else pos
+        q = rope(q, pos_arr, cfg.rope_theta, cfg.rope_fraction)
+        k = rope(k, pos_arr, cfg.rope_theta, cfg.rope_fraction)
+
+    if cache is None:
+        if cfg.attention_impl == "taylor_linear":
+            out = taylor_linear_attention(q, k, v)
+        else:
+            out = _sdpa_causal(q, k, v, cfg)
+        new_cache = None
+    else:
+        kq = maybe_quantize_kv(k, cfg)
+        vq = maybe_quantize_kv(v, cfg)
+        cache = {"k": _cache_write(cache["k"], kq, pos),
+                 "v": _cache_write(cache["v"], vq, pos)}
+        k_full = dequantize_kv(cache["k"], x.dtype)
+        v_full = dequantize_kv(cache["v"], x.dtype)
+        out = _sdpa_decode(q, k_full, v_full, pos, cfg)
+        new_cache = cache
+    out = out.reshape(b, s, h * dh)
+    return linear(p["wo"], out, cfg), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Taylor-softmax linear attention (C2 → sub-quadratic)
+# ---------------------------------------------------------------------------
+
+
+def taylor_linear_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, chunk: int = 256
+                            ) -> torch.Tensor:
+    """Causal linear attention with the order-2 Taylor-exp feature map.
+
+    φ(x) = [1, x, vec(x⊗x)/√2] ⇒ φ(q)·φ(k) = 1 + q·k + (q·k)²/2 ≥ 0, so
+    softmax's exp is replaced by its quadratic Taylor polynomial and the
+    attention matrix never materializes.  q,k,v: (B,S,H,D); a chunked scan
+    over S carries the state (B,H,f,D) in ``q``'s dtype."""
+    n_rep = q.shape[2] // k.shape[2]
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    b, s, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    q = (q * scale).transpose(1, 2)  # (B,H,S,D)
+    k = (k * scale).transpose(1, 2)
+    v = v.transpose(1, 2)
+
+    fq, fk = ty.taylor_attention_kernel(q, k)  # (B,H,S,F)
+    f = fq.shape[-1]
+    pad = (-s) % chunk
+    if pad:
+        fq, fk, v = (F.pad(t, (0, 0, 0, pad)) for t in (fq, fk, v))
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=q.dtype,
+                                device=q.device))
+    s_kv = torch.zeros((b, h, f, d), dtype=q.dtype, device=q.device)
+    s_k = torch.zeros((b, h, f), dtype=q.dtype, device=q.device)
+    outs = []
+    for i in range(0, fq.shape[2], chunk):
+        fq_c, fk_c, v_c = (t[:, :, i:i + chunk] for t in (fq, fk, v))
+        qk = torch.einsum("bhqf,bhkf->bhqk", fq_c, fk_c) * tri
+        num = torch.einsum("bhqk,bhkd->bhqd", qk, v_c) + torch.einsum(
+            "bhqf,bhfd->bhqd", fq_c, s_kv)
+        den = qk.sum(-1) + torch.einsum("bhqf,bhf->bhq", fq_c, s_k)
+        outs.append(num / torch.clamp_min(den, 1e-6)[..., None])
+        s_kv = s_kv + torch.einsum("bhkf,bhkd->bhfd", fk_c, v_c)
+        s_k = s_k + fk_c.sum(2)
+    out = torch.cat(outs, dim=2)
+    return out[:, :, :s].transpose(1, 2)  # (B,S,H,D)
+
+
+def init_taylor_linear_cache(cfg: ModelConfig, batch: int, dtype=None, *,
+                             device="cpu") -> Params:
+    """The Taylor feature-map state, float32 whatever ``dtype`` (kept for
+    the reference's signature)."""
+    d = cfg.head_dim
+    f = 1 + d + d * d
+    return {"s_kv": torch.zeros((batch, cfg.n_heads, f, d), device=device),
+            "s_k": torch.zeros((batch, cfg.n_heads, f), device=device)}
+
+
+def taylor_linear_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                         cache: Params, pos: torch.Tensor,
+                         ) -> Tuple[torch.Tensor, Params]:
+    """O(1)-per-token decode with the Taylor feature-map state."""
+    b, s, _ = x.shape  # s == 1
+    h, dh = cfg.n_heads, cfg.head_dim
+    q = linear(p["wq"], x, cfg).reshape(b, s, h, dh)
+    k = linear(p["wk"], x, cfg).reshape(b, s, cfg.n_kv_heads, dh)
+    v = linear(p["wv"], x, cfg).reshape(b, s, cfg.n_kv_heads, dh)
+    if cfg.use_rope:
+        pos_arr = torch.as_tensor(pos, device=x.device)[:, None]
+        q = rope(q, pos_arr, cfg.rope_theta, cfg.rope_fraction)
+        k = rope(k, pos_arr, cfg.rope_theta, cfg.rope_fraction)
+    n_rep = h // cfg.n_kv_heads
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    scale = 1.0 / math.sqrt(dh)
+    f32 = torch.float32
+    fq, fk = ty.taylor_attention_kernel((q[:, 0] * scale).to(f32),
+                                        (k[:, 0] * scale).to(f32))
+    s_kv = cache["s_kv"] + torch.einsum("bhf,bhd->bhfd", fk,
+                                        v[:, 0].to(f32))
+    s_k = cache["s_k"] + fk
+    num = torch.einsum("bhf,bhfd->bhd", fq, s_kv)
+    den = torch.clamp_min(torch.einsum("bhf,bhf->bh", fq, s_k), 1e-6)
+    out = (num / den[..., None]).to(x.dtype).reshape(b, 1, h * dh)
+    return linear(p["wo"], out, cfg), {"s_kv": s_kv, "s_k": s_k}
+
+
+# ---------------------------------------------------------------------------
+# MoE — GShard-style grouped dense dispatch
+# ---------------------------------------------------------------------------
+
+_MOE_GROUP = 512  # tokens per dispatch group (bounds dispatch-tensor size)
+
+
+def init_moe(generator: torch.Generator, cfg: ModelConfig, *, device="cpu",
+             lead: tuple = ()) -> Params:
+    e, d, dff = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    g = generator
+
+    def stack(din, dout, scale):
+        return torch.randn((*lead, e, din, dout), generator=g,
+                           device=device).mul_(scale)
+
+    p = {
+        "router": {"w": _dense_init(g, d, e, device=device, lead=lead)},
+        "w_gate": stack(d, dff, 1.0 / math.sqrt(d)),
+        "w_up": stack(d, dff, 1.0 / math.sqrt(d)),
+        "w_down": stack(dff, d, 1.0 / math.sqrt(dff)),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(g, cfg, d_ff=cfg.moe_d_ff * cfg.n_shared_experts,
+                               device=device, lead=lead)
+    return p
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """One-hot over the last axis; an index outside [0, n) gives a zero row,
+    as ``jax.nn.one_hot`` does."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k``: the k largest along the last axis, ties toward
+    the lower index (a stable descending sort)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+_MOE_LEAVES = (("router", "w"), ("w_gate",), ("w_up",), ("w_down",))
+
+
+def _refuse_quantized_moe(p: Params) -> None:
+    for path in _MOE_LEAVES:
+        leaf = p
+        for key in path:
+            leaf = leaf[key]
+        if isinstance(leaf, tuple):
+            name = "".join(f"[{key!r}]" for key in path)
+            raise ValueError(
+                f"moe_ffn: the MoE leaf {name} is a quantized (codes, scale) "
+                "pair; the reference has no integer MoE path (its einsum "
+                "fails on the pair), so keep the router and expert stacks "
+                "float (quantize_tree's skip)")
+
+
+def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-choice top-k MoE with grouped dense dispatch (the GShard
+    formulation: every step is a batched GEMM).
+
+    x: (T, D) flattened tokens → (out, aux_loss).  Tokens go in groups of
+    ≤512 (right-padded) with per-group expert capacity
+    C = min(S, max(4, ⌈S·k·cf/E⌉)); overflow tokens are dropped (the
+    residual path carries them).  The combine weights accumulate slot by
+    slot in ``x``'s dtype and a token is dispatched where its weight is
+    > 0.  The router's softmax obeys the Taylor mode (C2)."""
+    _refuse_quantized_moe(p)
+    t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    sg = min(_MOE_GROUP, t)
+    pad = (-t) % sg
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+    g = x.shape[0] // sg
+    xg = constrain_batch(x.reshape(g, sg, d))  # groups shard over data
+    cap = max(4, int(math.ceil(sg * k * cfg.moe_capacity_factor / e)))
+    cap = min(cap, sg)
+    dt = xg.dtype
+    f32 = torch.float32
+
+    logits = torch.einsum("gsd,de->gse", xg.to(f32), p["router"]["w"])
+    probs = softmax_fn(logits, cfg, axis=-1)
+    gates, idx = _top_k(probs, k)  # (G,S,k)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+
+    # load-balancing auxiliary loss (Switch-style), on slot 0's choice
+    density = _one_hot(idx[..., 0], e, f32).mean((0, 1))
+    aux = e * torch.sum(density * probs.mean((0, 1)))
+
+    # position of each (token, slot) in its expert's capacity buffer
+    flat = _one_hot(idx, e, torch.int32).reshape(g, sg * k, e)
+    pos_all = torch.cumsum(flat, dim=1) - 1  # (G,S*k,E)
+    keep_all = ((pos_all < cap) & (flat > 0)).reshape(g, sg, k, e)
+    pos_all = pos_all.reshape(g, sg, k, e)
+    # accumulate combine weights slot by slot: one (G,S,E,C) tensor
+    combine = torch.zeros((g, sg, e, cap), dtype=dt, device=x.device)
+    for j in range(k):
+        e_j = idx[..., j:j + 1]  # (G,S,1)
+        pos_j = torch.gather(pos_all[:, :, j], -1, e_j)[..., 0]
+        keep_j = torch.gather(keep_all[:, :, j], -1, e_j)[..., 0]
+        w_j = gates[..., j] * keep_j.to(gates.dtype)  # (G,S)
+        eoh = _one_hot(e_j[..., 0], e, dt)
+        coh = _one_hot(pos_j, cap, dt)
+        combine = combine + torch.einsum(
+            "gse,gsc->gsec", eoh * w_j[..., None].to(dt), coh)
+    combine = constrain(combine, ["batch", None, None, None])
+    dispatch = (combine > 0).to(dt)
+
+    # dispatch → batched expert GEMMs → combine (expert parallelism when E
+    # divides the model axis; one device here)
+    ep = mesh_axis_size("model") > 1 and e % mesh_axis_size("model") == 0
+    spec4 = (["model", "batch", None, None] if ep
+             else [None, "all", None, None])
+    row_spec = ["model", "batch", None] if ep else [None, "all", None]
+    xin = constrain(torch.einsum("gsec,gsd->egcd", dispatch, xg), spec4)
+    xin = constrain(xin.reshape(e, g * cap, d), row_spec)
+    gate_h = constrain(torch.einsum("ecd,edf->ecf", xin,
+                                    p["w_gate"].to(dt)), row_spec)
+    up_h = torch.einsum("ecd,edf->ecf", xin, p["w_up"].to(dt))
+    h = act_fn(gate_h, cfg, "silu") * up_h
+    eout = torch.einsum("ecf,efd->ecd", h, p["w_down"].to(dt))
+    eout = constrain(constrain(eout, row_spec).reshape(e, g, cap, d), spec4)
+    out = torch.einsum("egcd,gsec->gsd", eout, combine)
+
+    out = constrain_batch(out).reshape(-1, d)[:t]
+    if "shared" in p:
+        out = out + mlp(p["shared"], x[:t], cfg)
+    return out, aux

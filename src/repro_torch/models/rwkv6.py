@@ -25,15 +25,16 @@ form; decode is the O(d²) recurrent step.  The chunked form has two routes
     chunk-GEMM operands rounded to bf16, float32 accumulation and state.
 
 Parameters are a dict with the reference's paths; ``params["blocks"]``
-carries a leading layer axis (the reference's vmapped init), so a tree
-converted leaf by leaf from the reference, or quantized by
-``core.quantize.quantize_tree`` (``(codes, scale)`` pairs), runs as is.
+carries a leading layer axis (the reference's vmapped init; read one layer
+with ``layers.layer_params``), so a tree converted leaf by leaf from the
+reference, or quantized by ``core.quantize.quantize_tree``
+(``(codes, scale)`` pairs), runs as is.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +45,7 @@ from ..core.losses import chunked_cross_entropy
 from ..distributed.constrain import constrain_batch
 from ..kernels import ops
 from . import layers as L
+from .layers import layer_params, stack_layers
 
 __all__ = ["WKV_ROUTES", "check_wkv", "init", "forward", "loss_fn",
            "prefill", "init_caches", "decode_step", "time_mix",
@@ -55,33 +57,6 @@ _LORA_RANK = 32
 _CHUNK = 64
 #: the two formulations of the chunked WKV (see the module docstring)
 WKV_ROUTES = ("scan", "chunked")
-
-
-# ---------------------------------------------------------------------------
-# the layer axis
-# ---------------------------------------------------------------------------
-
-
-def layer_params(tree, i: int):
-    """Layer ``i`` of a tree whose tensors carry a leading layer axis;
-    ``(codes, scale)`` pairs stay pairs."""
-    if isinstance(tree, dict):
-        return {k: layer_params(v, i) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(layer_params(v, i) for v in tree)
-    return tree[i]
-
-
-def stack_layers(trees: List):
-    """The inverse of :func:`layer_params`: stack per-layer trees along a
-    new leading axis."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: stack_layers([t[k] for t in trees]) for k in first}
-    if isinstance(first, (list, tuple)):
-        return type(first)(stack_layers([t[j] for t in trees])
-                           for j in range(len(first)))
-    return torch.stack(trees)
 
 
 # ---------------------------------------------------------------------------

@@ -1191,3 +1191,140 @@ def test_serve_cli_on_card(card, tmp_path):
         assert r.returncode == 0, r.stderr
         names.append(sorted(json.loads(path.read_text())["metrics"]))
     assert names[0] == names[1]
+
+
+# ---------------------------------------------------------------------------
+# the transformer families on the card
+# ---------------------------------------------------------------------------
+
+
+def test_qwen2_two_layers_full_width_on_card_matches_cpu_port(card):
+    """qwen2-1.5b at full width (d_model 1536, 12 × 128 heads, 2 KV heads,
+    d_ff 8960, vocab 151936), 2 layers, float32: forward and prefill on
+    the card against the CPU port on the same parameters, 1e-3 relative
+    (summation order only), at T=64 and at T=640 (the padded flash
+    route)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    cfg = get_config("qwen2-1.5b").replace(n_layers=2, dtype="float32")
+    params = transformer.init(torch.Generator(device=card).manual_seed(0),
+                              cfg, device=card)
+    on_cpu = _tree_to(params, "cpu")
+    rng = np.random.default_rng(0)
+    for t in (64, 640):
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, t)))
+        got, _ = transformer.forward(params, tok.to(card), cfg)
+        want, _ = transformer.forward(on_cpu, tok, cfg)
+        assert _rel(got, want) < 1e-3
+        assert _rel(transformer.prefill(params, tok.to(card), cfg),
+                    transformer.prefill(on_cpu, tok, cfg)) < 1e-3
+
+
+def test_quantized_transformer_prefill_launches_equal_plain(card):
+    """A reduced qwen2 quantized by quantize_tree: 7 W8A8 launches per
+    layer on the card, no layout copy, each output equal to the plain
+    version on the operands the path gave it; logits within 2e-2 of the
+    CPU port (an activation may round to the neighbouring int8 code)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model, transformer
+    cfg = reduced(get_config("qwen2-1.5b")).replace(dtype="float32")
+    params = transformer.init(torch.Generator().manual_seed(1), cfg,
+                              device="cpu")
+    q = tq.quantize_tree(params)
+    tok = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 37)))
+    wrapper, calls = fmm.fixedpoint_matmul, []
+
+    def recorded(xc, wc, xs, ws):
+        out = wrapper(xc, wc, xs, ws)
+        calls.append(torch.equal(out, ops.fixedpoint_matmul(
+            xc, wc, xs, ws, backend="ref")))
+        return out
+
+    fmm.reset_launches()
+    fmm.fixedpoint_matmul = recorded
+    try:
+        got = build_model(cfg, device=card).prefill(_tree_to(q, card),
+                                                    tokens=tok.to(card))
+    finally:
+        fmm.fixedpoint_matmul = wrapper
+    torch.cuda.synchronize()
+    assert fmm.launches["fixedpoint_matmul"] == 7 * cfg.n_layers
+    assert fmm.relayouts["fixedpoint_matmul"] == 0
+    assert len(calls) == 7 * cfg.n_layers and all(calls)
+    want = build_model(cfg, device="cpu").prefill(q, tokens=tok)
+    assert _rel(got, want) < 2e-2
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "granite-moe-3b-a800m"])
+def test_transformer_lm_server_on_card_matches_cpu_port(card, arch):
+    """Greedy tokens on the card equal the CPU port's (float32, reduced);
+    a same-structure install keeps trace_count at 1."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import LMServer
+    from repro_torch.models import transformer
+    cfg = reduced(get_config(arch)).replace(dtype="float32")
+    params = transformer.init(torch.Generator().manual_seed(2), cfg,
+                              device="cpu")
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 6))
+    srv = LMServer(cfg, batch=2, max_seq=16)  # the card by default
+    srv.install("m", _tree_to(params, card))
+    cpu = LMServer(cfg, batch=2, max_seq=16, device="cpu")
+    cpu.install("m", params)
+    np.testing.assert_array_equal(srv.generate("m", prompt, 5),
+                                  cpu.generate("m", prompt, 5))
+    srv.install("m", transformer.init(
+        torch.Generator(device=card).manual_seed(3), cfg, device=card))
+    srv.generate("m", prompt, 3)
+    assert srv.trace_count == 1
+
+
+def test_mla_absorbed_matches_expanded_on_card(card):
+    """deepseek-v2's MLA (reduced, float32) on the card: the absorbed
+    decode equals the expanded form within the reference's 2e-3, and both
+    equal the CPU port's within 1e-4."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import mla
+    cfg = reduced(get_config("deepseek-v2-236b")).replace(dtype="float32")
+    p = mla.init_mla(torch.Generator().manual_seed(4), cfg)
+    x = torch.as_tensor(np.random.default_rng(4).normal(
+        size=(2, 6, cfg.d_model)).astype(np.float32)) * 0.3
+    pc = _tree_to(p, card)
+    full, _ = mla.mla_attention(pc, x.to(card), cfg)
+    assert _rel(full, mla.mla_attention(p, x, cfg)[0]) < 1e-4
+    cache = mla.init_mla_cache(cfg, 2, 6, torch.float32, device=card)
+    outs = []
+    for t in range(6):
+        o, cache = mla.mla_attention(pc, x[:, t:t + 1].to(card), cfg,
+                                     pos=torch.full((2,), t, device=card),
+                                     cache=cache)
+        outs.append(o[:, 0])
+    assert _rel(torch.stack(outs, 1), full) < 2e-3
+
+
+def test_int8_kv_cache_decode_on_card_matches_cpu_port(card):
+    """chatglm3 (reduced, float32) with the int8 KV cache: 8 decode steps
+    on the card and on the CPU port; logits within 1e-4, greedy tokens
+    and the cached codes equal."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import transformer
+    cfg = reduced(get_config("chatglm3-6b")).replace(dtype="float32",
+                                                     kv_cache_bits=8)
+    params = transformer.init(torch.Generator().manual_seed(5), cfg,
+                              device="cpu")
+    tok = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 8)))
+    runs = []
+    for dev, p in ((card, _tree_to(params, card)), ("cpu", params)):
+        caches = transformer.init_caches(cfg, 2, 8, device=dev)
+        steps = []
+        for t in range(8):
+            logits, caches = transformer.decode_step(
+                p, caches, tok[:, t:t + 1].to(dev),
+                torch.full((2,), t, device=dev), cfg)
+            steps.append(logits[:, 0].cpu())
+        runs.append((torch.stack(steps, 1), caches))
+    (got, gc), (want, wc) = runs
+    assert _rel(got, want) < 1e-4
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+    assert torch.equal(gc["k"]["codes"].cpu(), wc["k"]["codes"])

@@ -60,6 +60,8 @@ def _run(imports: str):
     "import repro_torch.serve.fabric, repro_torch.serve.reflex, "
     "repro_torch.launch.mesh",
     "from repro_torch.launch.serve import ShardedPacketServer, main",
+    "import repro_torch.models.transformer, repro_torch.models.mla, "
+    "repro_torch.models.flash",
     "sys.path.insert(0, '.'); import chip_smoke",
 ])
 def test_port_imports_no_jax_and_no_reference(imports):
@@ -103,3 +105,14 @@ def test_lm_entry_points_without_a_card_raise():
         build_model(cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         rwkv6.init_caches(cfg, 2)
+    from repro_torch.models import transformer
+    for arch in ("qwen2-1.5b", "deepseek-v2-236b", "pixtral-12b"):
+        cfg = reduced(get_config(arch))
+        with pytest.raises(RuntimeError, match="cuda"):
+            LMServer(cfg)
+        with pytest.raises(RuntimeError, match="cuda"):
+            build_model(cfg)
+        with pytest.raises(RuntimeError, match="cuda"):
+            transformer.init(torch.Generator(), cfg)
+        with pytest.raises(RuntimeError, match="cuda"):
+            transformer.init_caches(cfg, 2, 8)

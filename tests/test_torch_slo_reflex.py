@@ -15,7 +15,9 @@ tolerance):
   * bounded drains return with ``PacketError(DRAIN_TIMEOUT)`` slots — on a
     wedged pipeline, on a fabric with one wedged shard, and (the port's
     own path) on a batch whose completion event never fires in the window
-    or that the ``"overload"`` site holds past it;
+    or that the ``"overload"`` site holds past it; on that last input the
+    reference's drain sleeps out the hold instead (reference fault R7,
+    both outcomes pinned);
   * the ``"overload"`` site keeps shedding local to its shard;
   * ``ReflexConfirmer`` agreement equals the reference's, and confirmation
     is credit-neutral.
@@ -29,6 +31,8 @@ from repro.core.control_plane import ControlPlane as JCP
 from repro.core.inference import DataPlaneEngine as JEngine
 from repro.core.ingress import IngressPipeline as JPipeline
 from repro.launch.serve import PacketServer as JServer
+from repro.serve import FaultPlan as JFaultPlan
+from repro.serve import FaultSpec as JFaultSpec
 from repro.serve import ReflexProgram as JProgram
 from repro.serve import ShardedPacketServer as JFabric
 from repro.serve import reflex_oracle as j_reflex_oracle
@@ -545,6 +549,61 @@ def test_fabric_drain_bounds_an_overloaded_shard():
     assert not any(isinstance(out[i], PacketError) for i in range(16, 32))
     assert fab.shards[0].pipeline.stats["ingress_drain_timeouts_total"] == 1
     assert fab.shards[1].pipeline.stats["ingress_drain_timeouts_total"] == 0
+
+
+def test_overloaded_shard_drain_differs_from_reference_r7():
+    """Reference fault R7, pinned on both packages with the input of
+    ``test_fabric_drain_bounds_an_overloaded_shard``: 2 shards, the
+    ``"overload"`` site at ``slowdown=200`` on shard 0 over an EWMA of 2 ms
+    (a 0.398 s hold), 16 packets per shard, ``timeout_us=20_000``.  The
+    reference's drain is "best-effort by one step": it sleeps out the hold
+    and serves shard 0's packets late, past its window, and the healthy
+    shard 1, left no window, comes back as ``DRAIN_TIMEOUT`` slots.  The
+    port returns shard 0's packets as ``DRAIN_TIMEOUT`` slots within the
+    window and serves shard 1.  Both fabrics serve one batch per shard
+    first, so that no compile time (the reference's jit) runs down the
+    hold."""
+    import time
+
+    from repro.core.ingress import PacketError as JPacketError
+    fab = _fabric(2)
+    jfab = JFabric(n_shards=2, max_width=WIDTH, frac_bits=FRAC,
+                   ingress_batch=16, max_inflight=2)
+    rng = np.random.default_rng(7)
+    jfab.install(1, _layers(rng), ["relu"], final_activation="sigmoid")
+    jfab.install_feature_spec(1, tuple(range(8)) * (WIDTH // 8))
+    outs, secs = [], []
+    for f, plan in ((fab, FaultPlan([FaultSpec(
+            site="overload", shard=0, slowdown=200.0, count=FOREVER)])),
+                    (jfab, JFaultPlan([JFaultSpec(
+                        site="overload", shard=0, slowdown=200.0,
+                        count=FOREVER)]))):
+        warm = np.random.default_rng(4)
+        for _ in range(2):
+            f.submit_packets(_wire(warm, 16, mid=1)[0])
+        assert len(f.drain_packets()) == 32
+        for sh in f.shards:
+            sh.pipeline.dispatch_cost_ewma = 2e-3
+        plan.install(f)
+        rng = np.random.default_rng(5)
+        f.submit_packets(_wire(rng, 16, mid=1)[0])   # shard 0
+        f.submit_packets(_wire(rng, 16, mid=1)[0])   # shard 1
+        t0 = time.perf_counter()
+        outs.append(f.drain_packets(timeout_us=20_000.0))
+        secs.append(time.perf_counter() - t0)
+    out, jout = outs
+    assert len(out) == len(jout) == 32
+    # the port: shard 0's slots time out inside the window, shard 1 serves
+    assert all(out[i].reason == DRAIN_TIMEOUT for i in range(16))
+    assert not any(isinstance(o, PacketError) for o in out[16:])
+    assert secs[0] < 0.3
+    # the reference: shard 0 served after the 0.398 s hold, shard 1 not
+    assert not any(isinstance(o, JPacketError) for o in jout[:16])
+    assert all(isinstance(o, JPacketError) and o.reason == DRAIN_TIMEOUT
+               for o in jout[16:])
+    assert secs[1] >= 0.39
+    assert [sh.pipeline.stats["ingress_drain_timeouts_total"]
+            for f in (fab, jfab) for sh in f.shards] == [1, 0, 0, 1]
 
 
 # ---------------------------------------------------------------------------
