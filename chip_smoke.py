@@ -32,7 +32,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                copies), both weight layouts (one counted copy for a
                row-major w), raw int8 codes at unit
                scales against an exact int64 product (K = 8960 at splits
-               1–35) and a bfloat16 activation; the Taylor activation against
+               1–35), a bfloat16 activation, and the shapes of the hybrid
+               and encoder–decoder paths (zamba2's in_dt N = 80 and in_bc
+               N = 128, in_z, out_proj K = 5120, the shared MLP's up and
+               down K = 10240 with split-K at decode-sized M; whisper's
+               attention and MLP) at M ∈ {1, 8, 8192}; the Taylor activation against
                its plain version at orders 1/3/5/7 × x_frac 0/8/12/16 over
                1 to 2048·8960 codes that straddle its clamp, and a case
                whose Horner products wrap int32; the WKV chunk scan (float,
@@ -146,7 +150,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                (prefill 4 × 2048, the MoE layers' device time split by the
                profiler into expert GEMMs and routing, dispatch and
                combine); pixtral-12b at full width cut to 4 layers
-               (prefill 4 × (256 patches + 1792 tokens)).
+               (prefill 4 × (256 patches + 1792 tokens)).  Then LM slice
+               C: zamba2-2.7b at full width and depth (54 Mamba-2 layers,
+               the shared block after every 6, seeded float32 parameters,
+               bf16 activations): the prefill on 4 × 2048 tokens (no kernel
+               of the port's own; the 54 SSD calls and the 9 shared-block
+               attentions timed by CUDA events), LMServer(batch=8,
+               max_seq=256) with a same-structure hot swap (trace_count
+               flat), the quantized prefill at full depth (324
+               fixedpoint_matmul launches, each equal to the plain version
+               on the path's operands, no layout copy; NMSE at one group
+               below 0.15) and long_500k (taylor_linear, batch 1: 16
+               decode_steps up to position 2^19 with the state's bytes
+               constant and no KV cache); whisper-base at full width and
+               depth: prefill(frames=) on 8 × (1500 frames + 448 tokens)
+               with its attention forms timed, precompute_cross and 64
+               greedy decode_steps at batch 8, the quantized prefill (96
+               launches, each equal to the plain version); and in float32
+               on the card against the CPU port zamba2 cut to one group
+               (forward, prefill, decode with full and Taylor-linear
+               attention) and whisper at full depth (forward, prefill,
+               decode after precompute_cross), 1e-3, decode against
+               forward within the reference's 0.08 and 0.03.
   5. numbers — per-kernel time (CUDA events: per call as the path issues
                it, and queued behind a device sleep, device only), the
                plain version's time, the least time the card could take
@@ -168,7 +193,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                the share of the wall inside FlowFrontend.extract; for the
                LM path prefill and generate tokens per second and the WKV
                kernel's share of the prefill; for the transformer path
-               prefill and decode tokens per second.
+               prefill and decode tokens per second; for slice C the GEMM
+               at its new shapes (M = 8192, 12000 for whisper, and 8)
+               beside torch._int_mm + the rescale in turns, and each
+               family's prefill and decode rates and the SSD and attention
+               shares.
 
 Output: a JSON line of per-kernel numbers, the card's name and power limit,
 and, as the last line, {"ok": true, "device": {...}}.  Imports nothing of
@@ -228,8 +257,10 @@ from repro_torch.serve import (FaultPlan, FaultSpec,  # noqa: E402
                                ReflexProgram, reflex_oracle)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import encdec as ED  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import mla as MLA  # noqa: E402
+from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import rwkv6, transformer  # noqa: E402
 from repro_torch.models.layers import layer_params  # noqa: E402
 
@@ -3036,6 +3067,526 @@ def run_transformer_path(dev, card: str) -> dict:
     return dict(qwen=qwen, moe=moe, pixtral=pix)
 
 
+# ---------------------------------------------------------------------------
+# LM slice C: the Zamba2 hybrid (Mamba-2/SSD) and the Whisper encoder–decoder
+# ---------------------------------------------------------------------------
+
+# zamba2-2.7b at its own width and depth (src/repro/configs/zamba2_2_7b.py:
+# 54 Mamba-2 layers, d_model 2560, 80 SSD heads of 64, state 64, and one
+# shared block of 32 heads of 80 with a GELU MLP of 10240 after every 6;
+# vocab 32000, bf16 activations, float32 parameters); prefill on B sequences
+# of T seeded tokens, so the SSD runs 32 chunks of 64 per layer
+ZAMBA_ARCH = "zamba2-2.7b"
+ZAMBA_BATCH, ZAMBA_SEQ = 4, 2048
+ZAMBA_GEMMS = (5, 6)  # W8A8 GEMMs per Mamba layer, per shared-block application
+# long_500k (src/repro/configs/base.py SHAPES): batch 1 at 2^19 positions,
+# the shared block on Taylor-linear attention; 16 decode steps up to 2^19
+LONG_POS, LONG_STEPS = 524_288 - 16, 16
+# whisper-base at its own width and depth (src/repro/configs/whisper_base.py:
+# 6 + 6 layers, d_model 512, 8 heads of 64, d_ff 2048, vocab 51865, 1500
+# frames); 448 decoder tokens, Whisper's own text context
+WHISPER_ARCH = "whisper-base"
+WHISPER_GEMMS = (6, 10)  # per encoder layer; per decoder layer (self 4,
+#                          cross wq/wo 2, cross K/V 2, MLP 2)
+WHISPER_BATCH, WHISPER_TOKENS, WHISPER_DECODE = 8, 448, 64
+SLICE_C_CARD_VS_CPU = 1e-3  # float32: summation order only
+ZAMBA_DECODE_VS_FORWARD = 0.08  # the reference's (tests/test_arch_smoke.py:139)
+WHISPER_DECODE_VS_FORWARD = 0.03
+# the GEMM shapes these two paths add, (K, N): zamba2's in_dt (the first
+# weight narrower than the kernel's 128-wide tile), in_bc, in_z/in_x,
+# out_proj, the shared MLP's up and down (split-K at decode-sized M);
+# whisper's attention, MLP up and MLP down
+SLICE_C_SHAPES = {"zamba2 in_dt": (2560, 80), "zamba2 in_bc": (2560, 128),
+                  "zamba2 in_z": (2560, 5120), "zamba2 out_proj": (5120, 2560),
+                  "zamba2 up": (2560, 10240), "zamba2 down": (10240, 2560),
+                  "whisper wq": (512, 512), "whisper up": (512, 2048),
+                  "whisper down": (2048, 512)}
+
+
+def check_slice_c_gemms(dev) -> float:
+    """The kernel at the new shapes of the hybrid and encoder–decoder paths,
+    at M ∈ {1, 8, 8192}, against its plain version."""
+    worst = 0.0
+    for name, (k, n) in SLICE_C_SHAPES.items():
+        for m in (1, 8, ZAMBA_BATCH * ZAMBA_SEQ):
+            worst = max(worst, check_gemm(name, *gemm_operands(
+                SEED + 60 + m + k + n, m, k, n, dev)))
+    return worst
+
+
+def checked_quantized_prefill(label: str, fn, want: int) -> tuple:
+    """``fn()`` (a quantized prefill) with the launch counters zeroed right
+    before and read right after: exactly ``want`` W8A8 launches and nothing
+    else, every call equal to the plain version on its own operands, no
+    layout copy.  Returns the logits and the record."""
+    record = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    with checked_gemms(record):
+        out = fn()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in read_launches().items() if v}
+    if got != {"fixedpoint_matmul": want}:
+        raise SystemExit(f"{label}: launches {got}, expected "
+                         f"fixedpoint_matmul {want}")
+    if fmm.relayouts["fixedpoint_matmul"] or record["row_major"]:
+        raise SystemExit(f"{label}: GEMM layout copies {fmm.relayouts}, "
+                         f"row-major codes {record['row_major']}")
+    if record["calls"] != want or record["differ"]:
+        raise SystemExit(f"{label}: {record['calls']} GEMM calls, "
+                         f"{record['differ']} differ from the plain version")
+    log(f"kernel fixedpoint_matmul {label}, the path's own operands "
+        f"(K-major slices of the stacked codes): launches {got}, GEMM layout "
+        f"copies 0; all {record['calls']} calls equal to the plain version "
+        f"at (M, K, N) {record['shapes']} (max_abs_err {record['err']})")
+    return out, record
+
+
+@contextlib.contextmanager
+def event_ranges(module, name: str, events: list, tag=None):
+    """CUDA events around every call of ``module.name`` in the run (start
+    and end on the current stream, with ``tag(*args)`` when given), by
+    patching the module's function."""
+    fn = getattr(module, name)
+
+    def timed(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*a, **kw)
+        end.record()
+        events.append((start, end, tag(*a) if tag else name))
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def event_ms(events: list) -> dict:
+    """Summed milliseconds of ``event_ranges``' events by tag."""
+    out = {}
+    for start, end, tag in events:
+        out[tag] = out.get(tag, 0.0) + start.elapsed_time(end)
+    return out
+
+
+def run_zamba2_full(dev, card: str) -> dict:
+    """zamba2-2.7b at full width and depth: the bf16 prefill (no kernel of
+    the port's own; the SSD scans' share by CUDA events), ``LMServer`` with
+    a same-structure hot swap, the quantized prefill with every projection
+    on the W8A8 kernel, and ``long_500k``'s Taylor-linear decode."""
+    cfg = get_config(ZAMBA_ARCH)
+    g = torch.Generator(device=dev).manual_seed(SEED + 70)
+    params = SSM.init(g, cfg, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (ZAMBA_BATCH, ZAMBA_SEQ),
+                           generator=g, device=dev)
+    n_params = tree_numel(params)
+    model = build_model(cfg, device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    logits = model.prefill(params, tokens=tokens)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_launches().items() if v}
+    if launches:
+        raise SystemExit(f"{ZAMBA_ARCH} float prefill launched {launches}: "
+                         "expected no kernel of the port's own")
+    check_logits(f"{ZAMBA_ARCH} prefill", logits,
+                 (ZAMBA_BATCH, 1, cfg.vocab_size))
+    t0 = time.perf_counter()
+    model.prefill(params, tokens=tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    events = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with event_ranges(SSM, "_ssd_chunked", events), \
+            event_ranges(TL, "_sdpa_causal", events):
+        model.prefill(params, tokens=tokens)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    ms = event_ms(events)
+    ssd_ms, attn_ms = ms["_ssd_chunked"], ms["_sdpa_causal"]
+    ssd_share, attn_share = (v / (timed_s * 1e3) for v in (ssd_ms, attn_ms))
+    groups = cfg.n_layers // cfg.hybrid_attn_every
+    calls = [tag for *_, tag in events]
+    if (calls.count("_ssd_chunked"), calls.count("_sdpa_causal")) != (
+            cfg.n_layers, groups):
+        raise SystemExit(f"{ZAMBA_ARCH} prefill: {calls.count('_ssd_chunked')}"
+                         f" SSD and {calls.count('_sdpa_causal')} attention "
+                         f"calls, expected {cfg.n_layers} and {groups}")
+    log(f"path slice C prefill {ZAMBA_ARCH} ({cfg.n_layers} Mamba-2 layers + "
+        f"{cfg.n_layers // cfg.hybrid_attn_every} shared-block applications, "
+        f"d_model {cfg.d_model}, {n_params / 1e9:.3f}e9 float32 parameters, "
+        f"bf16 activations) on B={ZAMBA_BATCH} T={ZAMBA_SEQ}: last-position "
+        f"logits {tuple(logits.shape)}, finite; {prefill_s:.4f} s, "
+        f"{ZAMBA_BATCH * ZAMBA_SEQ / prefill_s:.0f} tokens/s (warm, host wall "
+        f"with the card synchronised); by CUDA events in a prefill of "
+        f"{timed_s:.4f} s: the {cfg.n_layers} SSD calls {ssd_ms:.2f} ms "
+        f"({ssd_share:.4f}), the {groups} shared-block attentions (flash "
+        f"route) {attn_ms:.2f} ms ({attn_share:.4f}) [{card}]")
+
+    # LMServer at full width and depth, with a same-structure hot swap
+    srv = LMServer(cfg, batch=8, max_seq=256, device=dev)
+    srv.install(ZAMBA_ARCH, params)
+    prompt = np.random.default_rng(SEED + 71).integers(0, cfg.vocab_size,
+                                                       (8, 16))
+    out = srv.generate(ZAMBA_ARCH, prompt, 32)
+    decode_tps = srv.tokens_per_second()
+    traces = srv.trace_count
+    params_b = SSM.init(torch.Generator(device=dev).manual_seed(SEED + 72),
+                        cfg, device=dev)
+    srv.install(ZAMBA_ARCH, params_b)
+    out_b = srv.generate(ZAMBA_ARCH, prompt, 4)
+    traces_b = srv.trace_count
+    del params_b, srv
+    free_card()
+    log(f"path slice C LMServer(batch=8, max_seq=256) {ZAMBA_ARCH} at full "
+        f"width and depth: 16-token prompt + 32 greedy tokens, then 4 after "
+        f"a same-structure install: trace_count {traces} then {traces_b}; "
+        f"{decode_tps:.1f} tokens/s (prompt and new tokens, one decode_step "
+        f"per position, host wall with the card synchronised) [{card}]")
+    if (out.shape != (8, 32) or out_b.shape != (8, 4) or out.min() < 0
+            or out.max() >= cfg.vocab_size or traces != 1 or traces_b != 1):
+        raise SystemExit(f"{ZAMBA_ARCH} LMServer: tokens {out.shape} "
+                         f"{out_b.shape}, trace_count {traces} {traces_b}")
+
+    # the quantized prefill at full depth: every projection on the kernel
+    q = tq.quantize_tree(params)
+    want = ZAMBA_GEMMS[0] * cfg.n_layers + ZAMBA_GEMMS[1] * groups
+    lq, record = checked_quantized_prefill(
+        f"{ZAMBA_ARCH} quantized prefill at full depth ({cfg.n_layers} "
+        f"layers, B={ZAMBA_BATCH} T={ZAMBA_SEQ})",
+        lambda: model.prefill(q, tokens=tokens), want)
+    check_logits(f"quantized {ZAMBA_ARCH} prefill", lq,
+                 (ZAMBA_BATCH, 1, cfg.vocab_size))
+    t0 = time.perf_counter()
+    model.prefill(q, tokens=tokens)
+    torch.cuda.synchronize()
+    q_prefill_s = time.perf_counter() - t0
+    del q, lq
+    free_card()
+    # NMSE against the float logits at one group, the reference's budget
+    cfg1 = cfg.replace(n_layers=cfg.hybrid_attn_every)
+    p1 = hybrid_slice(params, 1)
+    model1 = build_model(cfg1, device=dev)
+    q_nmse = nmse(model1.prefill(p1, tokens=tokens).float(),
+                  model1.prefill(tq.quantize_tree(p1), tokens=tokens).float())
+    log(f"path slice C quantized prefill {ZAMBA_ARCH}: {q_prefill_s:.4f} s at "
+        f"full depth, {ZAMBA_BATCH * ZAMBA_SEQ / q_prefill_s:.0f} tokens/s "
+        f"({want} W8A8 GEMMs); at one group NMSE of the last-position logits "
+        f"against the float prefill {q_nmse:.3e} (bound {LM_QUANT_NMSE}) "
+        f"[{card}]")
+    if not q_nmse < LM_QUANT_NMSE:
+        raise SystemExit(f"quantized {ZAMBA_ARCH} prefill: NMSE {q_nmse}")
+
+    # long_500k: batch 1, Taylor-linear shared attention, decode at 2^19
+    cfg_l = cfg.replace(attention_impl="taylor_linear")
+    model_l = build_model(cfg_l, device=dev)
+    caches = model_l.init_caches(1, 0)
+    state_bytes = tree_bytes(caches)
+    tok = torch.randint(0, cfg.vocab_size, (1, 1), generator=g, device=dev)
+    steps = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LONG_STEPS):
+        pos = torch.full((1,), LONG_POS + i, dtype=torch.int32, device=dev)
+        step, caches = model_l.decode_step(params, caches, tok, pos)
+        tok = step[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        steps.append(step)
+        if tree_bytes(caches) != state_bytes:
+            raise SystemExit(f"long_500k decode: the state grew from "
+                             f"{state_bytes} to {tree_bytes(caches)} bytes")
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    check_logits("long_500k decode", torch.cat(steps, 1),
+                 (1, LONG_STEPS, cfg.vocab_size))
+    kv = [k for k in caches["attn"] if k not in ("s_kv", "s_k")]
+    if kv:
+        raise SystemExit(f"long_500k decode: a KV cache {kv} in the state")
+    log(f"path slice C long_500k {ZAMBA_ARCH} (attention_impl taylor_linear, "
+        f"batch 1) at full depth: {LONG_STEPS} decode_steps at positions "
+        f"{LONG_POS}..{LONG_POS + LONG_STEPS - 1}, logits finite; the state "
+        f"{state_bytes / 2 ** 20:.1f} MiB before and after every step (the "
+        f"Mamba states and {groups} Taylor feature-map states, no KV cache); "
+        f"{LONG_STEPS / long_s:.1f} tokens/s [{card}]")
+    del params, logits, p1, caches
+    free_card()
+    return dict(gemm_launches=record["calls"], gemm_err=record["err"],
+                prefill_tokens_per_s=ZAMBA_BATCH * ZAMBA_SEQ / prefill_s,
+                quantized_prefill_tokens_per_s=(ZAMBA_BATCH * ZAMBA_SEQ
+                                                / q_prefill_s),
+                decode_tokens_per_s=decode_tps, ssd_share=ssd_share,
+                attention_share=attn_share,
+                long_tokens_per_s=LONG_STEPS / long_s)
+
+
+def hybrid_slice(params, groups: int):
+    """The first ``groups`` groups of a Zamba2 parameter tree."""
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return tree[:groups]
+
+    return {**params, "mamba": cut(params["mamba"])}
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def greedy_decode(model, params, caches, first, n: int, pos0: int = 0):
+    """``n`` greedy decode steps from the tokens ``first`` (B, 1); returns
+    the tokens and each step's logits."""
+    tok, toks, steps = first, [], []
+    for t in range(n):
+        pos = torch.full((tok.shape[0],), pos0 + t, dtype=torch.int32,
+                         device=tok.device)
+        logits, caches = model.decode_step(params, caches, tok, pos)
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(tok)
+        steps.append(logits)
+    return torch.cat(toks, 1), torch.cat(steps, 1)
+
+
+def run_whisper_full(dev, card: str) -> dict:
+    """whisper-base at full width and depth: the bf16 prefill on 8 ×
+    (1500 frames + 448 tokens), the encoder alone, ``precompute_cross`` and
+    64 greedy decode steps at batch 8, and the quantized prefill with every
+    projection on the W8A8 kernel."""
+    cfg = get_config(WHISPER_ARCH)
+    g = torch.Generator(device=dev).manual_seed(SEED + 80)
+    params = ED.init(g, cfg, device=dev)
+    b, t = WHISPER_BATCH, WHISPER_TOKENS
+    tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=g, device=dev)
+    frames = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=g,
+                         device=dev)
+    model = build_model(cfg, device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    logits = model.prefill(params, tokens=tokens, frames=frames)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_launches().items() if v}
+    if launches:
+        raise SystemExit(f"{WHISPER_ARCH} float prefill launched {launches}: "
+                         "expected no kernel of the port's own")
+    check_logits(f"{WHISPER_ARCH} prefill", logits, (b, 1, cfg.vocab_size))
+    t0 = time.perf_counter()
+    model.prefill(params, tokens=tokens, frames=frames)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ED.encode(params, frames, cfg)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    # the attention forms' shares: encoder self-attention and cross-
+    # attention (both materialized, told apart by the query length), the
+    # decoder's causal self-attention
+    events = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with event_ranges(ED, "_bidirectional", events, tag=lambda q, *_: (
+            "encoder" if q.shape[1] == cfg.encoder_seq else "cross")), \
+            event_ranges(TL, "_sdpa_causal", events):
+        model.prefill(params, tokens=tokens, frames=frames)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    shares = {k: v / (timed_s * 1e3) for k, v in event_ms(events).items()}
+    log(f"path slice C prefill {WHISPER_ARCH} ({cfg.n_encoder_layers} + "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{tree_numel(params) / 1e9:.4f}e9 float32 parameters, bf16 "
+        f"activations) on B={b} x ({cfg.encoder_seq} frames + {t} tokens): "
+        f"last-position logits {tuple(logits.shape)}, finite; "
+        f"{prefill_s:.4f} s, {b * (cfg.encoder_seq + t) / prefill_s:.0f} "
+        f"positions/s, {b * t / prefill_s:.0f} decoder tokens/s; the encoder "
+        f"alone {encode_s:.4f} s, {b * cfg.encoder_seq / encode_s:.0f} "
+        f"frames/s (warm, host wall with the card synchronised); by CUDA "
+        f"events in a prefill of {timed_s:.4f} s: encoder self-attention "
+        f"{shares['encoder']:.4f}, cross-attention {shares['cross']:.4f}, "
+        f"decoder self-attention {shares['_sdpa_causal']:.4f} [{card}]")
+
+    # the serving path: precompute_cross, then greedy decode_steps
+    caches = ED.precompute_cross(params, frames, cfg,
+                                 model.init_caches(b, WHISPER_DECODE))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, steps = greedy_decode(model, params, caches, tokens[:, :1],
+                                WHISPER_DECODE)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    check_logits(f"{WHISPER_ARCH} decode", steps,
+                 (b, WHISPER_DECODE, cfg.vocab_size))
+    log(f"path slice C decode {WHISPER_ARCH}: precompute_cross on B={b} x "
+        f"{cfg.encoder_seq} frames, then {WHISPER_DECODE} greedy decode_steps "
+        f"at batch {b}: {b * WHISPER_DECODE / decode_s:.1f} tokens/s (host "
+        f"wall with the card synchronised), logits finite [{card}]")
+
+    q = tq.quantize_tree(params)
+    want = (WHISPER_GEMMS[0] * cfg.n_encoder_layers
+            + WHISPER_GEMMS[1] * cfg.n_layers)
+    lq, record = checked_quantized_prefill(
+        f"{WHISPER_ARCH} quantized prefill at full depth (B={b} x "
+        f"({cfg.encoder_seq} frames + {t} tokens))",
+        lambda: model.prefill(q, tokens=tokens, frames=frames), want)
+    check_logits(f"quantized {WHISPER_ARCH} prefill", lq,
+                 (b, 1, cfg.vocab_size))
+    q_nmse = nmse(logits.float(), lq.float())
+    log(f"path slice C quantized prefill {WHISPER_ARCH} at full depth: NMSE "
+        f"of the last-position logits against the float prefill "
+        f"{q_nmse:.3e} (bound {LM_QUANT_NMSE}) [{card}]")
+    if not q_nmse < LM_QUANT_NMSE:
+        raise SystemExit(f"quantized {WHISPER_ARCH} prefill: NMSE {q_nmse}")
+    del params, q, caches
+    free_card()
+    return dict(gemm_launches=record["calls"], gemm_err=record["err"],
+                prefill_positions_per_s=b * (cfg.encoder_seq + t) / prefill_s,
+                prefill_tokens_per_s=b * t / prefill_s,
+                encoder_frames_per_s=b * cfg.encoder_seq / encode_s,
+                decode_tokens_per_s=b * WHISPER_DECODE / decode_s,
+                encoder_attention_share=shares["encoder"])
+
+
+def slice_c_card_vs_cpu(dev, card: str) -> None:
+    """Float32, the card against the CPU port on the same parameters:
+    zamba2 at full width cut to one group (6 Mamba-2 layers and the shared
+    block; forward and prefill at T = 100, two SSD chunks the last one
+    padded; 8 decode steps; 8 ``long_500k`` Taylor-linear decode steps at
+    2^19), and whisper at full depth (forward and prefill with 1500 frames;
+    ``precompute_cross`` and 8 decode steps).  Decode against forward on
+    the card within the reference's bounds."""
+    errs = {}
+    cfg = get_config(ZAMBA_ARCH)
+    cfg = cfg.replace(n_layers=cfg.hybrid_attn_every, dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(SEED + 90)
+    params = SSM.init(g, cfg, device=dev)
+    on_cpu = tree_to(params, "cpu")
+    tok = torch.randint(0, cfg.vocab_size, (2, 100), generator=g, device=dev)
+    for name, fn in (("forward", lambda p, t: SSM.forward(p, t, cfg)[0]),
+                     ("prefill", lambda p, t: SSM.prefill(p, t, cfg))):
+        errs[f"zamba2 {name}"] = card_vs_cpu(
+            f"{ZAMBA_ARCH} {name}", fn, params, on_cpu, (tok,), (tok.cpu(),))
+    decoded = {}
+    for impl, pos0 in (("full", 0), ("taylor_linear", LONG_POS)):
+        cfg_i = cfg.replace(attention_impl=impl)
+        runs = []
+        for p, d in ((params, dev), (on_cpu, "cpu")):
+            caches = SSM.init_caches(cfg_i, 2, 8, device=d)
+            steps = []
+            for t in range(8):
+                pos = torch.full((2,), pos0 + t, dtype=torch.int32, device=d)
+                step, caches = SSM.decode_step(p, caches,
+                                               tok[:, t:t + 1].to(d), pos,
+                                               cfg_i)
+                steps.append(step.cpu())
+            runs.append(torch.cat(steps, 1))
+        errs[f"zamba2 decode {impl}"] = rel_err(*runs)
+        decoded[impl] = runs[0]
+    full = SSM.forward(params, tok[:, :8], cfg)[0]
+    errs["zamba2 decode vs forward"] = rel_err(decoded["full"], full.cpu())
+    del params, on_cpu
+    free_card()
+
+    cfg = get_config(WHISPER_ARCH).replace(dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(SEED + 91)
+    params = ED.init(g, cfg, device=dev)
+    on_cpu = tree_to(params, "cpu")
+    tok = torch.randint(0, cfg.vocab_size, (2, 32), generator=g, device=dev)
+    frames = torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=g,
+                         device=dev)
+    for name, fn in (("forward", lambda p, t, f: ED.forward(
+            p, t, cfg, frames=f)[0]),
+                     ("prefill", lambda p, t, f: ED.prefill(
+                         p, t, cfg, frames=f))):
+        errs[f"whisper {name}"] = card_vs_cpu(
+            f"{WHISPER_ARCH} {name}", fn, params, on_cpu, (tok, frames),
+            (tok.cpu(), frames.cpu()))
+    runs = []
+    for p, d in ((params, dev), (on_cpu, "cpu")):
+        caches = ED.precompute_cross(p, frames.to(d), cfg,
+                                     ED.init_caches(cfg, 2, 8, device=d))
+        steps = []
+        for t in range(8):
+            pos = torch.full((2,), t, dtype=torch.int32, device=d)
+            step, caches = ED.decode_step(p, caches, tok[:, t:t + 1].to(d),
+                                          pos, cfg)
+            steps.append(step.cpu())
+        runs.append(torch.cat(steps, 1))
+    errs["whisper decode"] = rel_err(*runs)
+    full = ED.forward(params, tok[:, :8], cfg, frames=frames)[0]
+    errs["whisper decode vs forward"] = rel_err(runs[0], full.cpu())
+    del params, on_cpu
+    free_card()
+    log("path slice C card vs CPU port, float32: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (bounds: card vs CPU {SLICE_C_CARD_VS_CPU}, decode vs forward "
+        f"{ZAMBA_DECODE_VS_FORWARD} hybrid, {WHISPER_DECODE_VS_FORWARD} "
+        f"encdec) [{card}]")
+    for k, v in errs.items():
+        bound = (ZAMBA_DECODE_VS_FORWARD if k == "zamba2 decode vs forward"
+                 else WHISPER_DECODE_VS_FORWARD if k.endswith("vs forward")
+                 else SLICE_C_CARD_VS_CPU)
+        if not v < bound:
+            raise SystemExit(f"slice C {k}: {v} (bound {bound})")
+
+
+def run_slice_c_path(dev, card: str) -> dict:
+    """LM slice C: zamba2-2.7b and whisper-base at full width and depth,
+    then both in float32 on the card against the CPU port.  One model on
+    the card at a time."""
+    t0 = time.perf_counter()
+    zamba = run_zamba2_full(dev, card)
+    whisper = run_whisper_full(dev, card)
+    slice_c_card_vs_cpu(dev, card)
+    log(f"slice C path: {time.perf_counter() - t0:.1f} s")
+    return dict(zamba2=zamba, whisper=whisper)
+
+
+def slice_c_gemm_numbers(dev, card: str) -> dict:
+    """Phase 5 for the GEMM at the shapes slice C adds: at the prefill's
+    M (zamba2 4 × 2048, whisper's 8 × 1500 encoder rows) and at M = 8 (a
+    batch-8 decode), the kernel and torch._int_mm + the rescale (checked
+    equal) in turns, and the bound.  Returns ms per call by shape."""
+    rows = {}
+    for name, (k, n) in SLICE_C_SHAPES.items():
+        big = (WHISPER_BATCH * get_config(WHISPER_ARCH).encoder_seq
+               if name.startswith("whisper") else ZAMBA_BATCH * ZAMBA_SEQ)
+        for m in (big, 8):
+            xc, wc, xs, ws = gemm_operands(SEED + 61 + m + n, m, k, n, dev)
+            calls = {"kernel": lambda: fmm.fixedpoint_matmul(xc, wc, xs, ws)}
+            if m > 16:
+                def library():
+                    return (torch._int_mm(xc, wc).to(torch.float32) * xs) * ws
+
+                if not torch.equal(library(), calls["kernel"]()):
+                    raise SystemExit(f"torch._int_mm + rescale differs from "
+                                     f"the kernel ({name})")
+                calls["library"] = library
+            per_call = in_turns(calls, cuda_ms)
+            queued = in_turns(calls, queued_ms)
+            b_ms, b_by = gemm_bound(m, k, n)
+            split = fmm.plan(m, n, k, sms())
+            rows[f"{name} M={m}"] = dict(ms=per_call["kernel"],
+                                         queued_ms=queued["kernel"],
+                                         library_ms=per_call.get("library"),
+                                         bound_ms=b_ms)
+            lib = ("none (torch._int_mm needs M > 16)" if m <= 16 else
+                   f"{per_call['library']:.4f} ms ({queued['library']:.4f} "
+                   "queued)")
+            log(f"time fixedpoint_matmul {name} M={m} K={k} N={n}: kernel "
+                f"[wgmma, split {split}] {per_call['kernel']:.4f} ms per call "
+                f"({queued['kernel']:.4f} ms queued, device only), "
+                f"torch._int_mm + rescale {lib}, bound {b_ms:.6f} ms "
+                f"({b_by}); {2 * m * n * k / (queued['kernel'] * 1e9):.1f} "
+                f"TOP/s queued [{card}]")
+    return rows
+
+
 def main() -> int:
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3077,7 +3628,8 @@ def main() -> int:
     worst["flow_update"] = check_flow_kernels(dev)
     log(f"flow kernel checks: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    worst["fixedpoint_matmul"] = check_gemm_kernels(dev)
+    worst["fixedpoint_matmul"] = max(check_gemm_kernels(dev),
+                                     check_slice_c_gemms(dev))
     worst["taylor_activation"] = check_taylor_kernels(dev)
     log(f"C1/C2 kernel checks: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3118,6 +3670,10 @@ def main() -> int:
     tf = run_transformer_path(dev, smi)
     worst["fixedpoint_matmul"] = max(worst["fixedpoint_matmul"],
                                      tf["qwen"]["gemm_err"])
+    lmc = run_slice_c_path(dev, smi)
+    worst["fixedpoint_matmul"] = max(worst["fixedpoint_matmul"],
+                                     lmc["zamba2"]["gemm_err"],
+                                     lmc["whisper"]["gemm_err"])
 
     # -- 5. numbers -----------------------------------------------------------
     rng = np.random.default_rng(SEED + 2)
@@ -3196,15 +3752,20 @@ def main() -> int:
     kernels.append(entry)
     gemm, taylor = c1c2_numbers(dev, c1c2, worst, smi)
     # the GEMM's launches on every path that runs it: the C1/C2 layer, the
-    # quantized rwkv6 prefill (2 layers) and the quantized qwen2-1.5b
-    # prefill at full depth
+    # quantized rwkv6 prefill (2 layers) and the quantized qwen2-1.5b,
+    # zamba2-2.7b and whisper-base prefills at full depth
     by_path = {"C1/C2 layer": c1c2["launches"]["fixedpoint_matmul"],
                "rwkv6 quantized prefill": lm["gemm_launches"],
                "qwen2-1.5b quantized prefill": tf["qwen"]["launches"][
-                   "fixedpoint_matmul"]}
+                   "fixedpoint_matmul"],
+               "zamba2-2.7b quantized prefill": lmc["zamba2"][
+                   "gemm_launches"],
+               "whisper-base quantized prefill": lmc["whisper"][
+                   "gemm_launches"]}
     gemm["launches"] = sum(by_path.values())
     log(f"kernel fixedpoint_matmul launches by path: {by_path}")
     kernels.extend([gemm, taylor])
+    slice_c_gemm = slice_c_gemm_numbers(dev, smi)
     kernels.append(wkv_numbers(dev, lm, worst["wkv_scan"], smi))
     for label, p in path.items():
         kernel_s = sum(n * k_ms[k] * 1e-3 for k, n in p["launches"].items())
@@ -3241,7 +3802,29 @@ def main() -> int:
                               "dispatch_share"],
                           "pixtral_prefill_positions_per_s": tf["pixtral"][
                               "prefill_tokens_per_s"],
-                          "pixtral_layers": tf["pixtral"]["n_layers"]}}),
+                          "pixtral_layers": tf["pixtral"]["n_layers"]},
+                      "slice_c": {
+                          "zamba2_prefill_tokens_per_s": lmc["zamba2"][
+                              "prefill_tokens_per_s"],
+                          "zamba2_quantized_prefill_tokens_per_s": lmc[
+                              "zamba2"]["quantized_prefill_tokens_per_s"],
+                          "zamba2_decode_tokens_per_s": lmc["zamba2"][
+                              "decode_tokens_per_s"],
+                          "zamba2_ssd_share": lmc["zamba2"]["ssd_share"],
+                          "zamba2_attention_share": lmc["zamba2"][
+                              "attention_share"],
+                          "zamba2_long_500k_tokens_per_s": lmc["zamba2"][
+                              "long_tokens_per_s"],
+                          "whisper_prefill_positions_per_s": lmc["whisper"][
+                              "prefill_positions_per_s"],
+                          "whisper_encoder_frames_per_s": lmc["whisper"][
+                              "encoder_frames_per_s"],
+                          "whisper_decode_tokens_per_s": lmc["whisper"][
+                              "decode_tokens_per_s"],
+                          "whisper_encoder_attention_share": lmc["whisper"][
+                              "encoder_attention_share"],
+                          "gemm_ms": {k: v["ms"] for k, v in
+                                      slice_c_gemm.items()}}}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1002,10 +1002,31 @@ class ControlPlane:
                        else None)
             return ftables, rtables
 
+    def invalidate_snapshot(self) -> None:
+        """Drop every cached device snapshot (MLP, forest and range), so the
+        next ``tables()``, ``forest_tables()`` or ``range_tables()`` call
+        uploads from the host buffers again.  Normal operation never needs
+        it (the family counters invalidate a snapshot on every write); it
+        forces a fresh transfer for benchmarks and tests."""
+        with self._lock:
+            self._snapshot.clear()
+            self._forest_snapshot.clear()
+            self._range_snapshot.clear()
+
     @property
     def version(self) -> int:
         """Table generation — bumped by every install/remove swap."""
         return self._version
+
+    def table_bytes(self) -> int:
+        """Bytes of the host tables the data plane reads: the MLP and forest
+        families, and the range tables where the plane has them."""
+        bufs = [self._w, self._b, self._act, self._layer_on, self._out_dim,
+                self._id_map, self._f_nodes, self._f_tree_on, self._f_mode,
+                self._f_out_dim, self._f_id_map]
+        if self.range_available:
+            bufs += [self._r_feat, self._r_th, self._r_mask, self._r_payload]
+        return sum(t.numel() * t.element_size() for t in bufs)
 
 
 def tree_structure(tree):

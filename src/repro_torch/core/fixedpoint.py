@@ -57,6 +57,10 @@ class FixedPointFormat:
     signed: bool = True
 
     @property
+    def scale(self) -> float:
+        return float(2 ** self.frac_bits)
+
+    @property
     def qmin(self) -> int:
         return -(2 ** (self.total_bits - 1)) if self.signed else 0
 
@@ -71,6 +75,9 @@ class FixedPointFormat:
         if self.total_bits <= 16:
             return torch.int16
         return torch.int32
+
+    def with_frac_bits(self, frac_bits: int) -> "FixedPointFormat":
+        return dataclasses.replace(self, frac_bits=frac_bits)
 
 
 INT8 = FixedPointFormat(total_bits=8, frac_bits=6)

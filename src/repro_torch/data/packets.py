@@ -1,6 +1,9 @@
-"""Synthetic flow datasets and raw 5-tuple header traces.
+"""Synthetic flow datasets, feature-packet streams and raw 5-tuple header
+traces.
 
-Counterpart of ``repro.data.packets`` (``flow_features``,
+Counterpart of ``repro.data.packets`` (``PacketGenConfig`` and
+``packet_stream``, the endless stream of mixed-tenant feature packets;
+``flow_features``,
 ``anomaly_dataset``, ``qos_dataset`` for the tree-ensemble lane; the raw
 header codec ``encode_raw_headers``/``parse_raw_headers``,
 ``validate_raw_rows`` and the trace generator ``raw_trace`` for the flow
@@ -13,14 +16,25 @@ touches global RNG state.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Dict, Iterator, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["flow_features", "anomaly_dataset", "qos_dataset",
+from ..core.packet import encode_packets_np
+
+__all__ = ["PacketGenConfig", "packet_stream", "flow_features", "anomaly_dataset", "qos_dataset",
            "RAW_HEADER_BYTES", "RAW_KEY_BYTES", "RawHeaderBatch",
            "encode_raw_headers", "parse_raw_headers", "validate_raw_rows",
            "raw_trace"]
+
+
+@dataclasses.dataclass(frozen=True)
+class PacketGenConfig:
+    n_features: int = 8
+    batch: int = 1024
+    frac_bits: int = 8
+    model_ids: Tuple[int, ...] = (1,)
+    seed: int = 0
 
 
 def flow_features(rng: np.random.Generator, n: int, d: int) -> np.ndarray:
@@ -286,3 +300,18 @@ def raw_trace(rng: np.random.Generator, n_packets: int, *,
     return encode_raw_headers(flow_src[flow], flow_dst[flow], flow_sp[flow],
                               flow_dp[flow], flow_proto[flow],
                               flow_mid[flow], ts, length)
+
+
+def packet_stream(cfg: PacketGenConfig) -> Iterator[Dict]:
+    """Yields {'packets': uint8 (B, L), 'features': float32 (B, F),
+    'model_id': int32 (B,)} forever: flow features, then each packet's Model
+    ID drawn from ``cfg.model_ids``, then the codes
+    ``round(features · 2**frac_bits)`` — the reference's draws in its order,
+    so the packets are byte-identical to its stream for the same seed."""
+    rng = np.random.default_rng(cfg.seed)
+    while True:
+        feats = flow_features(rng, cfg.batch, cfg.n_features)
+        mids = rng.choice(cfg.model_ids, size=cfg.batch).astype(np.int32)
+        codes = np.round(feats * (1 << cfg.frac_bits)).astype(np.int32)
+        pkts = encode_packets_np(mids, cfg.frac_bits, codes)
+        yield {"packets": pkts, "features": feats, "model_id": mids}

@@ -1,11 +1,11 @@
 """Model substrate: the assigned LM architectures behind one API.  The
-transformer families (dense, MoE with MLA, VLM; their quantized
-projections run the hand-written W8A8 kernel) and RWKV-6 (its prefill runs
-the hand-written WKV kernel) are ported; the SSM and encoder-decoder
-families come with a later slice."""
+transformer families (dense, MoE with MLA, VLM), the Zamba2 hybrid of
+Mamba-2 layers and a shared attention block, and the Whisper
+encoder–decoder (their quantized projections run the hand-written W8A8
+kernel), and RWKV-6 (its prefill runs the hand-written WKV kernel)."""
 
-from . import api, flash, layers, mla, rwkv6, transformer
+from . import api, encdec, flash, layers, mla, rwkv6, ssm, transformer
 from .api import Model, build_model, params_from_numpy
 
-__all__ = ["api", "flash", "layers", "mla", "rwkv6", "transformer", "Model",
-           "build_model", "params_from_numpy"]
+__all__ = ["api", "encdec", "flash", "layers", "mla", "rwkv6", "ssm",
+           "transformer", "Model", "build_model", "params_from_numpy"]

@@ -1,10 +1,9 @@
 """Unified model API: ``build_model(cfg)`` → one object with the same entry
 points for every family.
 
-Counterpart of ``repro.models.api`` for the families the port has: the
-transformer families (dense, moe, vlm) and RWKV-6.  The others (hybrid,
-encdec) raise ``NotImplementedError`` naming the slice that brings them.
-The reference's dry-run helpers (``abstract_params``, ``abstract_caches``,
+Counterpart of ``repro.models.api`` for every family: the transformer
+families (dense, moe, vlm), RWKV-6, the Zamba2 hybrid (hybrid) and the
+Whisper encoder–decoder (encdec).  The reference's dry-run helpers (``abstract_params``, ``abstract_caches``,
 ``input_specs``) come with the distribution slice.
 
 ``params_from_numpy`` carries the reference's parameters across: a tree of
@@ -23,18 +22,11 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.inference import resolve_device
 from ..core.quantize import k_major_pairs
-from . import rwkv6, transformer
+from . import encdec, rwkv6, ssm, transformer
 
 __all__ = ["Model", "build_model", "params_from_numpy"]
 
 Params = Dict[str, Any]
-
-# families of later slices (ROADMAP §1)
-_LATER = {
-    "hybrid": "LM slice C (models/ssm.py)",
-    "encdec": "LM slice C (models/encdec.py)",
-}
-
 
 @dataclasses.dataclass
 class Model:
@@ -54,7 +46,8 @@ def build_model(cfg: ModelConfig, *, wkv: str = "scan",
     ignore it); ``device`` is where ``init`` and ``init_caches`` allocate
     (the card unless the caller asks for the CPU; raises when there is no
     card).  The VLM's ``prefill`` takes ``patch_embeds`` (B, n_patches,
-    d_model) beside ``tokens``."""
+    d_model) beside ``tokens``, the encoder–decoder's ``frames``
+    (B, encoder_seq, d_model)."""
     if cfg.family in ("dense", "moe", "vlm"):
         dev = resolve_device(device)
         return Model(
@@ -82,9 +75,32 @@ def build_model(cfg: ModelConfig, *, wkv: str = "scan",
                                                                cfg),
             init_caches=lambda b, s: rwkv6.init_caches(cfg, b, s, device=dev),
         )
-    if cfg.family in _LATER:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet: "
-                                  f"it comes with {_LATER[cfg.family]}")
+    if cfg.family == "hybrid":
+        dev = resolve_device(device)
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init=lambda g: ssm.init(g, cfg, device=dev),
+            loss_fn=lambda p, b: ssm.loss_fn(p, b, cfg),
+            prefill=lambda p, **inp: ssm.prefill(p, inp["tokens"], cfg),
+            decode_step=lambda p, c, t, pos: ssm.decode_step(p, c, t, pos,
+                                                             cfg),
+            init_caches=lambda b, s: ssm.init_caches(cfg, b, s, device=dev),
+        )
+    if cfg.family == "encdec":
+        dev = resolve_device(device)
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init=lambda g: encdec.init(g, cfg, device=dev),
+            loss_fn=lambda p, b: encdec.loss_fn(p, b, cfg),
+            prefill=lambda p, **inp: encdec.prefill(
+                p, inp["tokens"], cfg, frames=inp["frames"]),
+            decode_step=lambda p, c, t, pos: encdec.decode_step(p, c, t, pos,
+                                                                cfg),
+            init_caches=lambda b, s: encdec.init_caches(cfg, b, s,
+                                                        device=dev),
+        )
     raise ValueError(f"unknown family {cfg.family}")
 
 

@@ -37,6 +37,7 @@ from ..configs.base import ModelConfig
 from ..core import quantize as qz
 from ..core import taylor as ty
 from ..core.fixedpoint import true_divide
+from ..core.losses import chunked_cross_entropy
 from ..distributed.constrain import constrain, constrain_batch, mesh_axis_size
 
 __all__ = ["init_linear", "linear", "init_norm", "norm", "rope", "act_fn",
@@ -44,7 +45,7 @@ __all__ = ["init_linear", "linear", "init_norm", "norm", "rope", "act_fn",
            "maybe_quantize_kv", "dequantize_kv", "init_kv_cache",
            "taylor_linear_attention", "init_taylor_linear_cache",
            "taylor_linear_decode", "init_moe", "moe_ffn", "layer_params",
-           "stack_layers"]
+           "stack_layers", "embed_tokens", "tied_unembed", "tied_lm_loss"]
 
 Params = Dict[str, Any]
 _NEG = torch.finfo(torch.float32).min
@@ -75,6 +76,34 @@ def stack_layers(trees: List):
         return type(first)(stack_layers([t[j] for t in trees])
                            for j in range(len(first)))
     return torch.stack(trees)
+
+
+# ---------------------------------------------------------------------------
+# the tied embedding (RWKV-6, the hybrid, the encoder–decoder)
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(params: Params, tokens, cfg: ModelConfig) -> torch.Tensor:
+    """Rows of ``params["embed"]`` for ``tokens``, in the activation dtype."""
+    emb = params["embed"]
+    idx = torch.as_tensor(tokens, device=emb.device).long()
+    return emb[idx].to(getattr(torch, cfg.dtype))
+
+
+def tied_unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Logits through the tied embedding, in ``x``'s dtype."""
+    return x @ params["embed"].t().to(x.dtype)
+
+
+def tied_lm_loss(params: Params, x: torch.Tensor, batch) -> torch.Tensor:
+    """Cross-entropy of the final hidden states ``x`` against
+    ``batch["labels"]`` (under its optional ``mask``) through the tied
+    embedding, chunked so the (B, S, V) logits never materialize."""
+    labels = torch.as_tensor(batch["labels"], device=x.device)
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=x.device)
+    return chunked_cross_entropy(x, params["embed"].t(), labels, mask)
 
 
 # ---------------------------------------------------------------------------

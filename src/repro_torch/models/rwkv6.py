@@ -41,11 +41,12 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..core.inference import resolve_device
-from ..core.losses import chunked_cross_entropy
 from ..distributed.constrain import constrain_batch
 from ..kernels import ops
 from . import layers as L
+from .layers import embed_tokens as _embed
 from .layers import layer_params, stack_layers
+from .layers import tied_unembed as _unembed
 
 __all__ = ["WKV_ROUTES", "check_wkv", "init", "forward", "loss_fn",
            "prefill", "init_caches", "decode_step", "time_mix",
@@ -305,12 +306,6 @@ def block_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 
-def _embed(params: Params, tokens, cfg: ModelConfig) -> torch.Tensor:
-    emb = params["embed"]
-    idx = torch.as_tensor(tokens, device=emb.device).long()
-    return emb[idx].to(getattr(torch, cfg.dtype))
-
-
 def check_wkv(wkv: str) -> None:
     if wkv not in _WKV:
         raise ValueError(f"unknown wkv route {wkv!r}; choose from {WKV_ROUTES}")
@@ -326,10 +321,6 @@ def _trunk(params: Params, tokens, cfg: ModelConfig,
     return L.norm(params["final_norm"], x, cfg)
 
 
-def _unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
-    return x @ params["embed"].t().to(x.dtype)
-
-
 def forward(params: Params, tokens, cfg: ModelConfig, wkv: str = "scan"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     x = _trunk(params, tokens, cfg, wkv)
@@ -339,11 +330,7 @@ def forward(params: Params, tokens, cfg: ModelConfig, wkv: str = "scan"
 
 def loss_fn(params: Params, batch, cfg: ModelConfig, wkv: str = "scan"):
     x = _trunk(params, batch["tokens"], cfg, wkv)
-    labels = torch.as_tensor(batch["labels"], device=x.device)
-    mask = batch.get("mask")
-    if mask is not None:
-        mask = torch.as_tensor(mask, device=x.device)
-    ce = chunked_cross_entropy(x, params["embed"].t(), labels, mask)
+    ce = L.tied_lm_loss(params, x, batch)
     return ce, {"loss": ce, "ce": ce}
 
 

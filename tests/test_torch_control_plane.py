@@ -135,3 +135,55 @@ def test_tables_from_numpy_carries_reference_tables():
         np.testing.assert_array_equal(getattr(tt, k).numpy(),
                                       np.asarray(getattr(jt, k)))
         assert torch.equal(getattr(tt, k), getattr(own, k)), k
+
+
+def _forests(seed):
+    """One small trained forest in each package, on the same data."""
+    from repro.data.packets import anomaly_dataset
+    from repro.forest import compile as jcompile
+    from repro_torch.forest import compile as tcompile
+    X, y = anomaly_dataset(np.random.default_rng(seed), 256, 8)
+    kw = dict(n_trees=4, max_depth=3, seed=seed)
+    return tcompile.train_forest(X, y, **kw), jcompile.train_forest(X, y, **kw)
+
+
+@pytest.mark.parametrize("max_nodes", [64, 128])
+def test_table_bytes_matches_reference(max_nodes):
+    """The same host buffers counted after the same installs: the MLP and
+    forest families, and the range tables only where the plane has them
+    (max_nodes 64; not at 128, past the 32-leaf mask)."""
+    kw = dict(max_models=4, max_layers=3, max_width=12, max_forests=3,
+              max_trees=8, max_nodes=max_nodes)
+    tcp, jcp = TCP(**kw), JCP(**kw)
+    assert tcp.range_available == jcp.range_available == (max_nodes == 64)
+    assert tcp.table_bytes() == jcp.table_bytes()
+    rng = np.random.default_rng(5)
+    layers = _model(rng, [12, 8, 2])
+    tcp.install(3, layers, ["relu"])
+    jcp.install(3, layers, ["relu"])
+    tf, jf = _forests(6)
+    tcp.install_forest(9, tf)
+    jcp.install_forest(9, jf)
+    assert tcp.table_bytes() == jcp.table_bytes() > 0
+
+
+def test_invalidate_snapshot_forces_a_fresh_upload():
+    """Cached snapshots of all three families are dropped: the next read
+    builds new ones from the host buffers, equal to the old ones; without
+    a write or an invalidation the cache is kept."""
+    tcp = TCP(max_models=2, max_layers=2, max_width=8, max_forests=2,
+              max_trees=8, max_nodes=64)
+    tcp.install(1, _model(np.random.default_rng(7), [8, 4]), [])
+    tcp.install_forest(2, _forests(8)[0])
+    reads = (tcp.tables, tcp.forest_tables, tcp.range_tables)
+    before = [read("cpu") for read in reads]
+    assert all(read("cpu") is b for read, b in zip(reads, before))
+    version = tcp.version
+    tcp.invalidate_snapshot()
+    after = [read("cpu") for read in reads]
+    assert tcp.version == version
+    for old, new in zip(before, after):
+        assert new is not old
+        for f in old.__dataclass_fields__:
+            assert torch.equal(getattr(old, f), getattr(new, f)), f
+    assert all(read("cpu") is a for read, a in zip(reads, after))

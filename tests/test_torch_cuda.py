@@ -1328,3 +1328,143 @@ def test_int8_kv_cache_decode_on_card_matches_cpu_port(card):
     assert _rel(got, want) < 1e-4
     assert torch.equal(got.argmax(-1), want.argmax(-1))
     assert torch.equal(gc["k"]["codes"].cpu(), wc["k"]["codes"])
+
+
+# ---------------------------------------------------------------------------
+# LM slice C on the card: the Zamba2 hybrid and the Whisper encoder–decoder
+# ---------------------------------------------------------------------------
+
+
+def _slice_c_model(arch, card):
+    """``arch`` at full width, 2 layers (zamba2: one group of 2 Mamba-2
+    layers and the shared block; whisper: 2 + 2 layers, 1500 frames),
+    float32, seeded parameters on the card and a copy on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec, ssm
+    cfg = get_config(arch).replace(n_layers=2, dtype="float32")
+    if cfg.family == "hybrid":
+        cfg, mod = cfg.replace(hybrid_attn_every=2), ssm
+    else:
+        cfg, mod = cfg.replace(n_encoder_layers=2), encdec
+    params = mod.init(torch.Generator(device=card).manual_seed(0), cfg,
+                      device=card)
+    return cfg, mod, params, _tree_to(params, "cpu")
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "whisper-base"])
+def test_slice_c_two_layers_full_width_on_card_matches_cpu_port(card, arch):
+    """Forward and prefill (zamba2 at T = 100: two SSD chunks, the last one
+    padded; whisper with 1500 frames) and 6 decode steps (whisper after
+    ``precompute_cross``) on the card against the CPU port on the same
+    parameters, 1e-3 relative (summation order only)."""
+    cfg, mod, params, on_cpu = _slice_c_model(arch, card)
+    rng = np.random.default_rng(1)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 100)))
+    kw = {}
+    if cfg.family == "encdec":
+        kw["frames"] = torch.as_tensor(rng.normal(size=(
+            2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+
+    def on(dev):
+        return {k: v.to(dev) for k, v in kw.items()}
+
+    got, _ = mod.forward(params, tok.to(card), cfg, **on(card))
+    want, _ = mod.forward(on_cpu, tok, cfg, **kw)
+    assert _rel(got, want) < 1e-3
+    assert _rel(mod.prefill(params, tok.to(card), cfg, **on(card)),
+                mod.prefill(on_cpu, tok, cfg, **kw)) < 1e-3
+    runs = []
+    for dev, p in ((card, params), ("cpu", on_cpu)):
+        caches = mod.init_caches(cfg, 2, 6, device=dev)
+        if kw:
+            caches = mod.precompute_cross(p, kw["frames"].to(dev), cfg,
+                                          caches)
+        steps = []
+        for t in range(6):
+            logits, caches = mod.decode_step(
+                p, caches, tok[:, t:t + 1].to(dev),
+                torch.full((2,), t, dtype=torch.int32, device=dev), cfg)
+            steps.append(logits.cpu())
+        runs.append(torch.cat(steps, 1))
+    assert _rel(*runs) < 1e-3
+
+
+@pytest.mark.parametrize("m", [1, 8, 8192])
+@pytest.mark.parametrize("k,n", [(2560, 80), (2560, 128), (10240, 2560)])
+def test_fixedpoint_matmul_slice_c_shapes_equal_plain_version(card, m, k, n):
+    """zamba2's in_dt (N = 80, narrower than one 128-wide tile), in_bc
+    (N = 128) and the shared MLP's down projection (K = 10240: split-K at
+    decode-sized M): one launch each, equal to the plain version."""
+    xc, wc, xs, ws = _gemm_case(np.random.default_rng(m + k + n), m, k, n,
+                                card)
+    wc = tq.k_major(wc)
+    if k == 10240 and m <= 8:
+        assert fmm.plan(m, n, k, 132) > 1
+    before = fmm.launches["fixedpoint_matmul"]
+    got = fmm.fixedpoint_matmul(xc, wc, xs, ws)
+    assert fmm.launches["fixedpoint_matmul"] == before + 1
+    want = ops.fixedpoint_matmul(xc, wc, xs, ws, backend="ref")
+    torch.cuda.synchronize()
+    assert got.shape == (m, n) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "whisper-base"])
+def test_quantized_slice_c_prefill_launches_equal_plain(card, arch):
+    """The reduced hybrid (4 Mamba-2 layers × 5 projections + 2 shared-block
+    applications × 6) and encoder–decoder (2 × 6 + 2 × 10) quantized by
+    quantize_tree: 32 W8A8 launches each on the card, no layout copy, each
+    output equal to the plain version on the operands the path gave it;
+    logits within 2e-2 of the CPU port."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+    cfg = reduced(get_config(arch)).replace(dtype="float32")
+    model = build_model(cfg, device="cpu")
+    q = tq.quantize_tree(model.init(torch.Generator().manual_seed(1)))
+    rng = np.random.default_rng(1)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 37)))
+    kw = {}
+    if cfg.family == "encdec":
+        kw["frames"] = torch.as_tensor(rng.normal(size=(
+            2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    wrapper, calls = fmm.fixedpoint_matmul, []
+
+    def recorded(xc, wc, xs, ws):
+        out = wrapper(xc, wc, xs, ws)
+        calls.append(torch.equal(out, ops.fixedpoint_matmul(
+            xc, wc, xs, ws, backend="ref")))
+        return out
+
+    fmm.reset_launches()
+    fmm.fixedpoint_matmul = recorded
+    try:
+        got = build_model(cfg, device=card).prefill(
+            _tree_to(q, card), tokens=tok.to(card),
+            **{k: v.to(card) for k, v in kw.items()})
+    finally:
+        fmm.fixedpoint_matmul = wrapper
+    torch.cuda.synchronize()
+    assert fmm.launches["fixedpoint_matmul"] == 32
+    assert fmm.relayouts["fixedpoint_matmul"] == 0
+    assert len(calls) == 32 and all(calls)
+    assert _rel(got, model.prefill(q, tokens=tok, **kw)) < 2e-2
+
+
+def test_zamba2_lm_server_on_card_matches_cpu_port(card):
+    """Greedy tokens of the reduced hybrid (float32) on the card equal the
+    CPU port's; a same-structure install keeps trace_count at 1."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import LMServer
+    from repro_torch.models import ssm
+    cfg = reduced(get_config("zamba2-2.7b")).replace(dtype="float32")
+    params = ssm.init(torch.Generator().manual_seed(2), cfg, device="cpu")
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 6))
+    srv = LMServer(cfg, batch=2, max_seq=16)  # the card by default
+    srv.install("m", _tree_to(params, card))
+    cpu = LMServer(cfg, batch=2, max_seq=16, device="cpu")
+    cpu.install("m", params)
+    np.testing.assert_array_equal(srv.generate("m", prompt, 5),
+                                  cpu.generate("m", prompt, 5))
+    srv.install("m", ssm.init(torch.Generator(device=card).manual_seed(3),
+                              cfg, device=card))
+    srv.generate("m", prompt, 3)
+    assert srv.trace_count == 1

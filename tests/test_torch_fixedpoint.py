@@ -113,3 +113,18 @@ def test_scaled_constants_table4_and_centered():
         jtaylor.scaled_constants("sigmoid", 3, 12, center=1.5))
     assert (ttaylor.taylor_coefficients("sigmoid", 5, exact=True)
             == jtaylor.taylor_coefficients("sigmoid", 5, exact=True))
+
+
+@pytest.mark.parametrize("fmt", ["INT8", "INT16", "INT32"])
+@pytest.mark.parametrize("frac_bits", [0, 5, 16, 31])
+def test_format_scale_and_with_frac_bits_match(fmt, frac_bits):
+    """``scale`` is 2**frac_bits as a float; ``with_frac_bits`` keeps
+    every other field, as the reference's ``dataclasses.replace``."""
+    tf, jf = getattr(tfp, fmt), getattr(jfp, fmt)
+    assert tf.scale == jf.scale and isinstance(tf.scale, float)
+    tn, jn = tf.with_frac_bits(frac_bits), jf.with_frac_bits(frac_bits)
+    assert (tn.total_bits, tn.frac_bits, tn.offset, tn.signed) == (
+        jn.total_bits, jn.frac_bits, jn.offset, jn.signed)
+    assert tn.scale == jn.scale == float(2 ** frac_bits)
+    assert (tn.qmin, tn.qmax) == (jn.qmin, jn.qmax)
+    assert tf.frac_bits == jf.frac_bits  # the original is unchanged

@@ -62,6 +62,8 @@ def _run(imports: str):
     "from repro_torch.launch.serve import ShardedPacketServer, main",
     "import repro_torch.models.transformer, repro_torch.models.mla, "
     "repro_torch.models.flash",
+    "import repro_torch.models.ssm, repro_torch.models.encdec, "
+    "repro_torch.data.packets",
     "sys.path.insert(0, '.'); import chip_smoke",
 ])
 def test_port_imports_no_jax_and_no_reference(imports):
@@ -116,3 +118,22 @@ def test_lm_entry_points_without_a_card_raise():
             transformer.init(torch.Generator(), cfg)
         with pytest.raises(RuntimeError, match="cuda"):
             transformer.init_caches(cfg, 2, 8)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "whisper-base"])
+def test_hybrid_and_encdec_entry_points_without_a_card_raise(arch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default device works here")
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import LMServer
+    from repro_torch.models import build_model, encdec, ssm
+    cfg = reduced(get_config(arch))
+    module = ssm if cfg.family == "hybrid" else encdec
+    with pytest.raises(RuntimeError, match="cuda"):
+        LMServer(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        module.init(torch.Generator(), cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        module.init_caches(cfg, 2, 8)

@@ -92,3 +92,23 @@ def test_torch_wire_codec_matches(f, max_features):
                            torch.as_tensor(feats)).numpy(),
         np.asarray(jpk.encode_packets(jnp.asarray(mid), jnp.int32(9),
                                       jnp.asarray(feats))))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_packet_stream_byte_identical_to_reference(seed):
+    """``packet_stream`` draws in the reference's order (features, Model
+    IDs, codes) and builds the rows with the numpy codec: three batches of
+    each stream equal byte for byte, with their features and Model IDs."""
+    from repro.data.packets import PacketGenConfig as JConfig
+    from repro.data.packets import packet_stream as jstream
+    from repro_torch.data.packets import PacketGenConfig, packet_stream
+    kw = dict(n_features=16, batch=96, frac_bits=7 + seed,
+              model_ids=(1, 2, 300), seed=seed)
+    assert PacketGenConfig() == PacketGenConfig(8, 1024, 8, (1,), 0)
+    got, want = packet_stream(PacketGenConfig(**kw)), jstream(JConfig(**kw))
+    for _ in range(3):
+        g, w = next(got), next(want)
+        assert g["packets"].dtype == np.uint8
+        np.testing.assert_array_equal(g["packets"], np.asarray(w["packets"]))
+        np.testing.assert_array_equal(g["features"], w["features"])
+        np.testing.assert_array_equal(g["model_id"], w["model_id"])

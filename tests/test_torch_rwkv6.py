@@ -503,10 +503,29 @@ def test_quantized_prefill_matches_reference(jparams, tparams, wkv):
 
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "whisper-base"])
-def test_build_model_raises_for_families_not_ported(arch):
-    """The hybrid and encoder-decoder families come with a later slice."""
-    with pytest.raises(NotImplementedError, match="slice"):
-        build_model(reduced(get_config(arch)), device="cpu")
+def test_build_model_serves_hybrid_and_encdec_on_cpu(arch):
+    """Every family builds: the hybrid and the encoder-decoder run init,
+    init_caches, prefill (with ``frames`` for encdec), decode_step and
+    loss_fn on the CPU when asked, with finite outputs of the right
+    shapes."""
+    cfg = reduced(get_config(arch)).replace(dtype="float32")
+    model = build_model(cfg, device="cpu")
+    assert model.device == torch.device("cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    tok = rng.integers(0, cfg.vocab_size, (2, 6))
+    inputs = {}
+    if cfg.family == "encdec":
+        inputs["frames"] = rng.normal(
+            size=(2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    logits = model.prefill(params, tokens=tok, **inputs)
+    assert tuple(logits.shape) == (2, 1, cfg.vocab_size)
+    caches = model.init_caches(2, 8)
+    step, caches = model.decode_step(params, caches, tok[:, :1],
+                                     np.zeros((2,), np.int32))
+    assert tuple(step.shape) == (2, 1, cfg.vocab_size)
+    loss, _ = model.loss_fn(params, {"tokens": tok, "labels": tok, **inputs})
+    assert all(bool(torch.isfinite(t).all()) for t in (logits, step, loss))
 
 
 def test_build_model_rejects_unknown_route():

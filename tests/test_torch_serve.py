@@ -290,3 +290,30 @@ def test_quickstart_example_runs_on_cpu():
     res = mod.main("cpu")
     assert res["recompiles"] == 1 and res["table_generation"] == 2
     assert res["nmse"] < 0.15
+
+
+def _example(name):
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_inline_qos_serving_example_matches_reference_on_cpu(capsys):
+    """examples/pt_inline_qos_serving.py (three tenants, one serving
+    configuration, a mixed packet_stream) runs to OK on the CPU, and its
+    per-tenant lines — packet counts and prediction means of the last
+    batch — equal those of the reference's examples/inline_qos_serving.py."""
+    res = _example("pt_inline_qos_serving").main("cpu")
+    got = capsys.readouterr().out.splitlines()
+    _example("inline_qos_serving").main()
+    want = capsys.readouterr().out.splitlines()
+    assert got[-1] == want[-1] == "OK"
+    assert res["recompiles"] == 1 and res["table_generation"] == 3
+    tenants = [line for line in got if line.startswith("  tenant")]
+    assert len(tenants) == 3
+    assert tenants == [line for line in want if line.startswith("  tenant")]
+    assert res["egress"].dtype == np.uint8 and res["egress"].shape[0] == 2048
