@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py
 
@@ -171,7 +172,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                (forward, prefill, decode with full and Taylor-linear
                attention) and whisper at full depth (forward, prefill,
                decode after precompute_cross), 1e-3, decode against
-               forward within the reference's 0.08 and 0.03.
+               forward within the reference's 0.08 and 0.03.  Then LM
+               slice D, training (no kernel of the port's own on the
+               path: flash attention's backward and AdamW are PyTorch
+               ops): TrainLoop on qwen2-1.5b at full width and depth
+               (float32 parameters, bf16 activations, remat in groups of
+               4) on 4 × 2048 tokens a step, 6 steps with float32 moments
+               and 6 with int8 moments: every loss finite, step 1's equal
+               to loss_fn on the same batch (1e-6), tokens/s over steps
+               2–6, each step, the flash forward and backward and the
+               AdamW update timed by CUDA events, max_memory_allocated
+               per mode; build_model(cfg).loss_fn's gradients at full
+               width in float32 (qwen2-1.5b and granite-moe at 2 layers
+               on 520 tokens, rwkv6-3b at 2 layers, zamba2 cut to one
+               group on 520, whisper-base whole) against the CPU port,
+               every leaf within 1e-3 of its largest |g| (rwkv6 3e-2: its
+               bf16 cotangent rounding; MoE with the card's expert choices
+               replayed on the CPU, a differing choice only at a near
+               tie);
+               examples/pt_train_lm.py (≈100M parameters, segmented
+               order-3 Taylor, int8 moments) for 100 steps with a
+               checkpoint and restart at 50: the loss must fall.
   5. numbers — per-kernel time (CUDA events: per call as the path issues
                it, and queued behind a device sleep, device only), the
                plain version's time, the least time the card could take
@@ -197,7 +218,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                at its new shapes (M = 8192, 12000 for whisper, and 8)
                beside torch._int_mm + the rescale in turns, and each
                family's prefill and decode rates and the SSD and attention
-               shares.
+               shares; for training, tokens/s, step ms, the flash shares,
+               the AdamW ms and the peak memory of each moment mode.
 
 Output: a JSON line of per-kernel numbers, the card's name and power limit,
 and, as the last line, {"ok": true, "device": {...}}.  Imports nothing of
@@ -209,6 +231,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import importlib
+import importlib.util
 import json
 import math
 import os
@@ -263,6 +286,11 @@ from repro_torch.models import mla as MLA  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import rwkv6, transformer  # noqa: E402
 from repro_torch.models.layers import layer_params  # noqa: E402
+from repro_torch.configs.base import remat_group_size  # noqa: E402
+from repro_torch.core import tree as TREE  # noqa: E402
+from repro_torch.launch.train import TrainLoop  # noqa: E402
+from repro_torch.models import flash as FLASH  # noqa: E402
+from repro_torch.optim import adamw as ADAMW  # noqa: E402
 
 # the C1/C2 kernel modules (``repro_torch.kernels`` exports their wrappers,
 # which share the modules' names)
@@ -3547,6 +3575,255 @@ def run_slice_c_path(dev, card: str) -> dict:
     return dict(zamba2=zamba, whisper=whisper)
 
 
+# -- LM slice D: training -----------------------------------------------------
+
+# qwen2-1.5b at full width and depth (28 layers, d_model 1536, vocab
+# 151936, tied embeddings; float32 parameters, bf16 activations, remat in
+# groups of remat_group_size = 4): TrainLoop on 4 × 2048 tokens, so every
+# layer's attention takes the flash route (4 blocks of 512) both ways
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 6
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+# step 1's loss against loss_fn on the same batch and parameters, on the
+# card (the same operations, with and without autograd)
+TRAIN_STEP1_TOL = 1e-6
+# the loss_fn gradients, card vs CPU port, per leaf over the leaf's largest
+# |g|: float32 summation order.  RWKV-6: its chunk operands' cotangents are
+# rounded to bf16, as the reference's, so a last-bit difference upstream
+# moves an element by a bf16 step (2^-8), and the decay LoRA sums such
+# elements over the sequence (the first full-width run read 2.1e-2 at
+# w_base, 2.5e-3 at the projections).  MoE: top-k routing is
+# discontinuous, so the CPU replays the card's expert choices; a token the
+# CPU would route otherwise must be a near tie (probability gap below
+# GRAD_ROUTING_TIE; the first run found one at 7.5e-9)
+GRAD_CARD_VS_CPU = 1e-3
+GRAD_CARD_VS_CPU_RWKV = 3e-2
+GRAD_ROUTING_TIE = 1e-6
+GRAD_ARCHS = ("qwen2-1.5b", "granite-moe-3b-a800m", "rwkv6-3b",
+              "zamba2-2.7b", "whisper-base")
+GRAD_SEQ = 520  # crosses one 512-block: the flash backward over 2 blocks
+# examples/pt_train_lm.py on the card: steps (a checkpoint and restart
+# halfway), batch, sequence
+EXAMPLE_STEPS, EXAMPLE_BATCH, EXAMPLE_SEQ = 100, 8, 256
+
+
+def train_mode(dev, cfg, label: str, card: str) -> dict:
+    """``TrainLoop.run`` for TRAIN_STEPS steps with every step, flash
+    forward and backward and AdamW update timed by CUDA events (tagged
+    with the step they fall in); step 1's loss held to ``loss_fn`` on the
+    same batch and parameters."""
+    loop = TrainLoop(cfg, lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=100,
+                     global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, device=dev)
+    state0 = loop.init_state(0)
+    batch0 = {k: torch.as_tensor(v, device=dev)
+              for k, v in loop.stream.batch_at(0).items()}
+    with torch.no_grad():
+        want1 = float(loop.model.loss_fn(state0["params"], batch0)[0])
+    del state0, batch0
+    free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps, flash, adam = [], [], []
+
+    def at(kind):
+        return lambda *a, **kw: (kind, len(steps))
+
+    with event_ranges(loop, "_step", steps), \
+            event_ranges(FLASH, "_flash_fwd", flash, tag=at("forward")), \
+            event_ranges(FLASH, "_flash_bwd", flash, tag=at("backward")), \
+            event_ranges(ADAMW, "apply_updates", adam, tag=at("adamw")):
+        t0 = time.perf_counter()
+        state, hist = loop.run(max_steps=TRAIN_STEPS, log_every=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [h["loss"] for h in hist]
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise SystemExit(f"train {label}: losses {losses}")
+    step1 = abs(losses[0] - want1) / abs(want1)
+    if not step1 < TRAIN_STEP1_TOL:
+        raise SystemExit(f"train {label}: step 1 loss {losses[0]} against "
+                         f"loss_fn {want1} ({step1:.3e})")
+    step_ms = [a.elapsed_time(b) for a, b, _ in steps]
+    by = event_ms(flash + adam)
+    later = range(1, TRAIN_STEPS)  # steps 2..6
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # wall seconds at each logged step from the history's running rate
+    ends = [h["step"] * tokens / h["tokens_per_s"] for h in hist]
+    out = dict(
+        losses=losses, loss_fn=want1, step1_rel=step1, peak_bytes=peak,
+        tokens_per_s=tokens * len(later) / (ends[-1] - ends[0]),
+        step_ms=step_ms, wall_s=wall,
+        step_ms_later=statistics.mean(step_ms[k] for k in later),
+        flash_fwd_ms=statistics.mean(by.get(("forward", k), 0.0)
+                                     for k in later),
+        flash_bwd_ms=statistics.mean(by.get(("backward", k), 0.0)
+                                     for k in later),
+        adamw_ms=statistics.mean(by[("adamw", k)] for k in later),
+        flash_calls=(sum(t[0] == "forward" for *_, t in flash),
+                     sum(t[0] == "backward" for *_, t in flash)))
+    out["flash_fwd_share"] = out["flash_fwd_ms"] / out["step_ms_later"]
+    out["flash_bwd_share"] = out["flash_bwd_ms"] / out["step_ms_later"]
+    log(f"train {TRAIN_ARCH} {label} at full width and depth "
+        f"({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, remat groups of {remat_group_size(cfg)}), "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step: losses "
+        + ", ".join(f"{x:.6f}" for x in losses)
+        + f"; step 1 against loss_fn {want1:.6f} ({step1:.2e}); "
+        f"{out['tokens_per_s']:.1f} tokens/s over steps 2-{TRAIN_STEPS} "
+        f"(host wall); step {out['step_ms_later']:.2f} ms (CUDA events, "
+        f"steps 2-{TRAIN_STEPS}; step 1 {step_ms[0]:.2f} ms); flash forward "
+        f"{out['flash_fwd_ms']:.2f} ms ({out['flash_fwd_share']:.4f}) and "
+        f"backward {out['flash_bwd_ms']:.2f} ms ({out['flash_bwd_share']:.4f})"
+        f" a step ({out['flash_calls'][0]} forward and "
+        f"{out['flash_calls'][1]} backward calls in {TRAIN_STEPS} steps); "
+        f"AdamW update {out['adamw_ms']:.2f} ms; peak memory "
+        f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated) [{card}]")
+    del state, loop
+    free_card()
+    return out
+
+
+def grads_card_vs_cpu(dev, card: str) -> dict:
+    """``build_model(cfg).loss_fn``'s gradients at full width in float32 on
+    the card against the CPU port on the same parameters and batch, every
+    leaf: 2 layers (zamba2 one group, whisper whole), GRAD_SEQ tokens where
+    the family has causal attention (64 for rwkv6 and whisper's decoder,
+    with 1500 frames)."""
+    worst = {}
+    for i, arch in enumerate(GRAD_ARCHS):
+        t0 = time.perf_counter()
+        cfg = get_config(arch).replace(dtype="float32")
+        if cfg.family == "hybrid":
+            cfg = cfg.replace(n_layers=cfg.hybrid_attn_every)
+        elif cfg.family != "encdec":
+            cfg = cfg.replace(n_layers=2)
+        g = torch.Generator(device=dev).manual_seed(SEED + 100 + i)
+        model = build_model(cfg, device=dev)
+        params = model.init(g)
+        s = 64 if cfg.family in ("rwkv6", "encdec") else GRAD_SEQ
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, s),
+                                         generator=g, device=dev),
+                 "labels": torch.randint(0, cfg.vocab_size, (1, s),
+                                         generator=g, device=dev)}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.randn((1, cfg.encoder_seq, cfg.d_model),
+                                          generator=g, device=dev)
+        routes, ties = [], []
+        with top_k_replay(routes, None):
+            on_card = loss_grads(model, params, batch)
+        with top_k_replay(routes, ties):
+            on_cpu = loss_grads(build_model(cfg, device="cpu"),
+                                tree_to(params, "cpu"),
+                                {k: v.cpu() for k, v in batch.items()})
+        if ties and not max(gap for _, gap in ties) < GRAD_ROUTING_TIE:
+            raise SystemExit(f"train {arch}: the CPU routes tokens otherwise "
+                             f"than the card beyond a near tie: {ties}")
+        loss_err = abs(on_card[0] - on_cpu[0]) / abs(on_cpu[0])
+        errs = {p: rel_err(a.cpu(), b) for p, a, b in zip(
+            (p for p, _ in TREE.leaves_with_paths(params)), on_card[1],
+            on_cpu[1])}
+        bound = GRAD_CARD_VS_CPU_RWKV if cfg.family == "rwkv6" else \
+            GRAD_CARD_VS_CPU
+        path, err = max(errs.items(), key=lambda kv: kv[1])
+        finite = all(bool(torch.isfinite(x).all()) for x in on_card[1])
+        if not (err < bound and loss_err < 1e-5 and finite):
+            raise SystemExit(f"train {arch}: gradients card vs CPU worst "
+                             f"{err:.3e} at {path} (bound {bound}), loss "
+                             f"{loss_err:.3e}, finite {finite}")
+        worst[arch] = err
+        log(f"train {arch} at full width, {cfg.n_layers} layer(s), float32, "
+            f"T={s}: loss_fn gradients of {len(errs)} leaves, card vs CPU "
+            f"port worst {err:.3e} at {path} (bound {bound}), loss "
+            f"{loss_err:.2e}"
+            + (f"; {len(routes)} top-k calls replayed on the CPU, "
+               f"{sum(n for n, _ in ties)} token(s) at a near tie (largest "
+               f"gap {max((g for _, g in ties), default=0.0):.2e})"
+               if routes else "")
+            + f" ({time.perf_counter() - t0:.1f} s) [{card}]")
+        del params, on_card, on_cpu, model
+        free_card()
+    return worst
+
+
+@contextlib.contextmanager
+def top_k_replay(routes: list, ties):
+    """The MoE router's top-k: with ``ties`` None, record each call's
+    expert indices in ``routes``; otherwise replay ``routes`` in order
+    (the same calls, forward then remat recomputations), taking the
+    probabilities at the replayed indices, and append to ``ties`` each
+    call's count of tokens whose own choice differs with the largest
+    probability gap between the two choices."""
+    own = TL._top_k
+    replay = iter(routes)
+
+    def top_k(x, k):
+        vals, idx = own(x, k)
+        if ties is None:
+            routes.append(idx)
+            return vals, idx
+        forced = next(replay).to(x.device)
+        differ = (idx != forced).any(-1)
+        if bool(differ.any()):
+            gap = vals.sum(-1) - torch.gather(x, -1, forced).sum(-1)
+            ties.append((int(differ.sum()), float(gap[differ].max())))
+        return torch.gather(x, -1, forced), forced
+
+    TL._top_k = top_k
+    try:
+        yield
+    finally:
+        TL._top_k = own
+
+
+def loss_grads(model, params, batch):
+    """The loss and its gradients for every leaf of ``params`` (JAX's leaf
+    order), through detached aliases of the leaves."""
+    live = TREE.map_leaves(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = model.loss_fn(live, batch)
+    return float(loss.detach()), torch.autograd.grad(loss, TREE.leaves(live))
+
+
+def run_train_example(card: str) -> dict:
+    """examples/pt_train_lm.py on the card: the ≈100M qwen2-family model
+    with segmented order-3 Taylor activations and int8 moments, a
+    checkpoint and a restart halfway; the loss must fall."""
+    path = Path(__file__).resolve().parent / "examples" / "pt_train_lm.py"
+    spec = importlib.util.spec_from_file_location("pt_train_lm", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    res = mod.main("cuda", steps=EXAMPLE_STEPS, batch=EXAMPLE_BATCH,
+                   seq=EXAMPLE_SEQ, log_every=EXAMPLE_STEPS // 4)
+    dt = time.perf_counter() - t0
+    if not res["last_loss"] < res["first_loss"]:
+        raise SystemExit(f"pt_train_lm: the loss did not fall: {res}")
+    log(f"train example pt_train_lm.py: {res['steps']} steps of "
+        f"{EXAMPLE_BATCH} x {EXAMPLE_SEQ} with a checkpoint and restart at "
+        f"{EXAMPLE_STEPS // 2}: loss "
+        + " -> ".join(f"{h['loss']:.4f}" for h in res["history"])
+        + f" ({dt:.1f} s in all) [{card}]")
+    free_card()
+    return res
+
+
+def run_train_path(dev, card: str) -> dict:
+    """LM slice D: qwen2-1.5b trained at full width and depth with float32
+    and int8 moments, the gradients of five families against the CPU
+    port, and the training example."""
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    out = {"f32": train_mode(dev, cfg, "float32 moments", card),
+           "int8": train_mode(dev, cfg.replace(opt_state_bits=8),
+                              "int8 moments", card)}
+    f32, int8 = (out[m]["peak_bytes"] / 2 ** 30 for m in ("f32", "int8"))
+    log(f"train peak memory: float32 moments {f32:.2f} GiB, int8 moments "
+        f"{int8:.2f} GiB (saved {f32 - int8:.2f} GiB) [{card}]")
+    out["grads"] = grads_card_vs_cpu(dev, card)
+    out["example"] = run_train_example(card)
+    log(f"train path: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def slice_c_gemm_numbers(dev, card: str) -> dict:
     """Phase 5 for the GEMM at the shapes slice C adds: at the prefill's
     M (zamba2 4 × 2048, whisper's 8 × 1500 encoder rows) and at M = 8 (a
@@ -3674,6 +3951,7 @@ def main() -> int:
     worst["fixedpoint_matmul"] = max(worst["fixedpoint_matmul"],
                                      lmc["zamba2"]["gemm_err"],
                                      lmc["whisper"]["gemm_err"])
+    train = run_train_path(dev, smi)
 
     # -- 5. numbers -----------------------------------------------------------
     rng = np.random.default_rng(SEED + 2)
@@ -3824,7 +4102,16 @@ def main() -> int:
                           "whisper_encoder_attention_share": lmc["whisper"][
                               "encoder_attention_share"],
                           "gemm_ms": {k: v["ms"] for k, v in
-                                      slice_c_gemm.items()}}}),
+                                      slice_c_gemm.items()}},
+                      "train": {
+                          mode: {k: train[mode][k] for k in (
+                              "tokens_per_s", "peak_bytes", "step_ms_later",
+                              "flash_fwd_share", "flash_bwd_share",
+                              "adamw_ms", "losses")}
+                          for mode in ("f32", "int8")} | {
+                          "grads_card_vs_cpu": train["grads"],
+                          "example_losses": [h["loss"] for h in train[
+                              "example"]["history"]]}}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,7 @@ evaluated in a fixed-point pipeline.  Table 5, verbatim:
 
 Counterpart of ``repro.core.losses``: the printed rows, their exact
 references, the normalized MSE of the paper's Figs 3/4, and the exact LM
-losses (``cross_entropy_logits``, ``chunked_cross_entropy``; forward only).
+losses (``cross_entropy_logits``, ``chunked_cross_entropy``).
 Divisions by 3 go through ``fixedpoint.true_divide`` so that they round
 as the reference's on the card too.
 """
@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .fixedpoint import true_divide
 
@@ -92,6 +93,14 @@ def cross_entropy_logits(logits: torch.Tensor, labels: torch.Tensor,
     return torch.mean(nll)
 
 
+def _chunk_nll_sum(h_i: torch.Tensor, w: torch.Tensor, l_i: torch.Tensor,
+                   m_i: torch.Tensor) -> torch.Tensor:
+    """Masked NLL sum of one chunk: its (B, chunk, V) float32 logits live
+    only inside this call."""
+    logits = (h_i @ w).to(torch.float32)
+    return (_nll(logits, l_i) * m_i).sum()
+
+
 def chunked_cross_entropy(h: torch.Tensor, w_unembed: torch.Tensor,
                           labels: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
@@ -100,7 +109,10 @@ def chunked_cross_entropy(h: torch.Tensor, w_unembed: torch.Tensor,
     sequence is cut into chunks whose (B, chunk, V) logits are made one at
     a time.  h: (B, S, D) final hidden states; w_unembed: (D, V).  The
     chunk size follows the reference's formula (≈2^31 logits per chunk,
-    a power of two in [32, 512], at most S)."""
+    a power of two in [32, 512], at most S).  Under autograd each chunk's
+    logits are recomputed in the backward (``torch.utils.checkpoint``, as
+    the reference's ``jax.checkpoint``), so the peak vocab-sized temporary
+    is one chunk's."""
     b, s, d = h.shape
     if chunk is None:
         v = w_unembed.shape[-1]
@@ -117,9 +129,12 @@ def chunked_cross_entropy(h: torch.Tensor, w_unembed: torch.Tensor,
     w = w_unembed.to(h.dtype)
     nll_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     m_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = torch.is_grad_enabled()
     for i in range(0, h.shape[1], chunk):
-        logits = (h[:, i:i + chunk] @ w).to(torch.float32)
-        m_i = mask[:, i:i + chunk]
-        nll_sum = nll_sum + (_nll(logits, labels[:, i:i + chunk]) * m_i).sum()
-        m_sum = m_sum + m_i.sum()
+        args = (h[:, i:i + chunk], w, labels[:, i:i + chunk],
+                mask[:, i:i + chunk])
+        nll_sum = nll_sum + (checkpoint(_chunk_nll_sum, *args,
+                                        use_reentrant=False)
+                             if remat else _chunk_nll_sum(*args))
+        m_sum = m_sum + args[3].sum()
     return nll_sum / torch.clamp_min(m_sum, 1.0)

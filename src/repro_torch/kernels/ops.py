@@ -73,7 +73,17 @@ def wkv_scan(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
              backend: str = "auto") -> torch.Tensor:
     """RWKV-6 chunked WKV scan, float32: a/b/v (BH, NC, C, D), tot
     (BH, NC, 1, D), diag (BH, NC, C, 1) → o (BH, NC, C, D), the state of
-    each row carried across its chunks from zero."""
+    each row carried across its chunks from zero.
+
+    The scan has no backward (nor has the reference's Pallas kernel): with
+    grad mode on and an input that requires grad it raises, on every
+    device and backend, rather than return a result cut from the graph.
+    Train through ``models.rwkv6``'s ``"chunked"`` route."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (a, b, v, tot, diag)):
+        raise RuntimeError(
+            "ops.wkv_scan has no backward; differentiate the RWKV-6 model "
+            "through wkv='chunked' (its loss_fn's default)")
     _check_backend(backend, a)
     if backend == "ref":
         return ref.wkv_scan_ref(a, b, v, tot, diag)

@@ -14,7 +14,7 @@ tensors on an explicit device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -39,11 +39,14 @@ class Model:
     init_caches: Callable  # (batch, max_seq) -> caches on ``device``
 
 
-def build_model(cfg: ModelConfig, *, wkv: str = "scan",
+def build_model(cfg: ModelConfig, *, wkv: Optional[str] = None,
                 device="cuda") -> Model:
     """The family's entry points bound to ``cfg``.  ``wkv`` picks the
     RWKV-6 chunked-WKV route (``rwkv6.WKV_ROUTES``; the other families
-    ignore it); ``device`` is where ``init`` and ``init_caches`` allocate
+    ignore it) for both ``prefill`` and ``loss_fn``; by default ``prefill``
+    runs the kernel (``"scan"``) and ``loss_fn`` the differentiable
+    ``"chunked"`` form, as the reference's loss does.  ``device`` is where
+    ``init`` and ``init_caches`` allocate
     (the card unless the caller asks for the CPU; raises when there is no
     card).  The VLM's ``prefill`` takes ``patch_embeds`` (B, n_patches,
     d_model) beside ``tokens``, the encoder–decoder's ``frames``
@@ -63,14 +66,17 @@ def build_model(cfg: ModelConfig, *, wkv: str = "scan",
                                                              device=dev),
         )
     if cfg.family == "rwkv6":
-        rwkv6.check_wkv(wkv)
+        if wkv is not None:
+            rwkv6.check_wkv(wkv)
+        serve_wkv, train_wkv = wkv or "scan", wkv or "chunked"
         dev = resolve_device(device)
         return Model(
             cfg=cfg,
             device=dev,
             init=lambda g: rwkv6.init(g, cfg, device=dev),
-            loss_fn=lambda p, b: rwkv6.loss_fn(p, b, cfg, wkv),
-            prefill=lambda p, **inp: rwkv6.prefill(p, inp["tokens"], cfg, wkv),
+            loss_fn=lambda p, b: rwkv6.loss_fn(p, b, cfg, train_wkv),
+            prefill=lambda p, **inp: rwkv6.prefill(p, inp["tokens"], cfg,
+                                                   serve_wkv),
             decode_step=lambda p, c, t, pos: rwkv6.decode_step(p, c, t, pos,
                                                                cfg),
             init_caches=lambda b, s: rwkv6.init_caches(cfg, b, s, device=dev),

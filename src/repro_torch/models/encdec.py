@@ -16,8 +16,10 @@ before the PV product.
 reference's vmapped init), so a tree converted leaf by leaf from the
 reference (``models.api.params_from_numpy``), or quantized by
 ``core.quantize.quantize_tree`` (6 W8A8 projections per encoder layer, 10
-per decoder layer), runs as is.  ``loss_fn`` returns the reference's value;
-its gradients come with the training slice.
+per decoder layer), runs as is.  ``loss_fn`` returns the reference's value
+and differentiates with autograd; under ``cfg.remat`` each encoder and
+decoder layer is recomputed in the backward, as in the reference's
+checkpointed scans.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ from ..configs.base import ModelConfig
 from ..core.inference import resolve_device
 from ..distributed.constrain import constrain_batch
 from . import layers as L
-from .layers import embed_tokens, layer_params, stack_layers, tied_unembed
+from .layers import (embed_tokens, layer_params, scan_layers, stack_layers,
+                     tied_unembed, unstack_layers)
 
 __all__ = ["init_cross_attention", "cross_kv", "cross_attention",
            "init_encoder_block", "encoder_block_fwd", "init_decoder_block",
@@ -181,9 +184,12 @@ def encode(params: Params, frames, cfg: ModelConfig) -> torch.Tensor:
     pos = torch.as_tensor(_sinusoid(frames.shape[1], cfg.d_model),
                           device=dev).to(dtype)
     x = frames.to(dtype) + pos[None]
-    for i in range(cfg.n_encoder_layers):
-        x = encoder_block_fwd(layer_params(params["enc_blocks"], i),
-                              constrain_batch(x), cfg)
+
+    def body(carry, bp):
+        return encoder_block_fwd(bp, constrain_batch(carry), cfg)
+
+    x = scan_layers(body, x, unstack_layers(params["enc_blocks"],
+                                            cfg.n_encoder_layers), cfg)
     return L.norm(params["enc_norm"], x, cfg)
 
 
@@ -192,10 +198,14 @@ def _trunk(params: Params, tokens, cfg: ModelConfig, frames) -> torch.Tensor:
     dtype = getattr(torch, cfg.dtype)
     x = embed_tokens(params, tokens, cfg)
     x = x + params["pos_dec"][:x.shape[1]].to(dtype)[None]
-    for i in range(cfg.n_layers):
-        bp = layer_params(params["dec_blocks"], i)
+
+    def body(carry, bp):
         xk, xv = cross_kv(bp["cross_attn"], memory, cfg)
-        x, _ = decoder_block_fwd(bp, constrain_batch(x), xk, xv, cfg)
+        y, _ = decoder_block_fwd(bp, constrain_batch(carry), xk, xv, cfg)
+        return y
+
+    x = scan_layers(body, x, unstack_layers(params["dec_blocks"],
+                                            cfg.n_layers), cfg)
     return L.norm(params["final_norm"], x, cfg)
 
 

@@ -1,22 +1,26 @@
-"""Flash attention (online softmax), the forward pass.
+"""Flash attention (online softmax) with a hand-written backward.
 
-Counterpart of the forward of ``repro.models.flash``, which the reference
-writes in plain ``jax.numpy`` (no Pallas kernel): queries and keys in
-blocks of ``chunk``, a running max ``m``, normaliser ``l`` and float32
-accumulator per query row, so the (S, S) probability matrix never exists.
-Each block's logits are formed in the input dtype and then cast to float32;
-the probabilities are cast back to the input dtype before the PV product,
-whose result accumulates in float32; padded keys are masked by the true
-sequence length.
+Counterpart of ``repro.models.flash``, which the reference writes in plain
+``jax.numpy`` (no Pallas kernel) as a ``jax.custom_vjp``.  The forward
+takes queries and keys in blocks of ``chunk``, with a running max ``m``,
+normaliser ``l`` and float32 accumulator per query row, so the (S, S)
+probability matrix never exists.  Each block's logits are formed in the
+input dtype and then cast to float32; the probabilities are cast back to
+the input dtype before the PV product, whose result accumulates in
+float32; padded keys are masked by the true sequence length.
+
+The backward is a ``torch.autograd.Function`` that saves q, k, v, the
+output and the per-row log-sum-exp, all O(S·d), and recomputes P block by
+block from them, with the reference's casts: ``delta = rowsum(dO·O)`` in
+float32, P cast to the input dtype before the dV product, dS cast to the
+input dtype before the dK and dQ products, every product accumulated in
+float32.  dQ accumulates over key blocks in order, dK and dV over query
+blocks in order, as the reference's scans add them.
 
 Under the causal mask a key block that lies wholly after its query block
-adds nothing (its probabilities are exactly 0, its correction exactly 1),
-so the loop skips it: the result is the reference's, bit for bit in the
-same arithmetic.
-
-The reference's hand-written backward (recomputing P blockwise from the
-saved log-sum-exp) becomes a ``torch.autograd.Function`` with the training
-slice; :func:`_flash_fwd` already returns that residual.
+adds nothing (its probabilities are exactly 0, its correction exactly 1,
+its gradient terms exactly 0), so both passes skip it: the results are the
+reference's, in the same arithmetic.
 """
 
 from __future__ import annotations
@@ -45,9 +49,25 @@ def _mask(qi: int, kj: int, chunk: int, causal: bool, s_true: int,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, chunk: int = 512) -> torch.Tensor:
-    """q,k,v: (B,H,S,D[v]) — q pre-scaled by 1/√d. Returns (B,H,S,Dv)."""
-    out, _ = _flash_fwd(q, k, v, causal, chunk)
-    return out
+    """q,k,v: (B,H,S,D[v]) — q pre-scaled by 1/√d. Returns (B,H,S,Dv);
+    differentiable in q, k and v through the hand-written backward."""
+    return _FlashAttention.apply(q, k, v, causal, chunk)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, chunk: int):
+        out, lse = _flash_fwd(q, k, v, causal, chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.chunk = causal, chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, ctx.causal,
+                                ctx.chunk)
+        return dq, dk, dv, None, None
 
 
 def _flash_fwd(q, k, v, causal: bool, chunk: int
@@ -85,3 +105,49 @@ def _flash_fwd(q, k, v, causal: bool, chunk: int
     out = torch.cat(outs, dim=2)[:, :, :s]
     lse = torch.cat(lses, dim=2)[:, :, :s]
     return out, lse
+
+
+def _flash_bwd(q, k, v, out, lse, dout, causal: bool, chunk: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dq, dk, dv of :func:`flash_attention` from the forward's inputs, its
+    output and log-sum-exp, and the output's gradient ``dout``."""
+    b, h, s, d = q.shape
+    pad = (-s) % chunk
+    if pad:  # padded rows: zero dout, out and lse, as the reference pads
+        q, k, v, out, dout = (F.pad(t, (0, 0, 0, pad))
+                              for t in (q, k, v, out, dout))
+        lse = F.pad(lse, (0, pad))
+    nc = q.shape[2] // chunk
+    f32, dt = torch.float32, q.dtype
+    dout = dout.to(dt)
+    delta = torch.sum(dout.to(f32) * out.to(f32), -1)  # rowsum(dO ∘ O)
+
+    def blk(x, i):
+        return x[:, :, i * chunk:(i + 1) * chunk]
+
+    dq = torch.zeros(q.shape, dtype=f32, device=q.device)
+    dks, dvs = [], []
+    for kj in range(nc):
+        k_j, v_j = blk(k, kj), blk(v, kj)
+        dk_j = torch.zeros(k_j.shape, dtype=f32, device=q.device)
+        dv_j = torch.zeros(v_j.shape, dtype=f32, device=q.device)
+        for qi in range(kj if causal else 0, nc):
+            q_i, do_i = blk(q, qi), blk(dout, qi)
+            s_ij = torch.einsum("bhqd,bhkd->bhqk", q_i, k_j).to(f32)
+            msk = _mask(qi, kj, chunk, causal, s, q.device)
+            p = torch.exp(s_ij - blk(lse, qi)[..., None])
+            p = torch.where(msk, p, torch.zeros((), dtype=f32,
+                                                device=q.device))
+            dv_j = dv_j + torch.einsum("bhqk,bhqd->bhkd", p.to(dt),
+                                       do_i).to(f32)
+            dp = torch.einsum("bhqd,bhkd->bhqk", do_i, v_j).to(f32)
+            ds = (p * (dp - blk(delta, qi)[..., None])).to(dt)
+            dk_j = dk_j + torch.einsum("bhqk,bhqd->bhkd", ds, q_i).to(f32)
+            dq_i = blk(dq, qi)
+            dq_i += torch.einsum("bhqk,bhkd->bhqd", ds, k_j).to(f32)
+        dks.append(dk_j)
+        dvs.append(dv_j)
+    dk = torch.cat(dks, dim=2)
+    dv = torch.cat(dvs, dim=2)
+    return (dq[:, :, :s].to(dt), dk[:, :, :s].to(k.dtype),
+            dv[:, :, :s].to(v.dtype))

@@ -32,6 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core import quantize as qz
@@ -45,7 +46,8 @@ __all__ = ["init_linear", "linear", "init_norm", "norm", "rope", "act_fn",
            "maybe_quantize_kv", "dequantize_kv", "init_kv_cache",
            "taylor_linear_attention", "init_taylor_linear_cache",
            "taylor_linear_decode", "init_moe", "moe_ffn", "layer_params",
-           "stack_layers", "embed_tokens", "tied_unembed", "tied_lm_loss"]
+           "stack_layers", "unstack_layers", "scan_layers",
+           "embed_tokens", "tied_unembed", "tied_lm_loss"]
 
 Params = Dict[str, Any]
 _NEG = torch.finfo(torch.float32).min
@@ -64,6 +66,50 @@ def layer_params(tree, i: int):
     if isinstance(tree, (list, tuple)):
         return type(tree)(layer_params(v, i) for v in tree)
     return tree[i]
+
+
+def unstack_layers(tree, n: int) -> List:
+    """The first ``n`` per-layer trees of a tree whose tensors carry a
+    leading layer axis, each stacked leaf read once (``torch.unbind``):
+    under autograd the backward of the whole read is one ``stack``, where
+    ``n`` reads of :func:`layer_params` would each accumulate into a zero
+    tensor of the whole stacked leaf.  Values are those of
+    ``[layer_params(tree, i) for i in range(n)]``."""
+    if isinstance(tree, dict):
+        per = {k: unstack_layers(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, (list, tuple)):
+        per = [unstack_layers(v, n) for v in tree]
+        return [type(tree)(p[i] for p in per) for i in range(n)]
+    layers = torch.unbind(tree)
+    if len(layers) < n:
+        raise ValueError(f"leaf of {len(layers)} layers, expected {n}")
+    return list(layers[:n])
+
+
+def scan_layers(body, carry, trees: List, cfg: ModelConfig, group: int = 1):
+    """``carry = body(carry, tree)`` for each per-layer tree in order: the
+    reference's ``lax.scan`` over the layer axis.  Under ``cfg.remat`` (and
+    grad mode) every layer is checkpointed (``torch.utils.checkpoint``:
+    its activations recomputed in the backward, as under the reference's
+    ``jax.checkpoint``), and with ``group > 1`` every run of ``group``
+    layers is checkpointed too (the reference's hierarchical remat:
+    L/G + G saved carries instead of L).  Values are unchanged."""
+    def remat(fn, *args):
+        if cfg.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def run(c, ts):
+        for t in ts:
+            c = remat(body, c, t)
+        return c
+
+    if group <= 1:
+        return run(carry, trees)
+    for i in range(0, len(trees), group):
+        carry = remat(run, carry, trees[i:i + group])
+    return carry
 
 
 def stack_layers(trees: List):

@@ -24,6 +24,13 @@ form; decode is the O(d²) recurrent step.  The chunked form has two routes
   * ``"chunked"`` — ``_wkv_chunked``, the reference model's own form: the
     chunk-GEMM operands rounded to bf16, float32 accumulation and state.
 
+Training goes through ``"chunked"``, as the reference's ``loss_fn`` does:
+``loss_fn`` takes it unless asked otherwise.  The kernel (like the
+reference's Pallas kernel) has no backward, and ``ops.wkv_scan`` raises
+under autograd rather than return a result cut from the graph.  Under
+``cfg.remat`` each layer, and each group of ``remat_group_size(cfg)``
+layers, is recomputed in the backward, as in the reference's scan.
+
 Parameters are a dict with the reference's paths; ``params["blocks"]``
 carries a leading layer axis (the reference's vmapped init; read one layer
 with ``layers.layer_params``), so a tree converted leaf by leaf from the
@@ -39,13 +46,13 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, remat_group_size
 from ..core.inference import resolve_device
 from ..distributed.constrain import constrain_batch
 from ..kernels import ops
 from . import layers as L
 from .layers import embed_tokens as _embed
-from .layers import layer_params, stack_layers
+from .layers import layer_params, scan_layers, stack_layers, unstack_layers
 from .layers import tied_unembed as _unembed
 
 __all__ = ["WKV_ROUTES", "check_wkv", "init", "forward", "loss_fn",
@@ -147,19 +154,21 @@ def _wkv_chunked(r, k, v, logw, u, chunk: int = _CHUNK):
       intra = strict_tril(A Bᵀ) + diag(r_t·(u⊙k_t))
       o_t  = intra @ V + A_t @ S0
       S'   = diag(exp(cum_T)) S0 + (B ⊙ exp(cum_T))ᵀ V
-    The chunk-GEMM operands (A, B, V and the scores) are rounded to bf16
-    as the reference rounds them; products of bf16 values are exact in
-    float32, the sums and the state carry are float32.
+    The chunk-GEMM operands (A, B, V and the scores) are bf16 tensors as
+    in the reference; products of bf16 values are exact in float32, the
+    sums and the state carry are float32.  Each use converts its bf16
+    operand to float32 on its own, so that under autograd each use's
+    gradient is rounded to bf16 and the uses' gradients are summed in bf16,
+    as the reference's cotangents of its bf16 operands are.
     """
     b, h, t, d = r.shape
     r_, k_, v_, cum, cum_prev = (x.permute(2, 0, 1, 3, 4)
                                  for x in _chunks(r, k, v, logw, chunk))
-    nc = r_.shape[0]
     cdt = torch.bfloat16
     f32 = torch.float32
-    a = (r_ * torch.exp(cum_prev)).to(cdt).to(f32)
-    bk = (k_ * torch.exp(-cum)).to(cdt).to(f32)
-    vb = v_.to(cdt).to(f32)
+    a = torch.unbind((r_ * torch.exp(cum_prev)).to(cdt))
+    bk = torch.unbind((k_ * torch.exp(-cum)).to(cdt))
+    vb = torch.unbind(v_.to(cdt))
     tot = torch.exp(cum[..., -1:, :])  # (nc,B,H,1,D) f32
     tri = torch.tril(torch.ones((chunk, chunk), dtype=f32, device=r.device),
                      diagonal=-1)
@@ -167,15 +176,17 @@ def _wkv_chunked(r, k, v, logw, u, chunk: int = _CHUNK):
 
     s0 = torch.zeros((b, h, d, d), dtype=r.dtype, device=r.device)
     outs = []
-    for i in range(nc):
-        a_c, b_c, v_c, tot_c = a[i], bk[i], vb[i], tot[i]
-        scores = (a_c @ b_c.transpose(-1, -2)) * tri
-        o = scores.to(cdt).to(f32) @ v_c
-        o = o + diag_term[i][..., None] * v_c
-        o = o + a_c @ s0
-        s0 = s0 * tot_c[..., 0, :, None] + (b_c * tot_c).transpose(-1, -2) @ v_c
+    for i, (a_c, b_c, v_c) in enumerate(zip(a, bk, vb)):
+        tot_c = tot[i]
+        scores = (a_c.to(f32) @ b_c.to(f32).transpose(-1, -2)) * tri
+        o = scores.to(cdt).to(f32) @ v_c.to(f32)
+        o = o + diag_term[i][..., None] * v_c.to(f32)
+        o = o + a_c.to(f32) @ s0
+        s0 = s0 * tot_c[..., 0, :, None] + (
+            b_c.to(f32) * tot_c).transpose(-1, -2) @ v_c.to(f32)
         outs.append(o)
-    o = torch.stack(outs).permute(1, 2, 0, 3, 4).reshape(b, h, nc * chunk, d)
+    o = torch.stack(outs).permute(1, 2, 0, 3, 4).reshape(
+        b, h, len(outs) * chunk, d)
     return o[:, :, :t]
 
 
@@ -311,13 +322,18 @@ def check_wkv(wkv: str) -> None:
         raise ValueError(f"unknown wkv route {wkv!r}; choose from {WKV_ROUTES}")
 
 
-def _trunk(params: Params, tokens, cfg: ModelConfig,
-           wkv: str = "scan") -> torch.Tensor:
+def _trunk(params: Params, tokens, cfg: ModelConfig, wkv: str
+           ) -> torch.Tensor:
     check_wkv(wkv)
     x = _embed(params, tokens, cfg)
-    for i in range(cfg.n_layers):
-        x, _ = block_fwd(layer_params(params["blocks"], i),
-                         constrain_batch(x), cfg, wkv=wkv)
+
+    def body(carry, bp):
+        y, _ = block_fwd(bp, constrain_batch(carry), cfg, wkv=wkv)
+        return y
+
+    g = remat_group_size(cfg) if cfg.remat else 1
+    x = scan_layers(body, x, unstack_layers(params["blocks"], cfg.n_layers),
+                    cfg, g)
     return L.norm(params["final_norm"], x, cfg)
 
 
@@ -328,7 +344,9 @@ def forward(params: Params, tokens, cfg: ModelConfig, wkv: str = "scan"
                                             device=x.device)
 
 
-def loss_fn(params: Params, batch, cfg: ModelConfig, wkv: str = "scan"):
+def loss_fn(params: Params, batch, cfg: ModelConfig, wkv: str = "chunked"):
+    """The reference's loss; differentiable through the ``"chunked"``
+    route (the default), not through the kernel's."""
     x = _trunk(params, batch["tokens"], cfg, wkv)
     ce = L.tied_lm_loss(params, x, batch)
     return ce, {"loss": ce, "ce": ce}

@@ -27,7 +27,9 @@ reference's nested ``vmap`` init gives them; read one layer with
 reference (``models.api.params_from_numpy``), or quantized by
 ``core.quantize.quantize_tree`` (the five projections of every Mamba layer
 and the shared block's six run the W8A8 kernel), runs as is.  ``loss_fn``
-returns the reference's value; its gradients come with the training slice.
+returns the reference's value and differentiates with autograd; under
+``cfg.remat`` each Mamba layer, and each group with its shared block, is
+recomputed in the backward, as in the reference's nested checkpoints.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ from ..core.inference import resolve_device
 from ..distributed.constrain import constrain_batch
 from . import layers as L
 from . import transformer as TF
-from .layers import embed_tokens, layer_params, stack_layers, tied_unembed
+from .layers import (embed_tokens, layer_params, scan_layers, stack_layers,
+                     tied_unembed, unstack_layers)
 
 __all__ = ["init_mamba_block", "mamba_block_fwd", "init", "forward",
            "loss_fn", "init_caches", "decode_step", "prefill"]
@@ -270,13 +273,19 @@ def _trunk(params: Params, tokens, cfg: ModelConfig) -> torch.Tensor:
     x = embed_tokens(params, tokens, cfg)
     shared = params["shared"]
     groups, per = _groups(cfg)
-    for gi in range(groups):
-        group_p = layer_params(params["mamba"], gi)
-        x = constrain_batch(x)
-        for i in range(per):
-            x, _ = mamba_block_fwd(layer_params(group_p, i),
-                                   constrain_batch(x), cfg)
-        x, _, _ = TF.block_fwd(shared, x, cfg)  # shared-weight attention block
+
+    def inner(carry, bp):
+        y, _ = mamba_block_fwd(bp, constrain_batch(carry), cfg)
+        return y
+
+    def group_body(carry, group_p):
+        y = constrain_batch(carry)
+        y = scan_layers(inner, y, unstack_layers(group_p, per), cfg)
+        y, _, _ = TF.block_fwd(shared, y, cfg)  # shared-weight attention block
+        return y
+
+    x = scan_layers(group_body, x, unstack_layers(params["mamba"], groups),
+                    cfg)
     return L.norm(params["final_norm"], x, cfg)
 
 

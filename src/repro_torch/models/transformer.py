@@ -14,10 +14,13 @@ reference's vmapped init and scanned decode give them; otherwise they are
 lists with one tree per layer.  Both layouts are read as they are, so a
 tree converted leaf by leaf from the reference
 (``models.api.params_from_numpy``), or quantized by
-``core.quantize.quantize_tree``, runs unchanged.  The reference's ``remat``
-and its hierarchical grouping of the scan only save training memory and do
-not change values; the port has no counterpart.  ``loss_fn`` returns the
-reference's value; its gradients come with the training slice.
+``core.quantize.quantize_tree``, runs unchanged.  The stacked layer axis
+is read once per pass (``layers.unstack_layers``).  Under ``cfg.remat``
+each layer, and each group of ``remat_group_size(cfg)`` layers, is
+recomputed in the backward (``layers.scan_layers``), as the reference's
+checkpointed, grouped scan; values do not change.  ``loss_fn`` returns the
+reference's value and differentiates with autograd (flash attention
+through its hand-written backward).
 """
 
 from __future__ import annotations
@@ -27,13 +30,13 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, remat_group_size
 from ..core.inference import resolve_device
 from ..core.losses import chunked_cross_entropy
 from ..distributed.constrain import constrain_batch
 from . import layers as L
 from . import mla as MLA
-from .layers import layer_params, stack_layers
+from .layers import scan_layers, stack_layers, unstack_layers
 
 __all__ = ["init_block", "block_fwd", "init", "forward", "loss_fn",
            "init_caches", "prefill", "decode_step"]
@@ -139,18 +142,25 @@ def _unembed(params: Params, x: torch.Tensor, cfg: ModelConfig
 def _layers(blocks, cfg: ModelConfig):
     """The per-layer parameter trees of either layout."""
     if cfg.scan_layers:
-        return [layer_params(blocks, i) for i in range(cfg.n_layers)]
+        return unstack_layers(blocks, cfg.n_layers)
     return list(blocks)
 
 
 def _scan_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Train/prefill pass over all blocks; the MoE aux losses summed."""
+    """Train/prefill pass over all blocks; the MoE aux losses summed.
+    Hierarchical remat as the reference's: with the stacked layout, groups
+    of ``remat_group_size(cfg)`` checkpointed layers, each group
+    checkpointed; with per-layer lists, each layer."""
+    def body(carry, bp):
+        y, aux = carry
+        y, _, a = block_fwd(bp, constrain_batch(y), cfg)
+        return y, aux + a
+
+    g = remat_group_size(cfg) if cfg.remat and cfg.scan_layers else 1
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for bp in _layers(params["blocks"], cfg):
-        x, _, a = block_fwd(bp, constrain_batch(x), cfg)
-        aux = aux + a
-    return x, aux
+    return scan_layers(body, (x, aux), _layers(params["blocks"], cfg), cfg,
+                       g)
 
 
 def forward(params: Params, tokens, cfg: ModelConfig, *,

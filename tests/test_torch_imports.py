@@ -65,6 +65,11 @@ def _run(imports: str):
     "import repro_torch.models.ssm, repro_torch.models.encdec, "
     "repro_torch.data.packets",
     "sys.path.insert(0, '.'); import chip_smoke",
+    "import repro_torch.optim, repro_torch.optim.adamw, "
+    "repro_torch.optim.schedule, repro_torch.data.tokens, "
+    "repro_torch.checkpoint, repro_torch.checkpoint.store, "
+    "repro_torch.checkpoint.manager, repro_torch.core.tree",
+    "from repro_torch.launch.train import TrainLoop, main",
 ])
 def test_port_imports_no_jax_and_no_reference(imports):
     r = _run(imports)
@@ -137,3 +142,14 @@ def test_hybrid_and_encdec_entry_points_without_a_card_raise(arch):
         module.init(torch.Generator(), cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         module.init_caches(cfg, 2, 8)
+
+
+def test_train_loop_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default device works here")
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.train import TrainLoop, main
+    with pytest.raises(RuntimeError, match="cuda"):
+        TrainLoop(reduced(get_config("qwen2-1.5b")))
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--arch", "qwen2-1.5b", "--reduced", "--steps", "1"])

@@ -317,3 +317,44 @@ def test_inline_qos_serving_example_matches_reference_on_cpu(capsys):
     assert len(tenants) == 3
     assert tenants == [line for line in want if line.startswith("  tenant")]
     assert res["egress"].dtype == np.uint8 and res["egress"].shape[0] == 2048
+
+
+def test_serve_lm_quantized_example_matches_reference_on_cpu(capsys):
+    """examples/pt_serve_lm_quantized.py, on the reference's own parameters
+    (its ``init`` at keys 0 and 1, carried across), runs to OK on the CPU
+    beside the reference's examples/serve_lm_quantized.py: the same float
+    greedy tokens and the same hot-swap line.  Its W8A8 and int8-KV tokens
+    are not compared: the example serves in bfloat16, where XLA keeps
+    excess precision and a near-tied argmax can flip (in float32 the three
+    runs are equal token for token, tests/test_torch_transformer.py)."""
+    import jax
+
+    from repro.configs import get_config as jget_config
+    from repro.configs import reduced as jreduced
+    from repro.launch.serve import LMServer as JLMServer
+    from repro.models import build_model as jbuild_model
+    from repro_torch.models import params_from_numpy
+
+    jcfg = jreduced(jget_config("qwen2-1.5b"), d_model=256, n_layers=4,
+                    d_ff=512).replace(remat=False)
+    jmodel = jbuild_model(jcfg)
+
+    def init(seed):
+        return params_from_numpy(jax.tree.map(
+            np.asarray, jmodel.init(jax.random.key(seed))), "cpu")
+
+    res = _example("pt_serve_lm_quantized").main("cpu", init)
+    got = capsys.readouterr().out.splitlines()
+    _example("serve_lm_quantized").main()
+    want = capsys.readouterr().out.splitlines()
+    assert got[-1] == want[-1] == "OK"
+    swap = [line for line in got if line.startswith("hot-swap")]
+    assert swap == [line for line in want if line.startswith("hot-swap")]
+    jsrv = JLMServer(jcfg, batch=2, max_seq=64)
+    jsrv.install("prod", jmodel.init(jax.random.key(0)))
+    prompt = np.asarray([[3, 1, 4, 1, 5], [9, 2, 6, 5, 3]], np.int32)
+    want_fp = np.asarray(jsrv.generate("prod", prompt, 12))
+    np.testing.assert_array_equal(res["float"], want_fp)
+    for k in ("w8a8", "int8_kv"):
+        assert res[k].dtype == np.int32 and res[k].shape == (2, 12)
+    assert res["trace_count"] == 1
