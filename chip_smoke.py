@@ -291,6 +291,10 @@ from repro_torch.core import tree as TREE  # noqa: E402
 from repro_torch.launch.train import TrainLoop  # noqa: E402
 from repro_torch.models import flash as FLASH  # noqa: E402
 from repro_torch.optim import adamw as ADAMW  # noqa: E402
+from repro_torch.distributed.constrain import activation_mesh  # noqa: E402
+from repro_torch.distributed.sharding import (  # noqa: E402
+    logical_batch_sharding, make_plan)
+from repro_torch.launch.mesh import HW, make_mesh  # noqa: E402
 
 # the C1/C2 kernel modules (``repro_torch.kernels`` exports their wrappers,
 # which share the modules' names)
@@ -1729,17 +1733,23 @@ def run_fabric_phase(dev, card: str, forests, drifted, flow_chunks) -> dict:
     return paths
 
 
-def flow_profile(args) -> dict:
-    """The flow kernel's two device kernels by name (profiler, 10 calls),
-    ms per call each."""
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            fuk.launch(*args, **FLOW_KW)
-        torch.cuda.synchronize()
-    return {e.key.replace("(anonymous namespace)::", "").split("<")[0]:
-            e.device_time_total / 1e4
-            for e in prof.key_averages() if e.device_time_total > 0}
+def device_kernels(call, sep: str, n_calls: int = 10) -> tuple:
+    """The device kernels of ``n_calls`` calls of ``call`` by name (the
+    kernel's name cut at ``sep``), ms per call each (profiler), and the
+    session that gave them: a session that records no device activity at
+    all is taken again, at most twice more."""
+    for attempt in range(1, 4):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_calls):
+                call()
+            torch.cuda.synchronize()
+        split = {e.key.replace("(anonymous namespace)::", "").split(sep)[0]:
+                 e.device_time_total / 1e3 / n_calls
+                 for e in prof.key_averages() if e.device_time_total > 0}
+        if split:
+            break
+    return split, attempt
 
 
 def flow_timing_batch(fsrv, raw) -> list:
@@ -1783,10 +1793,12 @@ def flow_numbers(dev, flow: dict, worst: int, card: str) -> dict:
         k_ms = cuda_ms(lambda: fuk.flow_update_kernel(*fargs, **FLOW_KW))
         n_ms = cuda_ms(lambda: fuk.launch(*fargs, **FLOW_KW))
         q_ms = queued_ms(lambda: fuk.launch(*fargs, **FLOW_KW))
-        split = flow_profile(fargs)
+        split, session = device_kernels(
+            lambda: fuk.launch(*fargs, **FLOW_KW), "<")
         if len(split) != 2:
             raise SystemExit(f"flow_update: expected two device kernels per "
-                             f"call, the profiler saw {split}")
+                             f"call, the profiler saw {split} in "
+                             f"{session} sessions")
         n = fargs[2].shape[0]
         sort_ms = cuda_ms(lambda: [torch.sort(k, stable=True) for k in (
             fargs[2], *fargs[3].t().contiguous())])
@@ -2606,16 +2618,10 @@ def wkv_numbers(dev, lm: dict, worst: float, card: str) -> dict:
     p_ms = cuda_ms(lambda: ops.wkv_scan(*args, backend="ref"), reps=5,
                    inner=5)
     # the device kernels of one call, by name (CUDA events cannot split them)
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            wk.wkv_scan(*args)
-        torch.cuda.synchronize()
-    split = {e.key.replace("(anonymous namespace)::", "").split("(")[0]:
-             e.device_time_total / 1e4
-             for e in prof.key_averages() if e.device_time_total > 0}
-    log(f"time wkv_scan per device kernel (profiler, 10 calls): " + ", ".join(
-        f"{k} {v:.4f} ms" for k, v in split.items())
+    split, attempt = device_kernels(lambda: wk.wkv_scan(*args), "(")
+    log(f"time wkv_scan per device kernel (profiler, 10 calls, session "
+        f"{attempt}): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in split.items())
         + f"; {len(split)} device kernels per call [{card}]")
     if len(split) != 2:
         raise SystemExit(f"wkv_scan: expected two device kernels per call, "
@@ -3824,6 +3830,250 @@ def run_train_path(dev, card: str) -> dict:
     return out
 
 
+# -- LM slice E: distribution and the dry run --------------------------------
+DIST_TRAIN_TOL = 1e-6  # sharded (1 × 1 mesh) vs unsharded losses, relative
+DIST_MEM_TOL = 0.10  # the dry run's peak estimate vs max_memory_allocated
+# the production cells the phase traces on both meshes (16×16, 2×16×16)
+DIST_CELLS = [("qwen2-1.5b", "train_4k", {}), ("qwen2-1.5b", "prefill_32k", {}),
+              ("qwen2-1.5b", "decode_32k", {}),
+              ("deepseek-v2-236b", "train_4k", {}),
+              ("granite-moe-3b-a800m", "train_4k", {}),
+              ("rwkv6-3b", "prefill_32k", {}), ("zamba2-2.7b", "long_500k", {}),
+              ("whisper-base", "train_4k", {}),
+              ("qwen2-1.5b", "prefill_32k", {"quant_mode": "w8a8_int"})]
+DIST_JOBS = 8  # worker processes for the production cells
+# the dry run of the card's own train step (4 × 2048 on a 1-rank mesh) and
+# of the production cells, in a subprocess: the fake process group of the
+# dry run cannot live beside the NCCL group of this process
+DIST_DRYRUN = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch.dryrun import dry_run, run_cells
+batch, seq, cells, n_jobs = json.loads(sys.argv[1])
+rec = dry_run(get_config("qwen2-1.5b"), ShapeConfig("card", seq, batch,
+              "train"), (1, 1), ("data", "model"))
+print("CARD " + json.dumps(rec), flush=True)
+jobs = [(a, s, mp, ov, None) for a, s, ov in cells for mp in (False, True)]
+for r in run_cells(jobs, n_jobs):
+    print("CELL " + json.dumps(r), flush=True)
+"""
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_prefill(model, params, tokens, mesh, cfg):
+    """``model.prefill`` with the parameters distributed by ``make_plan``
+    and the tokens by ``logical_batch_sharding`` on ``mesh``, under its
+    activation mesh; the logits as a full tensor."""
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    dp = make_plan(params, cfg, mesh).distribute(params)
+    pl = logical_batch_sharding(mesh, {"t": tokens}, tokens.shape[0])["t"]
+    tok = distribute_tensor(tokens, mesh, pl, src_data_rank=None)
+    with torch.no_grad(), activation_mesh(mesh), implicit_replication():
+        out = model.prefill(dp, tokens=tok).full_tensor()
+    del dp
+    return out
+
+
+def dist_train(dev, mesh, f32: dict, card: str) -> dict:
+    """(a) ``TrainLoop(mesh=...)`` on the 1 × 1 NCCL mesh: qwen2-1.5b at
+    full width and depth, TRAIN_BATCH × TRAIN_SEQ, TRAIN_STEPS steps with
+    float32 moments, against the unsharded float32 run of the training
+    phase (same seed, stream and schedule)."""
+    cfg = get_config(TRAIN_ARCH)
+    loop = TrainLoop(cfg, mesh=mesh, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                     total_steps=100, global_batch=TRAIN_BATCH,
+                     seq_len=TRAIN_SEQ, device=dev)
+    free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, hist = loop.run(max_steps=TRAIN_STEPS, log_every=1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [h["loss"] for h in hist]
+    diff = max(abs(a - b) / abs(b) for a, b in zip(losses, f32["losses"]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    ends = [h["step"] * tokens / h["tokens_per_s"] for h in hist]
+    tps = tokens * (TRAIN_STEPS - 1) / (ends[-1] - ends[0])
+    log(f"dist (a) TrainLoop(mesh=1x1 NCCL) {TRAIN_ARCH} at full width and "
+        f"depth, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step: losses "
+        + ", ".join(f"{x:.6f}" for x in losses)
+        + f"; largest relative difference from the unsharded loop "
+        f"{diff:.3e} (bound {DIST_TRAIN_TOL}); {tps:.1f} tokens/s over steps "
+        f"2-{TRAIN_STEPS} against {f32['tokens_per_s']:.1f} unsharded "
+        f"(host wall, the same call); peak memory {peak / 2 ** 30:.2f} GiB "
+        f"against {f32['peak_bytes'] / 2 ** 30:.2f} GiB unsharded "
+        f"(max_memory_allocated) [{card}]")
+    if not (len(losses) == TRAIN_STEPS and diff <= DIST_TRAIN_TOL):
+        raise SystemExit(f"dist train: losses {losses} against "
+                         f"{f32['losses']} ({diff:.3e})")
+    del state, loop
+    free_card()
+    return dict(losses=losses, max_rel_diff=diff, tokens_per_s=tps,
+                peak_bytes=peak)
+
+
+def dist_prefills(dev, mesh, card: str) -> dict:
+    """(b) rwkv6-3b's float prefill (the WKV kernel) and qwen2-1.5b's
+    quantized prefill (the W8A8 kernel) at full depth on the 1 × 1 mesh:
+    logits ``torch.equal`` to the unsharded prefill's, the launches counted
+    around the sharded run, every GEMM call held to its plain version."""
+    out = {}
+    cfg = get_config(LM_ARCH)
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    params = rwkv6.init(g, cfg, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ), generator=g,
+                           device=dev)
+    model = build_model(cfg, device=dev)
+    with torch.no_grad():
+        want = model.prefill(params, tokens=tokens)
+    torch.cuda.synchronize()
+    reset_launches()
+    got = sharded_prefill(model, params, tokens, mesh, cfg)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_launches().items() if v}
+    equal = torch.equal(got, want)
+    log(f"dist (b) sharded prefill {LM_ARCH} (1x1 mesh, {cfg.n_layers} "
+        f"layers, B={LM_BATCH} T={LM_SEQ}): launches {launches}; logits "
+        f"torch.equal to the unsharded prefill: {equal} [{card}]")
+    if launches != {"wkv_scan": cfg.n_layers} or not equal:
+        raise SystemExit(f"dist rwkv6 prefill: launches {launches}, equal "
+                         f"{equal}")
+    out["wkv_launches"] = launches["wkv_scan"]
+    del params, model, want, got
+    free_card()
+
+    cfg = get_config(TF_ARCH)
+    params, g = transformer_params(cfg, SEED + 31, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (TF_BATCH, TF_SEQ),
+                           generator=g, device=dev)
+    q = tq.quantize_tree(params)
+    del params
+    model = build_model(cfg, device=dev)
+    with torch.no_grad():
+        want = model.prefill(q, tokens=tokens)
+    record = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    with checked_gemms(record):
+        got = sharded_prefill(model, q, tokens, mesh, cfg)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_launches().items() if v}
+    n = TF_PROJECTIONS * cfg.n_layers
+    equal = torch.equal(got, want)
+    log(f"dist (b) sharded quantized prefill {TF_ARCH} (1x1 mesh, "
+        f"{cfg.n_layers} layers, B={TF_BATCH} T={TF_SEQ}): launches "
+        f"{launches}; {record['calls']} GEMM calls, {record['differ']} "
+        f"differ from the plain version (max_abs_err {record['err']}), "
+        f"{record['row_major']} row-major codes; logits torch.equal to the "
+        f"unsharded prefill: {equal} [{card}]")
+    if (launches != {"fixedpoint_matmul": n} or record["calls"] != n
+            or record["differ"] or not equal):
+        raise SystemExit(f"dist quantized prefill: launches {launches}, "
+                         f"calls {record['calls']}, differ "
+                         f"{record['differ']}, equal {equal}")
+    out.update(gemm_launches=n, gemm_err=record["err"])
+    del q, model, want, got
+    free_card()
+    return out
+
+
+def dist_dryrun(proc, f32: dict, card: str) -> dict:
+    """(c) the dry run of the card's own step against the card, and (d)
+    the production cells, from the subprocess started with DIST_DRYRUN."""
+    stdout, stderr = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise SystemExit(f"dist dry run failed:\n{stderr[-4000:]}")
+    card_rec, cells = None, []
+    for line in stdout.splitlines():
+        if line.startswith("CARD "):
+            card_rec = json.loads(line[5:])
+        elif line.startswith("CELL "):
+            cells.append(json.loads(line[5:]))
+    est, meas = card_rec["memory"]["peak_est_bytes"], f32["peak_bytes"]
+    mem_err = abs(est - meas) / meas
+    flops = card_rec["cost"]["flops"]
+    step_s = f32["step_ms_later"] * 1e-3
+    tflops = flops / step_s / 1e12
+    log(f"dist (c) dry run of the {TRAIN_ARCH} train step at "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} on a 1-rank fake mesh: peak_est "
+        f"{est / 2 ** 30:.2f} GiB against max_memory_allocated "
+        f"{meas / 2 ** 30:.2f} GiB of the unsharded step ({mem_err:.4f}, "
+        f"bound {DIST_MEM_TOL}); {flops:.4e} FLOPs a step over the measured "
+        f"{step_s:.4f} s (CUDA events, steps 2-{TRAIN_STEPS}) = {tflops:.2f} "
+        f"TFLOP/s, {tflops * 1e12 / HW.PEAK_BF16:.4f} of the H100 SXM dense "
+        f"bf16 peak ({HW.PEAK_BF16 / 1e12:.1f} TFLOP/s); traced in "
+        f"{card_rec['trace_seconds']} s [{card}]")
+    if not mem_err <= DIST_MEM_TOL:
+        raise SystemExit(f"dist dry run: peak estimate {est} against {meas}")
+    bad = [c for c in cells if c["status"] != "ok"]
+    for c in cells:
+        if c["status"] != "ok":
+            continue
+        rl = c["roofline"]
+        log(f"dist (d) {c['arch']} x {c['shape']} x {c['mesh']}"
+            + (f" {c['overrides']}" if c["overrides"] else "")
+            + f": ok, compute {rl['compute_s']:.4f} s | memory "
+            f"{rl['memory_s']:.4f} s | collective {rl['collective_s']:.4f} s"
+            f" -> {rl['bottleneck']}; peak_est "
+            f"{c['memory']['peak_est_bytes'] / 2 ** 30:.2f} GiB; "
+            f"{len(c['fallbacks'])} fallbacks; traced in "
+            f"{c['trace_seconds']} s")
+    if bad or len(cells) != 2 * len(DIST_CELLS):
+        raise SystemExit(f"dist production cells: {len(cells)} records, "
+                         f"failed {[(c['arch'], c['shape'], c['mesh'], c.get('error')) for c in bad]}")
+    return dict(mem_err=mem_err, peak_est_bytes=est, tflops=tflops,
+                peak_share=tflops * 1e12 / HW.PEAK_BF16,
+                cells_ok=len(cells))
+
+
+def run_dist_path(dev, card: str, f32: dict) -> dict:
+    """LM slice E: the sharded training loop and prefills on a 1 × 1 NCCL
+    mesh against the unsharded paths, the dry run against the card, and
+    the production cells' dry runs (a subprocess, started after the timed
+    training so that it does not share the host with it)."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0,
+                            device_id=dev)
+    proc = None
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        out = {"train": dist_train(dev, mesh, f32, card)}
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            [str(Path(__file__).resolve().parent / "src"),
+             os.environ.get("PYTHONPATH", "")]), "CUDA_VISIBLE_DEVICES": ""}
+        proc = subprocess.Popen(
+            [sys.executable, "-c", DIST_DRYRUN, json.dumps(
+                [TRAIN_BATCH, TRAIN_SEQ, DIST_CELLS, DIST_JOBS])],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env)
+        out["prefill"] = dist_prefills(dev, mesh, card)
+    except BaseException:
+        if proc is not None:
+            proc.kill()
+            proc.wait()
+        raise
+    finally:
+        dist.destroy_process_group()
+    try:
+        out["dryrun"] = dist_dryrun(proc, f32, card)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"dist path: {out['seconds']:.1f} s")
+    return out
+
+
 def slice_c_gemm_numbers(dev, card: str) -> dict:
     """Phase 5 for the GEMM at the shapes slice C adds: at the prefill's
     M (zamba2 4 × 2048, whisper's 8 × 1500 encoder rows) and at M = 8 (a
@@ -4040,11 +4290,23 @@ def main() -> int:
                    "gemm_launches"],
                "whisper-base quantized prefill": lmc["whisper"][
                    "gemm_launches"]}
+    slice_c_gemm = slice_c_gemm_numbers(dev, smi)
+    wkv = wkv_numbers(dev, lm, worst["wkv_scan"], smi)
+    # the distribution phase comes after every profiler session: once its
+    # NCCL group has been up, the profiler's sessions in this process were
+    # seen to record no device activity
+    dist = run_dist_path(dev, smi, train["f32"])
+    by_path["qwen2-1.5b sharded quantized prefill"] = dist["prefill"][
+        "gemm_launches"]
     gemm["launches"] = sum(by_path.values())
+    gemm["max_abs_err"] = max(gemm["max_abs_err"], dist["prefill"]["gemm_err"])
     log(f"kernel fixedpoint_matmul launches by path: {by_path}")
     kernels.extend([gemm, taylor])
-    slice_c_gemm = slice_c_gemm_numbers(dev, smi)
-    kernels.append(wkv_numbers(dev, lm, worst["wkv_scan"], smi))
+    wkv["launches"] += dist["prefill"]["wkv_launches"]
+    log(f"kernel wkv_scan launches by path: rwkv6 prefill "
+        f"{lm['launches']['wkv_scan']}, sharded rwkv6 prefill "
+        f"{dist['prefill']['wkv_launches']}")
+    kernels.append(wkv)
     for label, p in path.items():
         kernel_s = sum(n * k_ms[k] * 1e-3 for k, n in p["launches"].items())
         log(f"path {label}: {p['packets_per_s']:.0f} packets/s, engine call "
@@ -4111,7 +4373,19 @@ def main() -> int:
                           for mode in ("f32", "int8")} | {
                           "grads_card_vs_cpu": train["grads"],
                           "example_losses": [h["loss"] for h in train[
-                              "example"]["history"]]}}),
+                              "example"]["history"]]},
+                      "dist": {
+                          "train_tokens_per_s": dist["train"]["tokens_per_s"],
+                          "train_peak_bytes": dist["train"]["peak_bytes"],
+                          "train_max_rel_diff": dist["train"][
+                              "max_rel_diff"],
+                          "dryrun_peak_est_bytes": dist["dryrun"][
+                              "peak_est_bytes"],
+                          "dryrun_mem_err": dist["dryrun"]["mem_err"],
+                          "train_tflops": dist["dryrun"]["tflops"],
+                          "train_peak_share": dist["dryrun"]["peak_share"],
+                          "cells_ok": dist["dryrun"]["cells_ok"],
+                          "seconds": dist["seconds"]}}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

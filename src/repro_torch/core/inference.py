@@ -51,7 +51,8 @@ __all__ = ["DataPlaneEngine", "DeviceResult", "resolve_device"]
 
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; raises when it names the card and
-    PyTorch sees none (there is no silent fall back to the CPU)."""
+    PyTorch sees none (there is no silent fall back to the CPU).  ``"meta"``
+    (shapes without data, the dry run's device) passes as it is."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -60,7 +61,7 @@ def resolve_device(device) -> torch.device:
                 "is False; pass device='cpu' to run on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
 

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.constrain import local_sums
 from .fixedpoint import true_divide
 
 __all__ = ["mse", "bce", "cce", "bce_taylor", "cce_taylor", "log_taylor3",
@@ -101,24 +102,10 @@ def _chunk_nll_sum(h_i: torch.Tensor, w: torch.Tensor, l_i: torch.Tensor,
     return (_nll(logits, l_i) * m_i).sum()
 
 
-def chunked_cross_entropy(h: torch.Tensor, w_unembed: torch.Tensor,
-                          labels: torch.Tensor,
-                          mask: Optional[torch.Tensor] = None,
-                          chunk: Optional[int] = None) -> torch.Tensor:
-    """LM loss without materializing the full (B, S, V) logits: the
-    sequence is cut into chunks whose (B, chunk, V) logits are made one at
-    a time.  h: (B, S, D) final hidden states; w_unembed: (D, V).  The
-    chunk size follows the reference's formula (≈2^31 logits per chunk,
-    a power of two in [32, 512], at most S).  Under autograd each chunk's
-    logits are recomputed in the backward (``torch.utils.checkpoint``, as
-    the reference's ``jax.checkpoint``), so the peak vocab-sized temporary
-    is one chunk's."""
+def _ce_sums(h: torch.Tensor, w_unembed: torch.Tensor, labels: torch.Tensor,
+             mask: Optional[torch.Tensor], chunk: int):
+    """The masked NLL sum and the mask's sum, chunk by chunk."""
     b, s, d = h.shape
-    if chunk is None:
-        v = w_unembed.shape[-1]
-        chunk = int(min(512, max(32, (1 << 31) // max(b * v, 1))))
-        chunk = 1 << (chunk.bit_length() - 1)  # round down to a power of two
-        chunk = min(chunk, s) if s >= 32 else s
     pad = (-s) % chunk
     if mask is None:
         mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
@@ -137,4 +124,31 @@ def chunked_cross_entropy(h: torch.Tensor, w_unembed: torch.Tensor,
                                         use_reentrant=False)
                              if remat else _chunk_nll_sum(*args))
         m_sum = m_sum + args[3].sum()
+    return nll_sum, m_sum
+
+
+def chunked_cross_entropy(h: torch.Tensor, w_unembed: torch.Tensor,
+                          labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None,
+                          chunk: Optional[int] = None) -> torch.Tensor:
+    """LM loss without materializing the full (B, S, V) logits: the
+    sequence is cut into chunks whose (B, chunk, V) logits are made one at
+    a time.  h: (B, S, D) final hidden states; w_unembed: (D, V).  The
+    chunk size follows the reference's formula (≈2^31 logits per chunk,
+    a power of two in [32, 512], at most S).  Under autograd each chunk's
+    logits are recomputed in the backward (``torch.utils.checkpoint``, as
+    the reference's ``jax.checkpoint``), so the peak vocab-sized temporary
+    is one chunk's.  Under a mesh each rank runs the chunks of its own
+    rows with the whole unembedding (gathered) and the two sums are
+    reduced across the ranks (``distributed.constrain.local_sums``)."""
+    b, s, d = h.shape
+    if chunk is None:
+        v = w_unembed.shape[-1]
+        chunk = int(min(512, max(32, (1 << 31) // max(b * v, 1))))
+        chunk = 1 << (chunk.bit_length() - 1)  # round down to a power of two
+        chunk = min(chunk, s) if s >= 32 else s
+    nll_sum, m_sum = local_sums(
+        lambda h_, w_, l_, m_: _ce_sums(h_, w_, l_, m_, chunk), h,
+        w_unembed, labels, mask, why="cross-entropy: each rank's rows "
+        "against the whole unembedding")
     return nll_sum / torch.clamp_min(m_sum, 1.0)

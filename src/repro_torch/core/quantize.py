@@ -10,7 +10,9 @@ scale.  Counterpart of ``repro.core.quantize``, with its three modes:
 
 ``w8a8_matmul_int`` quantizes ``x`` per row, flattens its leading dims to
 ``(M, K)`` and calls ``kernels.ops.fixedpoint_matmul`` with the weight codes
-as they are: the hand-written
+as they are (under a mesh, on each rank's shards: column-parallel weights
+give sharded output columns, row-parallel ones partial sums reduced in
+float32 after the rescale): the hand-written
 CUDA W8A8 kernel for tensors on the card, its plain version
 (``ref.fixedpoint_matmul_ref``) for tensors on the CPU.  Both give the bits
 of the reference's ``dot_general`` path: the int32 accumulator, then
@@ -36,6 +38,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from ..distributed.constrain import is_dtensor, reduce_partial, tp_layout
 from ..kernels import ops
 from .fixedpoint import fake_quant, true_divide
 from .inference import resolve_device
@@ -73,13 +76,51 @@ def w8a8_matmul_int(x: torch.Tensor, w_codes: torch.Tensor,
     for a 1-D ``x``, as the reference's broadcast gives)."""
     if w_codes.dim() != 2:
         raise ValueError(f"2-D weight codes expected, got {tuple(w_codes.shape)}")
+    x, w_codes, kind = tp_layout(x, w_codes)
     x_codes, x_scale = absmax_quantize(x, bits=bits, axis=-1)
     k, n = w_codes.shape
-    out = ops.fixedpoint_matmul(
-        x_codes.reshape(-1, k), w_codes,
-        x_scale.reshape(-1, 1).to(torch.float32).contiguous(),
-        w_scale.reshape(1, n).to(torch.float32).contiguous())
+    operands = (x_codes.reshape(-1, k), w_codes,
+                x_scale.reshape(-1, 1).to(torch.float32).contiguous(),
+                w_scale.reshape(1, n).to(torch.float32).contiguous())
+    if kind == "rep" and not is_dtensor(x_codes):
+        out = ops.fixedpoint_matmul(*operands)
+    else:
+        out = reduce_partial(_local_gemm(kind, *operands))
     return out.reshape(*x.shape[:-1], n) if x.dim() > 1 else out
+
+
+def _local_gemm(kind: str, x_codes, w_codes, x_scale, w_scale):
+    """The W8A8 GEMM on each rank's shards of DTensor operands
+    (``local_map``): the rows of ``x`` keep their data-axis sharding;
+    on ``model`` a column-parallel weight (``kind="col"``) gives output
+    columns ``Shard(-1)``, a row-parallel one (``"row"``, ``x`` sharded on
+    K) a ``Partial()`` sum, and a replicated one a replicated output."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = w_codes.device_mesh
+    pl = {name: [] for name in ("x", "w", "xs", "ws", "out")}
+    for name, xp in zip(mesh.mesh_dim_names, x_codes.placements):
+        if name == "model":
+            col, row = kind == "col", kind == "row"
+            pl["x"].append(Shard(1) if row else Replicate())
+            pl["w"].append(Shard(1) if col else Shard(0) if row
+                           else Replicate())
+            pl["xs"].append(Replicate())
+            pl["ws"].append(Shard(1) if col else Replicate())
+            pl["out"].append(Shard(1) if col else Partial() if row
+                             else Replicate())
+        else:
+            rows = Shard(0) if isinstance(xp, Shard) and xp.dim == 0 \
+                else Replicate()
+            pl["x"].append(rows)
+            pl["w"].append(Replicate())
+            pl["xs"].append(rows)
+            pl["ws"].append(Replicate())
+            pl["out"].append(rows)
+    fn = local_map(ops.fixedpoint_matmul, out_placements=pl["out"],
+                   in_placements=(pl["x"], pl["w"], pl["xs"], pl["ws"]),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(x_codes, w_codes, x_scale, w_scale)
 
 
 def _calibrated_fake_quant(x: torch.Tensor, bits: int,

@@ -39,7 +39,7 @@ import torch
 from . import _build
 from .ref import fixedpoint_matmul_ref
 
-__all__ = ["fixedpoint_matmul", "run_split", "plan", "launches", "relayouts",
+__all__ = ["fixedpoint_matmul", "fixedpoint_matmul_op", "run_split", "plan", "launches", "relayouts",
            "reset_launches", "load_library"]
 
 #: kernel launches since the last :func:`reset_launches`
@@ -229,3 +229,43 @@ def fixedpoint_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor,
     x_codes, w_codes = _tma_operands(x_codes, w_codes)
     return _launch(x_codes, w_codes, x_scale, w_scale,
                    plan(m, n, k, _num_sms(x_codes.device)))
+
+
+# ---------------------------------------------------------------------------
+# the custom op: ``torch.ops.repro_torch.fixedpoint_matmul``
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("repro_torch::fixedpoint_matmul", mutates_args=())
+def fixedpoint_matmul_op(x_codes: torch.Tensor, w_codes: torch.Tensor,
+                         x_scale: torch.Tensor,
+                         w_scale: torch.Tensor) -> torch.Tensor:
+    """:func:`fixedpoint_matmul` as a custom op: one opaque op to dispatch
+    modes and DTensor (run it on local shards), with a fake (meta) version
+    for the dry run and a FLOP formula (2·M·N·K) for
+    ``torch.utils.flop_counter``."""
+    return fixedpoint_matmul(x_codes, w_codes, x_scale, w_scale)
+
+
+@fixedpoint_matmul_op.register_fake
+def _(x_codes, w_codes, x_scale, w_scale):
+    if x_codes.dim() != 2 or w_codes.dim() != 2 or \
+            x_codes.shape[1] != w_codes.shape[0]:
+        raise ValueError(f"codes of shapes {tuple(x_codes.shape)} and "
+                         f"{tuple(w_codes.shape)} do not multiply")
+    return x_codes.new_empty((x_codes.shape[0], w_codes.shape[1]),
+                             dtype=torch.float32)
+
+
+def _register_flops() -> None:
+    from torch.utils.flop_counter import flop_registry, register_flop_formula
+    packet = torch.ops.repro_torch.fixedpoint_matmul
+    if packet in flop_registry:
+        return
+
+    @register_flop_formula(packet)
+    def _(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
+        return 2 * x_shape[0] * x_shape[1] * w_shape[1]
+
+
+_register_flops()

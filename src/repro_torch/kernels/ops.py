@@ -14,6 +14,12 @@ WKV chunk scan.
                    for the GEMM, the Taylor activation and the WKV scan,
                    whose plain versions have one form, that form.
 
+The GEMM and the WKV scan (the kernels on the LM paths) run as custom ops
+(``torch.ops.repro_torch.fixedpoint_matmul`` / ``.wkv_scan``): opaque to
+DTensor, which runs them on local shards, with fake (meta) versions and
+FLOP formulas for the dry run; on the card the op launches the same
+kernel and counts the same launch.
+
 Callers hand over tables exactly as the control plane stores them.
 :func:`flow_update` takes the same three names with its own CPU path (see
 there).
@@ -54,7 +60,7 @@ def fixedpoint_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor,
     _check_backend(backend, x_codes)
     if backend == "ref":
         return ref.fixedpoint_matmul_ref(x_codes, w_codes, x_scale, w_scale)
-    return fmm.fixedpoint_matmul(x_codes, w_codes, x_scale, w_scale)
+    return fmm.fixedpoint_matmul_op(x_codes, w_codes, x_scale, w_scale)
 
 
 def taylor_activation(x_q: torch.Tensor, coeffs, x_frac: int,
@@ -87,7 +93,7 @@ def wkv_scan(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
     _check_backend(backend, a)
     if backend == "ref":
         return ref.wkv_scan_ref(a, b, v, tot, diag)
-    return wk.wkv_scan(a, b, v, tot, diag)
+    return wk.wkv_scan_op(a, b, v, tot, diag)
 
 
 def fused_mlp(x_q: torch.Tensor, slot: torch.Tensor, w: torch.Tensor,

@@ -24,8 +24,8 @@ import torch
 from . import _build
 from .ref import wkv_scan_ref
 
-__all__ = ["wkv_scan", "MAX_D", "MAX_C", "launches", "reset_launches",
-           "load_library"]
+__all__ = ["wkv_scan", "wkv_scan_op", "wkv_flops", "MAX_D", "MAX_C",
+           "launches", "reset_launches", "load_library"]
 
 #: the kernel's limits: head dim D ≤ MAX_D, chunk length 1 ≤ C ≤ MAX_C
 MAX_D = 64
@@ -99,3 +99,46 @@ def wkv_scan(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"wkv_scan launch failed: CUDA error {rc}")
     launches["wkv_scan"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the custom op: ``torch.ops.repro_torch.wkv_scan``
+# ---------------------------------------------------------------------------
+
+
+def wkv_flops(bh: int, nc: int, c: int, d: int) -> int:
+    """The scan's operations (PERF.md §6's bound): per (row, chunk)
+    2C(C−1)D (the strictly-causal scores and their product with v)
+    + 4CD² (a·S and the state increment) + 3CD + 2D² (the diagonal bonus,
+    the decay of S)."""
+    return bh * nc * (2 * c * (c - 1) * d + 4 * c * d * d + 3 * c * d
+                      + 2 * d * d)
+
+
+@torch.library.custom_op("repro_torch::wkv_scan", mutates_args=())
+def wkv_scan_op(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
+                tot: torch.Tensor, diag: torch.Tensor) -> torch.Tensor:
+    """:func:`wkv_scan` as a custom op: one opaque op to dispatch modes
+    and DTensor (run it on local shards), with a fake (meta) version for
+    the dry run and a FLOP formula for ``torch.utils.flop_counter``."""
+    return wkv_scan(a, b, v, tot, diag)
+
+
+@wkv_scan_op.register_fake
+def _(a, b, v, tot, diag):
+    _check_shapes(a, b, v, tot, diag)
+    return torch.empty_like(a)
+
+
+def _register_flops() -> None:
+    from torch.utils.flop_counter import flop_registry, register_flop_formula
+    packet = torch.ops.repro_torch.wkv_scan
+    if packet in flop_registry:
+        return
+
+    @register_flop_formula(packet)
+    def _(a_shape, *args, out_shape=None, **kwargs) -> int:
+        return wkv_flops(*a_shape)
+
+
+_register_flops()

@@ -3,8 +3,10 @@ points for every family.
 
 Counterpart of ``repro.models.api`` for every family: the transformer
 families (dense, moe, vlm), RWKV-6, the Zamba2 hybrid (hybrid) and the
-Whisper encoder–decoder (encdec).  The reference's dry-run helpers (``abstract_params``, ``abstract_caches``,
-``input_specs``) come with the distribution slice.
+Whisper encoder–decoder (encdec).  The dry-run helpers
+(``abstract_params``, ``abstract_caches``, ``input_specs``) give the
+reference's trees, shapes and dtypes as tensors on the ``"meta"`` device:
+they allocate nothing, so a 236B-parameter config costs no memory.
 
 ``params_from_numpy`` carries the reference's parameters across: a tree of
 numpy arrays (``jax.tree.map(np.asarray, params)``) becomes the same tree of
@@ -19,7 +21,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from ..core.inference import resolve_device
 from ..core.quantize import k_major_pairs
 from . import encdec, rwkv6, ssm, transformer
@@ -37,6 +39,45 @@ class Model:
     prefill: Callable  # (params, **inputs) -> last-position logits (B,1,V)
     decode_step: Callable  # (params, caches, tokens, pos) -> (logits, caches)
     init_caches: Callable  # (batch, max_seq) -> caches on ``device``
+    wkv: Optional[str] = None  # rwkv6's WKV route (build_model's ``wkv``)
+
+    def _meta(self) -> "Model":
+        return build_model(self.cfg, wkv=self.wkv, device="meta")
+
+    def abstract_params(self) -> Params:
+        """The parameter tree on ``"meta"``: the reference's leaves, shapes
+        and dtypes, with no data and no draw from a generator."""
+        return self._meta().init(None)
+
+    def abstract_caches(self, batch: int, max_seq: int) -> Params:
+        """The decode caches on ``"meta"``."""
+        return self._meta().init_caches(batch, max_seq)
+
+    # -- dry-run inputs -----------------------------------------------------
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        """Model inputs on ``"meta"`` for one (arch × shape) cell, with the
+        reference's shapes and dtypes."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+        f = getattr(torch, cfg.dtype)
+
+        def spec(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        if shape.kind == "decode":
+            return {"tokens": spec((b, 1), i32), "pos": spec((b,), i32)}
+        specs: Dict[str, torch.Tensor] = {}
+        s_text = s
+        if cfg.family == "vlm":
+            s_text = s - cfg.n_patches  # patches occupy the head of the seq
+            specs["patch_embeds"] = spec((b, cfg.n_patches, cfg.d_model), f)
+        if cfg.family == "encdec":
+            specs["frames"] = spec((b, cfg.encoder_seq, cfg.d_model), f)
+        specs["tokens"] = spec((b, s_text), i32)
+        if shape.kind == "train":
+            specs["labels"] = spec((b, s_text), i32)
+        return specs
 
 
 def build_model(cfg: ModelConfig, *, wkv: Optional[str] = None,
@@ -48,7 +89,8 @@ def build_model(cfg: ModelConfig, *, wkv: Optional[str] = None,
     ``"chunked"`` form, as the reference's loss does.  ``device`` is where
     ``init`` and ``init_caches`` allocate
     (the card unless the caller asks for the CPU; raises when there is no
-    card).  The VLM's ``prefill`` takes ``patch_embeds`` (B, n_patches,
+    card; ``"meta"`` gives shapes without data, and ``init(None)`` then
+    draws nothing).  The VLM's ``prefill`` takes ``patch_embeds`` (B, n_patches,
     d_model) beside ``tokens``, the encoder–decoder's ``frames``
     (B, encoder_seq, d_model)."""
     if cfg.family in ("dense", "moe", "vlm"):
@@ -73,6 +115,7 @@ def build_model(cfg: ModelConfig, *, wkv: Optional[str] = None,
         return Model(
             cfg=cfg,
             device=dev,
+            wkv=wkv,
             init=lambda g: rwkv6.init(g, cfg, device=dev),
             loss_fn=lambda p, b: rwkv6.loss_fn(p, b, cfg, train_wkv),
             prefill=lambda p, **inp: rwkv6.prefill(p, inp["tokens"], cfg,

@@ -58,14 +58,22 @@ def _sinusoid(seq: int, d: int) -> np.ndarray:
 
 def _bidirectional(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    cfg: ModelConfig) -> torch.Tensor:
-    """Unmasked attention. q: (B,Sq,H,D); k, v: (B,Sk,H_kv,D) → (B,Sq,H·D)."""
+    """Unmasked attention. q: (B,Sq,H,D); k, v: (B,Sk,H_kv,D) → (B,Sq,H·D)
+    (on each rank's (batch, head) rows under a mesh)."""
     b, s = q.shape[:2]
-    n_rep = cfg.n_heads // k.shape[2]
-    k, v = L._repeat_kv(k, n_rep), L._repeat_kv(v, n_rep)
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, cfg.q_dim)
+
+    def attend(q, k, v):
+        n_rep = q.shape[2] // k.shape[2]
+        k, v = L._repeat_kv(k, n_rep), L._repeat_kv(v, n_rep)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(
+            torch.float32) * scale
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+    out = L.head_rows(attend, q, k, v, why="attention: per (batch, head) "
+                      "rows")
+    return out.reshape(b, s, cfg.q_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -88,17 +96,18 @@ def init_cross_attention(generator: torch.Generator, cfg: ModelConfig, *,
 
 def cross_kv(p: Params, memory: torch.Tensor, cfg: ModelConfig):
     b, s, _ = memory.shape
-    k = L.linear(p["wk"], memory, cfg).reshape(b, s, cfg.n_kv_heads,
-                                               cfg.head_dim)
-    v = L.linear(p["wv"], memory, cfg).reshape(b, s, cfg.n_kv_heads,
-                                               cfg.head_dim)
+    k = L.split_heads(L.linear(p["wk"], memory, cfg), cfg.n_kv_heads,
+        cfg.head_dim)
+    v = L.split_heads(L.linear(p["wv"], memory, cfg), cfg.n_kv_heads,
+        cfg.head_dim)
     return k, v
 
 
 def cross_attention(p: Params, x: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     b, s, _ = x.shape
-    q = L.linear(p["wq"], x, cfg).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    q = L.split_heads(L.linear(p["wq"], x, cfg), cfg.n_heads,
+        cfg.head_dim)
     return L.linear(p["wo"], _bidirectional(q, k, v, cfg), cfg)
 
 
@@ -116,12 +125,12 @@ def encoder_block_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig
     # bidirectional self-attention (no mask)
     h = L.norm(p["ln1"], x, cfg)
     b, s, _ = h.shape
-    q = L.linear(p["attn"]["wq"], h, cfg).reshape(b, s, cfg.n_heads,
-                                                  cfg.head_dim)
-    k = L.linear(p["attn"]["wk"], h, cfg).reshape(b, s, cfg.n_kv_heads,
-                                                  cfg.head_dim)
-    v = L.linear(p["attn"]["wv"], h, cfg).reshape(b, s, cfg.n_kv_heads,
-                                                  cfg.head_dim)
+    q = L.split_heads(L.linear(p["attn"]["wq"], h, cfg), cfg.n_heads,
+        cfg.head_dim)
+    k = L.split_heads(L.linear(p["attn"]["wk"], h, cfg), cfg.n_kv_heads,
+        cfg.head_dim)
+    v = L.split_heads(L.linear(p["attn"]["wv"], h, cfg), cfg.n_kv_heads,
+        cfg.head_dim)
     x = x + L.linear(p["attn"]["wo"], _bidirectional(q, k, v, cfg), cfg)
     x = x + L.mlp(p["mlp"], L.norm(p["ln2"], x, cfg), cfg)
     return x

@@ -21,6 +21,10 @@ Under the causal mask a key block that lies wholly after its query block
 adds nothing (its probabilities are exactly 0, its correction exactly 1,
 its gradient terms exactly 0), so both passes skip it: the results are the
 reference's, in the same arithmetic.
+
+Under the dry run's folding cost counter (``distributed.cost``) each loop
+runs one block, its counts multiplied by the number of blocks (the causal
+pairs by their mean per row, (n + 1) / 2).
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..distributed import cost
 
 __all__ = ["flash_attention"]
 
@@ -81,12 +87,13 @@ def _flash_fwd(q, k, v, causal: bool, chunk: int
     nc = q.shape[2] // chunk
     f32 = torch.float32
     outs, lses = [], []
-    for qi in range(nc):
+    pairs = (nc + 1) / 2 if causal else None  # key blocks per query block
+    for qi in cost.loop(nc):
         q_i = q[:, :, qi * chunk:(qi + 1) * chunk]
         m = torch.full((b, h, chunk), _NEG, dtype=f32, device=q.device)
         l = torch.zeros((b, h, chunk), dtype=f32, device=q.device)
         acc = torch.zeros((b, h, chunk, dv), dtype=f32, device=q.device)
-        for kj in range(qi + 1 if causal else nc):
+        for kj in cost.loop(qi + 1 if causal else nc, pairs):
             k_j = k[:, :, kj * chunk:(kj + 1) * chunk]
             v_j = v[:, :, kj * chunk:(kj + 1) * chunk]
             s_ij = torch.einsum("bhqd,bhkd->bhqk", q_i, k_j).to(f32)
@@ -102,8 +109,8 @@ def _flash_fwd(q, k, v, causal: bool, chunk: int
         l = torch.clamp_min(l, 1e-30)
         outs.append((acc / l[..., None]).to(q_i.dtype))
         lses.append(m + torch.log(l))
-    out = torch.cat(outs, dim=2)[:, :, :s]
-    lse = torch.cat(lses, dim=2)[:, :, :s]
+    out = torch.cat(cost.fill(outs, nc), dim=2)[:, :, :s]
+    lse = torch.cat(cost.fill(lses, nc), dim=2)[:, :, :s]
     return out, lse
 
 
@@ -127,11 +134,14 @@ def _flash_bwd(q, k, v, out, lse, dout, causal: bool, chunk: int
 
     dq = torch.zeros(q.shape, dtype=f32, device=q.device)
     dks, dvs = [], []
-    for kj in range(nc):
+    pairs = (nc + 1) / 2 if causal else None  # query blocks per key block
+    for kj in cost.loop(nc):
         k_j, v_j = blk(k, kj), blk(v, kj)
         dk_j = torch.zeros(k_j.shape, dtype=f32, device=q.device)
         dv_j = torch.zeros(v_j.shape, dtype=f32, device=q.device)
-        for qi in range(kj if causal else 0, nc):
+        start = kj if causal else 0
+        for i in cost.loop(nc - start, pairs):
+            qi = start + i
             q_i, do_i = blk(q, qi), blk(dout, qi)
             s_ij = torch.einsum("bhqd,bhkd->bhqk", q_i, k_j).to(f32)
             msk = _mask(qi, kj, chunk, causal, s, q.device)
@@ -147,7 +157,7 @@ def _flash_bwd(q, k, v, out, lse, dout, causal: bool, chunk: int
             dq_i += torch.einsum("bhqk,bhkd->bhqd", ds, k_j).to(f32)
         dks.append(dk_j)
         dvs.append(dv_j)
-    dk = torch.cat(dks, dim=2)
-    dv = torch.cat(dvs, dim=2)
+    dk = torch.cat(cost.fill(dks, nc), dim=2)
+    dv = torch.cat(cost.fill(dvs, nc), dim=2)
     return (dq[:, :, :s].to(dt), dk[:, :, :s].to(k.dtype),
             dv[:, :, :s].to(v.dtype))

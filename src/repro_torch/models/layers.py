@@ -39,14 +39,18 @@ from ..core import quantize as qz
 from ..core import taylor as ty
 from ..core.fixedpoint import true_divide
 from ..core.losses import chunked_cross_entropy
-from ..distributed.constrain import constrain, constrain_batch, mesh_axis_size
+from ..distributed import cost
+from ..distributed.constrain import (is_dtensor, constrain, constrain_batch,
+                                     current_mesh, gather_data, local_lookup,
+                                     local_rows, mesh_axis_size, tp_matmul)
 
 __all__ = ["init_linear", "linear", "init_norm", "norm", "rope", "act_fn",
            "softmax_fn", "init_mlp", "mlp", "init_attention", "attention",
            "maybe_quantize_kv", "dequantize_kv", "init_kv_cache",
            "taylor_linear_attention", "init_taylor_linear_cache",
            "taylor_linear_decode", "init_moe", "moe_ffn", "layer_params",
-           "stack_layers", "unstack_layers", "scan_layers",
+           "stack_layers", "unstack_layers", "scan_layers", "split_heads",
+           "embed_rows",
            "embed_tokens", "tied_unembed", "tied_lm_loss"]
 
 Params = Dict[str, Any]
@@ -101,15 +105,12 @@ def scan_layers(body, carry, trees: List, cfg: ModelConfig, group: int = 1):
         return fn(*args)
 
     def run(c, ts):
-        for t in ts:
-            c = remat(body, c, t)
-        return c
+        return cost.fold_loop(lambda c_, t: remat(body, c_, t), c, ts)
 
     if group <= 1:
         return run(carry, trees)
-    for i in range(0, len(trees), group):
-        carry = remat(run, carry, trees[i:i + group])
-    return carry
+    groups = [trees[i:i + group] for i in range(0, len(trees), group)]
+    return cost.fold_loop(lambda c_, ts: remat(run, c_, ts), carry, groups)
 
 
 def stack_layers(trees: List):
@@ -124,6 +125,18 @@ def stack_layers(trees: List):
     return torch.stack(trees)
 
 
+def split_heads(y: torch.Tensor, h: int, dh: int) -> torch.Tensor:
+    """(…, h·dh) → (…, h, dh).  Under a mesh the last dim is first pinned
+    to whole heads per rank: sharded on ``model`` when ``h`` divides it,
+    else replicated there (a DTensor cannot split a dim whose shards cut
+    heads); the leading dim stays on the data axes."""
+    m = mesh_axis_size("model")
+    spec = ["batch"] + [None] * (y.dim() - 2) + [
+        "model" if m > 1 and h % m == 0 else None]
+    y = constrain(y, spec, "heads: whole heads per rank", force=True)
+    return y.reshape(*y.shape[:-1], h, dh)
+
+
 # ---------------------------------------------------------------------------
 # the tied embedding (RWKV-6, the hybrid, the encoder–decoder)
 # ---------------------------------------------------------------------------
@@ -131,9 +144,17 @@ def stack_layers(trees: List):
 
 def embed_tokens(params: Params, tokens, cfg: ModelConfig) -> torch.Tensor:
     """Rows of ``params["embed"]`` for ``tokens``, in the activation dtype."""
-    emb = params["embed"]
+    return embed_rows(params["embed"], tokens, getattr(torch, cfg.dtype))
+
+
+def embed_rows(emb: torch.Tensor, tokens, dtype) -> torch.Tensor:
+    """``emb[tokens]`` in ``dtype``.  Under a mesh each rank looks up its
+    own rows of tokens in the whole table (gathered), giving rows on the
+    data axes, replicated on ``model``; the table's gradient is a partial
+    sum over the data axes."""
     idx = torch.as_tensor(tokens, device=emb.device).long()
-    return emb[idx].to(getattr(torch, cfg.dtype))
+    return local_lookup(lambda e, i: e[i].to(dtype), emb, idx,
+                        why="embedding: each rank's rows in the whole table")
 
 
 def tied_unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -179,13 +200,17 @@ def init_linear(generator: torch.Generator, din: int, dout: int, *,
 
 
 def linear(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``x @ w`` in the config's numeric mode (+ bias).  Under a mesh it
+    runs on each rank's shards in the weight's tensor-parallel layout
+    (``distributed.constrain.tp_matmul``: column-, row-parallel or
+    replicated on ``model``, the weight gathered on the data axes)."""
     w = p["w"]
     if isinstance(w, tuple):  # control-plane-installed quantized table
         y = qz.matmul(x, w, "w8a8_int")
     elif cfg.quant_mode == "fp":
-        y = x @ w.to(x.dtype)
+        y = tp_matmul(x, w)
     elif cfg.quant_mode == "w8a8_sim":
-        y = qz.w8a8_matmul_sim(x, w.to(x.dtype))
+        y = tp_matmul(x, w, lambda a, b: qz.w8a8_matmul_sim(a, b.to(a.dtype)))
     else:  # w8a8_int on float weights: quantize on the fly (tests/smoke)
         codes, scale = qz.absmax_quantize(w, bits=8, axis=0)
         y = qz.w8a8_matmul_int(x, codes, scale).to(x.dtype)
@@ -341,15 +366,33 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
 _ATTN_CHUNK = 512  # flash-style block size
 
 
+def head_rows(fn, q, k, v, *extra, why: str):
+    """``fn(q, k, v, *extra)`` for attention over (B, S, H, D) tensors, on
+    each rank's local (batch, head) rows under a mesh
+    (``distributed.constrain.local_rows``): heads stay sharded only when
+    the KV heads divide the ``model`` axis (each rank then holds whole GQA
+    groups); ``extra`` are (B, …) tensors sharded with the batch."""
+    heads = k.shape[2] % mesh_axis_size("model") == 0
+    qkv = (0, 2) if heads else (0,)
+    rest = (0, None) if heads else (0,)
+    return local_rows(fn, [q, k, v, *extra],
+                      [qkv] * 3 + [rest] * len(extra), [qkv], why)
+
+
 def _sdpa_causal(q, k, v, cfg: ModelConfig, q_pos0: int = 0) -> torch.Tensor:
+    if q.shape[1] > _ATTN_CHUNK and q.shape[1] == k.shape[1]:
+        return _sdpa_causal_chunked(q, k, v, cfg)
+    return head_rows(lambda q_, k_, v_: _sdpa_causal_full(q_, k_, v_, q_pos0),
+                     q, k, v, why="attention: per (batch, head) rows")
+
+
+def _sdpa_causal_full(q, k, v, q_pos0: int = 0) -> torch.Tensor:
     """Causal attention. q: (B,Sq,H,D), k/v: (B,Sk,H_kv,D).
 
     Short sequences use the exact materialized form; sequences longer than
     one 512-block (with as many keys as queries) use the flash/online-softmax
     chunked form (`_sdpa_causal_chunked`), so the S×S probability matrix
     never exists."""
-    if q.shape[1] > _ATTN_CHUNK and q.shape[1] == k.shape[1]:
-        return _sdpa_causal_chunked(q, k, v, cfg)
     n_rep = q.shape[2] // k.shape[2]
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)
@@ -369,20 +412,30 @@ def _sdpa_causal_chunked(q, k, v, cfg: ModelConfig,
     attention temporary is one (B, H, chunk, chunk) tile.  ``q`` is scaled
     by 1/√d rounded to its dtype."""
     from .flash import flash_attention
-    n_rep = q.shape[2] // k.shape[2]
-    k = _repeat_kv(k, n_rep)
-    v = _repeat_kv(v, n_rep)
-    scale = torch.full((), 1.0 / math.sqrt(q.shape[-1]), dtype=q.dtype,
-                       device=q.device)
-    out = flash_attention((q * scale).transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), True, chunk)
-    return out.transpose(1, 2)
+
+    def attend(q, k, v):
+        n_rep = q.shape[2] // k.shape[2]
+        k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+        scale = torch.full((), 1.0 / math.sqrt(q.shape[-1]), dtype=q.dtype,
+                           device=q.device)
+        out = flash_attention((q * scale).transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), True, chunk)
+        return out.transpose(1, 2)
+
+    return head_rows(attend, q, k, v,
+                     why="flash attention: per (batch, head) rows")
 
 
 def _sdpa_decode(q, k_cache, v_cache, pos, cfg: ModelConfig) -> torch.Tensor:
     """One-token attention against a KV cache. q: (B,1,H,D); caches
     (B,S_max,H_kv,D); ``pos``: (B,) current position (tokens < pos valid,
     plus the current token already written at ``pos``)."""
+    return head_rows(_sdpa_decode_local, q, k_cache, v_cache,
+                     torch.as_tensor(pos), why="decode attention: per "
+                     "(batch, head) rows")
+
+
+def _sdpa_decode_local(q, k_cache, v_cache, pos) -> torch.Tensor:
     n_rep = q.shape[2] // k_cache.shape[2]
     k = _repeat_kv(k_cache, n_rep)
     v = _repeat_kv(v_cache, n_rep)
@@ -431,14 +484,22 @@ def _cache_write(cache_leaf, new, pos):
     cache, placing the start as the reference's ``dynamic_update_slice``
     does: a negative position counts from the end once, then the start is
     clamped into [0, S-1] (a position past the end writes the last slot)."""
-    def upd(buf, val):
+    def write(buf, val, p):
         out = buf.clone()
         s = buf.shape[1]
-        p = pos.to(device=buf.device, dtype=torch.long)
+        p = p.to(device=buf.device, dtype=torch.long)
         p = torch.where(p < 0, p + s, p).clamp(0, s - 1)
         out[torch.arange(buf.shape[0], device=buf.device), p] = val[:, 0].to(
             buf.dtype)
         return out
+
+    def upd(buf, val):
+        # each (row, trailing index) is written on its own: under a mesh
+        # the write runs on every rank's shards (rows, heads, latents)
+        rows = (0, *range(2, buf.dim()))
+        return local_rows(write, [buf, val, torch.as_tensor(pos)],
+                          [rows, rows, (0,) + (None,) * (len(rows) - 1)],
+                          [rows], "cache write: per (row, head) slots")
     if isinstance(cache_leaf, dict):
         return {k: upd(cache_leaf[k], new[k]) for k in cache_leaf}
     return upd(cache_leaf, new)
@@ -452,9 +513,9 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     (cache given, x is (B,1,D), pos (B,))."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = linear(p["wq"], x, cfg).reshape(b, s, h, dh)
-    k = linear(p["wk"], x, cfg).reshape(b, s, hkv, dh)
-    v = linear(p["wv"], x, cfg).reshape(b, s, hkv, dh)
+    q = split_heads(linear(p["wq"], x, cfg), h, dh)
+    k = split_heads(linear(p["wk"], x, cfg), hkv, dh)
+    v = split_heads(linear(p["wv"], x, cfg), hkv, dh)
     if pos is not None:
         pos = torch.as_tensor(pos, device=x.device)
     if cfg.use_rope:
@@ -467,7 +528,8 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
     if cache is None:
         if cfg.attention_impl == "taylor_linear":
-            out = taylor_linear_attention(q, k, v)
+            out = head_rows(taylor_linear_attention, q, k, v,
+                            why="attention: per (batch, head) rows")
         else:
             out = _sdpa_causal(q, k, v, cfg)
         new_cache = None
@@ -546,9 +608,9 @@ def taylor_linear_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """O(1)-per-token decode with the Taylor feature-map state."""
     b, s, _ = x.shape  # s == 1
     h, dh = cfg.n_heads, cfg.head_dim
-    q = linear(p["wq"], x, cfg).reshape(b, s, h, dh)
-    k = linear(p["wk"], x, cfg).reshape(b, s, cfg.n_kv_heads, dh)
-    v = linear(p["wv"], x, cfg).reshape(b, s, cfg.n_kv_heads, dh)
+    q = split_heads(linear(p["wq"], x, cfg), h, dh)
+    k = split_heads(linear(p["wk"], x, cfg), cfg.n_kv_heads, dh)
+    v = split_heads(linear(p["wv"], x, cfg), cfg.n_kv_heads, dh)
     if cfg.use_rope:
         pos_arr = torch.as_tensor(pos, device=x.device)[:, None]
         q = rope(q, pos_arr, cfg.rope_theta, cfg.rope_fraction)
@@ -627,6 +689,67 @@ def _refuse_quantized_moe(p: Params) -> None:
                 "float (quantize_tree's skip)")
 
 
+def _expert_slice(mesh, e: int):
+    """This rank's experts under expert parallelism: the ``model`` axis
+    holds ``e / n`` consecutive experts per rank."""
+    n = mesh.size(mesh.mesh_dim_names.index("model"))
+    r = mesh.get_local_rank("model")
+    return slice(r * (e // n), (r + 1) * (e // n))
+
+
+def _moe_dispatch(dispatch, xg, ep: bool):
+    """``einsum("gsec,gsd->egcd")``: each group's tokens into its experts'
+    capacity slots.  Under a mesh on each rank's groups (and, under expert
+    parallelism, its own experts: no communication)."""
+    def local(disp, x, experts=slice(None)):
+        return torch.einsum("gsec,gsd->egcd", disp[:, :, experts], x)
+    if current_mesh() is None or not is_dtensor(xg):
+        return local(dispatch, xg)
+    if not ep:
+        return local_rows(local, [dispatch, xg], [(0,), (0,)], [(1,)],
+                          "MoE dispatch: per group rows")
+    return _ep_dispatch(lambda d, x: local(d, x, _expert_slice(
+        xg.device_mesh, dispatch.shape[2])), dispatch, xg)
+
+
+def _moe_combine(eout, combine):
+    """``einsum("egcd,gsec->gsd")``: each token's expert outputs weighted
+    back.  Under a mesh on each rank's groups, with every expert's output
+    (gathered on ``model`` under expert parallelism): the sum over
+    experts runs in one einsum, in the unsharded order."""
+    def local(eo, comb):
+        return torch.einsum("egcd,gsec->gsd", eo, comb)
+    return local_rows(local, [eout, combine], [(1,), (0,)], [(0,)],
+                      "MoE combine: per group rows")
+
+
+def _ep_dispatch(fn, dispatch, xg):
+    """``fn`` on local shards under expert parallelism: groups on the
+    data axes where ``xg`` has them, the output's experts on ``model``
+    (each rank fills only its own experts' slots, so ``xg``'s gradient is
+    a partial sum over ``model``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xg.device_mesh
+    pd, px, pg, po = [], [], [], []
+    for name, p in zip(mesh.mesh_dim_names, xg.placements):
+        if name == "model":
+            pd.append(Replicate())
+            px.append(Replicate())
+            pg.append(Partial())
+            po.append(Shard(0))
+            continue
+        rows = Shard(0) if isinstance(p, Shard) and p.dim == 0 \
+            else Replicate()
+        pd.append(rows)
+        px.append(rows)
+        pg.append(rows)
+        po.append(Shard(1) if isinstance(rows, Shard) else Replicate())
+    return local_map(fn, out_placements=po, in_placements=(pd, px),
+                     in_grad_placements=(pd, pg), device_mesh=mesh,
+                     redistribute_inputs=True)(dispatch, xg)
+
+
 def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token-choice top-k MoE with grouped dense dispatch (the GShard
@@ -646,13 +769,21 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
     g = x.shape[0] // sg
+    if g % math.prod(mesh_axis_size(a) for a in ("pod", "data")):
+        # whole groups per rank, or none: a row-sharded x whose shards cut
+        # a group is gathered first (the groups are then replicated)
+        x = constrain(x, [None, None], "MoE: groups cut by the row shards",
+                      force=True)
     xg = constrain_batch(x.reshape(g, sg, d))  # groups shard over data
     cap = max(4, int(math.ceil(sg * k * cfg.moe_capacity_factor / e)))
     cap = min(cap, sg)
     dt = xg.dtype
     f32 = torch.float32
 
-    logits = torch.einsum("gsd,de->gse", xg.to(f32), p["router"]["w"])
+    # a bf16 router (serving weights) promotes to float32, as in the
+    # reference's einsum
+    logits = torch.einsum("gsd,de->gse", xg.to(f32),
+                          gather_data(p["router"]["w"]).to(f32))
     probs = softmax_fn(logits, cfg, axis=-1)
     gates, idx = _top_k(probs, k)  # (G,S,k)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
@@ -686,15 +817,16 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
     spec4 = (["model", "batch", None, None] if ep
              else [None, "all", None, None])
     row_spec = ["model", "batch", None] if ep else [None, "all", None]
-    xin = constrain(torch.einsum("gsec,gsd->egcd", dispatch, xg), spec4)
+    xin = constrain(_moe_dispatch(dispatch, xg, ep), spec4)
     xin = constrain(xin.reshape(e, g * cap, d), row_spec)
     gate_h = constrain(torch.einsum("ecd,edf->ecf", xin,
-                                    p["w_gate"].to(dt)), row_spec)
-    up_h = torch.einsum("ecd,edf->ecf", xin, p["w_up"].to(dt))
+                                    gather_data(p["w_gate"]).to(dt)),
+                       row_spec)
+    up_h = torch.einsum("ecd,edf->ecf", xin, gather_data(p["w_up"]).to(dt))
     h = act_fn(gate_h, cfg, "silu") * up_h
-    eout = torch.einsum("ecf,efd->ecd", h, p["w_down"].to(dt))
+    eout = torch.einsum("ecf,efd->ecd", h, gather_data(p["w_down"]).to(dt))
     eout = constrain(constrain(eout, row_spec).reshape(e, g, cap, d), spec4)
-    out = torch.einsum("egcd,gsec->gsd", eout, combine)
+    out = _moe_combine(eout, combine)
 
     out = constrain_batch(out).reshape(-1, d)[:t]
     if "shared" in p:

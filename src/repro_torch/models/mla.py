@@ -24,7 +24,9 @@ from typing import Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.constrain import local_rows
 from .layers import (_NEG, Params, _cache_write, init_linear, init_norm,
+                     split_heads,
                      linear, norm, rope)
 
 __all__ = ["init_mla", "init_mla_cache", "mla_attention"]
@@ -71,7 +73,7 @@ def _queries(p: Params, x: torch.Tensor, cfg: ModelConfig,
                                    cfg), cfg)
     else:
         q = linear(p["wq"], x, cfg)
-    q = q.reshape(b, s, h, dn + dr)
+    q = split_heads(q, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     return q_nope, rope(q_rope, pos_arr, cfg.rope_theta)
 
@@ -112,16 +114,19 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         q_nope, q_rope = _queries(p, x, cfg, pos_arr)
         ckv, k_rope = _latents(p, x, cfg, pos_arr)
         # expanded K/V
-        k_nope = linear(p["wk_b"], ckv, cfg).reshape(b, s, h, dn)
-        v = linear(p["wv_b"], ckv, cfg).reshape(b, s, h, dv)
+        k_nope = split_heads(linear(p["wk_b"], ckv, cfg), h, dn)
+        v = split_heads(linear(p["wv_b"], ckv, cfg), h, dv)
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
                       dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
         if s > 512:
             from .flash import flash_attention
             qs = q * torch.full((), scale, dtype=q.dtype, device=q.device)
-            out = flash_attention(qs.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), True, 512).transpose(1, 2)
+            out = local_rows(
+                lambda q_, k_, v_: flash_attention(q_, k_, v_, True, 512),
+                [qs.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)],
+                [(0, 1)] * 3, [(0, 1)],
+                "flash attention: per (batch, head) rows").transpose(1, 2)
         else:
             logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(
                 torch.float32) * scale

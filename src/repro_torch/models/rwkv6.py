@@ -48,7 +48,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, remat_group_size
 from ..core.inference import resolve_device
-from ..distributed.constrain import constrain_batch
+from ..distributed.constrain import constrain_batch, local_rows, tp_matmul
 from ..kernels import ops
 from . import layers as L
 from .layers import embed_tokens as _embed
@@ -233,7 +233,9 @@ def _token_shift(x: torch.Tensor,
 
 def _decays(p: Params, xw: torch.Tensor) -> torch.Tensor:
     """Data-dependent log-decay: logw = −exp(base + tanh(x A) B) ∈ (−∞, 0)."""
-    dd = torch.tanh(xw @ p["w_lora_a"].to(xw.dtype)) @ p["w_lora_b"].to(xw.dtype)
+    dt = xw.dtype
+    dd = tp_matmul(torch.tanh(tp_matmul(xw, p["w_lora_a"])),
+                   p["w_lora_b"], lambda a, b: a @ b.to(dt))
     return -torch.exp(torch.clamp(p["w_base"].to(xw.dtype) + dd, -8.0, 4.0))
 
 
@@ -252,7 +254,7 @@ def time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                                                "mu_g", "mu_w"))
 
     def heads(y):  # (B,T,d) → (B,H,T,hd)
-        return y.reshape(b, t, h, hd).transpose(1, 2)
+        return L.split_heads(y, h, hd).transpose(1, 2)
 
     r = heads(L.linear(p["wr"], xr, cfg))
     k = heads(L.linear(p["wk"], xk, cfg))
@@ -263,8 +265,11 @@ def time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     f32 = torch.float32
 
     if state is None:
-        o = _WKV[wkv](r.to(f32), k.to(f32), v.to(f32), logw.to(f32),
-                      u.to(f32), chunk=cfg.rwkv_chunk).to(x.dtype)
+        o = local_rows(
+            lambda *a: _WKV[wkv](*a, chunk=cfg.rwkv_chunk),
+            [r.to(f32), k.to(f32), v.to(f32), logw.to(f32), u.to(f32)],
+            [(0, 1)] * 4 + [(None, 0)], [(0, 1)],
+            "WKV: per (batch, head) rows").to(x.dtype)
         new_state = None
     else:
         w = torch.exp(logw[:, :, 0].to(f32))  # (B,H,D)
@@ -277,7 +282,7 @@ def time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     o = o.transpose(1, 2).reshape(b, t, d)
     # per-head group norm (RWKV6 uses GroupNorm over heads; eps 1e-5, not
     # cfg.norm_eps)
-    og = o.reshape(b, t, h, hd).to(f32)
+    og = L.split_heads(o, h, hd).to(f32)
     og = og * torch.rsqrt((og * og).mean(-1, keepdim=True) + 1e-5)
     o = (og.reshape(b, t, d) * p["out_norm"]).to(x.dtype) * g
     return L.linear(p["wo"], o, cfg), new_state

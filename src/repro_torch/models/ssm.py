@@ -42,7 +42,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..core.inference import resolve_device
-from ..distributed.constrain import constrain_batch
+from ..distributed.constrain import constrain_batch, local_rows
 from . import layers as L
 from . import transformer as TF
 from .layers import (embed_tokens, layer_params, scan_layers, stack_layers,
@@ -223,11 +223,13 @@ def mamba_block_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
     dt = _softplus(dt.to(f32) + p["dt_bias"])  # (B,T,H)
     a = -torch.exp(p["a_log"])  # (H,) < 0
-    xh = xc.reshape(b, t, h, dh)
+    xh = L.split_heads(xc, h, dh)
 
     if state is None:
-        y = _ssd_chunked(xh.to(f32), bmat.to(f32), cmat.to(f32), dt,
-                         a).to(x.dtype)
+        y = local_rows(_ssd_chunked, [xh.to(f32), bmat.to(f32),
+                                      cmat.to(f32), dt, a],
+                       [(0, 2), (0, None), (0, None), (0, 2), (None, 0)],
+                       [(0, 2)], "SSD: per (batch, head) rows").to(x.dtype)
         ssm_new = None
     else:
         y, ssm_new = _ssd_step(state["s"], xh[:, 0].to(f32),

@@ -33,7 +33,7 @@ import torch
 from ..configs.base import ModelConfig, remat_group_size
 from ..core.inference import resolve_device
 from ..core.losses import chunked_cross_entropy
-from ..distributed.constrain import constrain_batch
+from ..distributed.constrain import constrain_batch, tp_matmul
 from . import layers as L
 from . import mla as MLA
 from .layers import scan_layers, stack_layers, unstack_layers
@@ -118,8 +118,7 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 def _embed(params: Params, tokens, cfg: ModelConfig,
            patch_embeds=None) -> torch.Tensor:
     dtype = getattr(torch, cfg.dtype)
-    emb = params["embed"]
-    x = emb[torch.as_tensor(tokens, device=emb.device).long()].to(dtype)
+    x = L.embed_rows(params["embed"], tokens, dtype)
     if cfg.gemma_style:  # √d_model rounded to the activation dtype first
         x = x * torch.full((), math.sqrt(cfg.d_model), dtype=dtype,
                            device=x.device)
@@ -136,7 +135,7 @@ def _unembed_w(params: Params, cfg: ModelConfig) -> torch.Tensor:
 def _unembed(params: Params, x: torch.Tensor, cfg: ModelConfig
              ) -> torch.Tensor:
     x = L.norm(params["final_norm"], x, cfg)
-    return x @ _unembed_w(params, cfg).to(x.dtype)
+    return tp_matmul(x, _unembed_w(params, cfg))
 
 
 def _layers(blocks, cfg: ModelConfig):

@@ -28,6 +28,7 @@ import torch
 
 from ..core import tree as T
 from ..core.fixedpoint import true_divide
+from ..distributed import cost
 
 __all__ = ["AdamWConfig", "init", "apply_updates", "adamw_step"]
 
@@ -64,8 +65,14 @@ def _quantizable(leaf: torch.Tensor) -> bool:
     return leaf.dim() >= 2
 
 
+def _zeros_f32(leaf: torch.Tensor) -> torch.Tensor:
+    """float32 zeros of ``leaf``'s shape (a DTensor keeps its layout)."""
+    return torch.zeros_like(leaf, dtype=torch.float32,
+                            memory_format=torch.contiguous_format)
+
+
 def _moment_init(leaf: torch.Tensor, bits: int):
-    zeros = torch.zeros(leaf.shape, dtype=torch.float32, device=leaf.device)
+    zeros = _zeros_f32(leaf)
     if bits == 8 and _quantizable(leaf):
         return _q_encode(zeros)
     return zeros
@@ -150,12 +157,45 @@ def apply_updates(params, grads, state, cfg: AdamWConfig,
 
 def _split(batch: Dict[str, Any], k: int, i: int) -> Dict[str, Any]:
     """Microbatch ``i`` of ``k``: rows ``i·B/k … (i+1)·B/k`` of every input
-    (numpy arrays or tensors), as the reference's reshape (k, B/k, …)."""
+    (numpy arrays or tensors), as the reference's reshape (k, B/k, …).  A
+    DTensor whose rows are sharded keeps them sharded: each rank takes rows
+    ``i·b/k … (i+1)·b/k`` of its own ``b`` rows, so the k microbatches
+    still partition the batch (their grouping follows the ranks; the
+    summed gradient is the same sum)."""
     out = {}
     for name, x in batch.items():
         n = x.shape[0] // k
-        out[name] = x[i * n:(i + 1) * n]
+        out[name] = _rows(x, k, i) if _row_sharded(x) else x[i * n:(i + 1) * n]
     return out
+
+
+def _row_sharded(x) -> bool:
+    if not (isinstance(x, torch.Tensor) and torch.distributed.is_available()):
+        return False
+    from torch.distributed.tensor import DTensor, Shard
+    return isinstance(x, DTensor) and any(
+        isinstance(p, Shard) and p.dim == 0 for p in x.placements)
+
+
+def _rows(x, k: int, i: int):
+    from torch.distributed.tensor import DTensor
+    local = x.to_local()
+    n = local.shape[0] // k
+    return DTensor.from_local(local[i * n:(i + 1) * n], x.device_mesh,
+                              x.placements, run_check=False,
+                              shape=(x.shape[0] // k, *x.shape[1:]),
+                              stride=local[i * n:(i + 1) * n].stride())
+
+
+def _replicated(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor loss summed across its partial ranks (the value every
+    rank then differentiates); a plain tensor as it is."""
+    if torch.distributed.is_available():
+        from torch.distributed.tensor import DTensor, Replicate
+        if isinstance(x, DTensor):
+            return x.redistribute(x.device_mesh,
+                                  [Replicate()] * x.device_mesh.ndim)
+    return x
 
 
 def _grads(loss_fn: Callable, params, batch):
@@ -169,6 +209,7 @@ def _grads(loss_fn: Callable, params, batch):
     wrt = [p for p in flat if p.requires_grad]
     with torch.enable_grad():
         loss, metrics = loss_fn(live, batch)
+        loss = _replicated(loss)
         gs = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
     grads = [next(gs) if p.requires_grad else None for p in flat]
     grads = [torch.zeros_like(p) if g is None else g
@@ -186,7 +227,8 @@ def adamw_step(loss_fn: Callable, params, state, batch, cfg: AdamWConfig,
     ``accum_steps > 1`` splits the batch's leading axis into microbatches
     and sums their float32 gradients, divided by ``accum_steps``: live
     activations shrink ÷k at the cost of one parameter-sized float32
-    buffer.
+    buffer.  Under the dry run's folding cost counter one microbatch runs,
+    its counts multiplied by ``accum_steps``.
     """
     if accum_steps <= 1:
         loss, metrics, grads = _grads(loss_fn, params, batch)
@@ -194,10 +236,9 @@ def adamw_step(loss_fn: Callable, params, state, batch, cfg: AdamWConfig,
                                                    lr)
         return params, state, {**metrics, **opt_metrics, "loss": loss}
 
-    g_acc = T.map_leaves(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), params)
+    g_acc = T.map_leaves(_zeros_f32, params)
     loss_sum = None
-    for i in range(accum_steps):
+    for i in cost.loop(accum_steps):
         loss, _, grads = _grads(loss_fn, params, _split(batch, accum_steps, i))
         T.map_leaves(lambda a, g: a.add_(g.to(torch.float32)), g_acc, grads)
         if loss_sum is None:

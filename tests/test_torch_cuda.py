@@ -1650,3 +1650,112 @@ def test_train_cli_on_card(card, capsys):
                  "--batch", "2", "--seq", "32"]) == 0
     last = json.loads(capsys.readouterr().out.splitlines()[-1])
     assert last["steps"] == 3 and np.isfinite(last["final_loss"])
+
+
+# -- LM slice E: the sharded paths on a 1 × 1 NCCL mesh ----------------------
+
+
+@pytest.fixture
+def nccl_mesh(card):
+    """A 1-rank NCCL process group and its (1, 1) ("data", "model") mesh
+    for the length of the test."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0, device_id=card)
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_prefill(model, params, tokens, mesh, cfg):
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed.constrain import activation_mesh
+    from repro_torch.distributed.sharding import (logical_batch_sharding,
+                                                  make_plan)
+    dp = make_plan(params, cfg, mesh).distribute(params)
+    pl = logical_batch_sharding(mesh, {"t": tokens}, tokens.shape[0])["t"]
+    tok = distribute_tensor(tokens, mesh, pl, src_data_rank=None)
+    with torch.no_grad(), activation_mesh(mesh), implicit_replication():
+        return model.prefill(dp, tokens=tok).full_tensor()
+
+
+def test_sharded_train_on_1x1_mesh_equals_unsharded(card, nccl_mesh):
+    """``TrainLoop(mesh=...)`` on the card's 1 × 1 NCCL mesh: reduced
+    qwen2 (flash route, T = 600), 3 steps, every loss within 1e-6 relative
+    of the unsharded loop's; the parameters are DTensors on the card."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.train import TrainLoop
+    cfg = reduced(get_config("qwen2-1.5b"))
+    kw = dict(global_batch=2, seq_len=600, device=card)
+    _, want = TrainLoop(cfg, **kw).run(max_steps=3, log_every=1)
+    state, got = TrainLoop(cfg, mesh=nccl_mesh, **kw).run(max_steps=3,
+                                                          log_every=1)
+    assert isinstance(state["params"]["embed"], DTensor)
+    assert state["params"]["embed"].device.type == "cuda"
+    for a, b in zip(got, want):
+        assert abs(a["loss"] - b["loss"]) <= 1e-6 * abs(b["loss"])
+
+
+def test_sharded_prefills_on_1x1_mesh_launch_kernels(card, nccl_mesh):
+    """The sharded prefills on the card: reduced rwkv6 (one WKV launch a
+    layer) and reduced quantized qwen2 (7 W8A8 launches a layer), logits
+    ``torch.equal`` to the unsharded prefill's."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+    for arch, quant, kernel, per_layer in (
+            ("rwkv6-3b", False, "wkv_scan", 1),
+            ("qwen2-1.5b", True, "fixedpoint_matmul", 7)):
+        cfg = reduced(get_config(arch))
+        model = build_model(cfg, device=card)
+        g = torch.Generator(device=card).manual_seed(0)
+        params = model.init(g)
+        if quant:
+            params = tq.quantize_tree(params)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
+                               device=card)
+        with torch.no_grad():
+            want = model.prefill(params, tokens=tokens)
+        mod = wk if kernel == "wkv_scan" else fmm
+        mod.reset_launches()
+        got = _sharded_prefill(model, params, tokens, nccl_mesh, cfg)
+        torch.cuda.synchronize()
+        assert mod.launches[kernel] == per_layer * cfg.n_layers, arch
+        assert torch.equal(got, want), arch
+
+
+def test_kernel_custom_ops_launch_and_match_plain(card):
+    """``torch.ops.repro_torch.wkv_scan`` / ``.fixedpoint_matmul`` on card
+    tensors launch the CUDA kernels (one count each) and equal the plain
+    versions (WKV within 2e-5, the GEMM exactly)."""
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=card).manual_seed(1)
+    bh, nc, c, d = 6, 3, 32, 64
+    a, b, v = (torch.randn(bh, nc, c, d, generator=g, device=card) * 0.3
+               for _ in range(3))
+    tot = torch.rand(bh, nc, 1, d, generator=g, device=card)
+    diag = torch.randn(bh, nc, c, 1, generator=g, device=card)
+    wk.reset_launches()
+    got = torch.ops.repro_torch.wkv_scan(a, b, v, tot, diag)
+    assert wk.launches["wkv_scan"] == 1
+    want = ref.wkv_scan_ref(a, b, v, tot, diag)
+    assert float((got - want).abs().max()) < 2e-5
+    m, k, n = 96, 256, 80
+    xc = torch.randint(-128, 128, (m, k), generator=g, device=card,
+                       dtype=torch.int8)
+    wc = tq.k_major(torch.randint(-128, 128, (k, n), generator=g,
+                                  device=card, dtype=torch.int8))
+    xs = torch.rand(m, 1, generator=g, device=card)
+    ws = torch.rand(1, n, generator=g, device=card)
+    fmm.reset_launches()
+    out = torch.ops.repro_torch.fixedpoint_matmul(xc, wc, xs, ws)
+    assert fmm.launches["fixedpoint_matmul"] == 1
+    assert torch.equal(out, ref.fixedpoint_matmul_ref(xc, wc, xs, ws))

@@ -70,6 +70,11 @@ def _run(imports: str):
     "repro_torch.checkpoint, repro_torch.checkpoint.store, "
     "repro_torch.checkpoint.manager, repro_torch.core.tree",
     "from repro_torch.launch.train import TrainLoop, main",
+    "import repro_torch.distributed, repro_torch.distributed.sharding, "
+    "repro_torch.distributed.constrain, repro_torch.distributed.collectives, "
+    "repro_torch.distributed.elastic, repro_torch.distributed.cost",
+    "import repro_torch.launch.dryrun, repro_torch.launch.mesh; "
+    "from repro_torch.launch.dryrun import run_cell, run_cells, main",
 ])
 def test_port_imports_no_jax_and_no_reference(imports):
     r = _run(imports)
@@ -153,3 +158,16 @@ def test_train_loop_without_a_card_raises():
         TrainLoop(reduced(get_config("qwen2-1.5b")))
     with pytest.raises(RuntimeError, match="cuda"):
         main(["--arch", "qwen2-1.5b", "--reduced", "--steps", "1"])
+
+
+def test_mesh_on_a_missing_card_raises():
+    """``make_mesh(..., device="cuda")`` with no card raises; the dry run's
+    ``"meta"`` mesh is not a fall-back and works without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default device works here")
+    from repro_torch.launch.mesh import fake_world, make_mesh
+    with fake_world(4):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make_mesh((2, 2), ("data", "model"))
+        assert make_mesh((2, 2), ("data", "model"),
+                         device="meta").device_type == "cpu"

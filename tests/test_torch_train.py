@@ -366,7 +366,9 @@ def test_cli_on_cpu(capsys):
 
 
 def test_train_loop_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="distribution"):
+    """A mesh that is not a ``DeviceMesh`` is refused (the sharded loop
+    itself: ``tests/test_torch_train_sharded.py``)."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         _loop(mesh=object())
 
 
