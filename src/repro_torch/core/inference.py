@@ -70,19 +70,21 @@ class DeviceResult:
     """A batch result whose device→host copy may still be in flight.
 
     On the card the output is copied into pinned host memory on the current
-    stream and an event is recorded after it: ``is_ready()`` polls the
-    event, ``block_until_ready()`` waits on it, and ``np.asarray(result)``
-    waits and returns the host copy.  On the CPU the result is ready at
-    once.  ``tensor`` is the output on the engine's device.
+    stream and a timing event is recorded after it (``done``, when the
+    caller passes one to reuse): ``is_ready()`` polls the event,
+    ``block_until_ready()`` waits on it, and ``np.asarray(result)`` waits
+    and returns the host copy.  On the CPU the result is ready at once.
+    ``tensor`` is the output on the engine's device.
     """
 
-    def __init__(self, tensor: torch.Tensor):
+    def __init__(self, tensor: torch.Tensor, done=None):
         self.tensor = tensor
         if tensor.is_cuda:
             self._host = torch.empty(tensor.shape, dtype=tensor.dtype,
                                      pin_memory=True)
             self._host.copy_(tensor, non_blocking=True)
-            self._event = torch.cuda.Event()
+            self._event = (done if done is not None
+                           else torch.cuda.Event(enable_timing=True))
             self._event.record(torch.cuda.current_stream(tensor.device))
         else:
             self._host = tensor
@@ -232,21 +234,37 @@ class DataPlaneEngine:
             self.stats["seconds"] += time.perf_counter() - t0
         return out
 
+    def timing_events(self):
+        """A ``(start, done)`` pair of CUDA timing events for
+        :meth:`run_features` to record a batch between, or None off the
+        card."""
+        if self.device.type != "cuda":
+            return None
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
     def run_features(self, feats_q, model_id, *, block: bool = True,
-                     lanes: str = "both") -> DeviceResult:
+                     lanes: str = "both", events=None) -> DeviceResult:
         """One mixed-model batch of already-parsed feature codes — the
         feature path: feats_q (B, W) int32 codes at the engine's ``frac`` ·
         model_id (B,) int32 → (B, out_features) int32 output codes.  Byte
-        counters credit the equivalent wire row sizes."""
+        counters credit the equivalent wire row sizes.  ``events`` (a
+        :meth:`timing_events` pair, on the card) is recorded before the
+        batch's first copy to the device and after its copy back, so
+        ``start.elapsed_time(done)`` is the batch's time on the device
+        clock."""
         if lanes not in ("both", "mlp", "forest"):
             raise ValueError(f"unknown lanes hint: {lanes!r}")
+        if events is not None:
+            events[0].record(torch.cuda.current_stream(self.device))
         x0 = self._to_device(feats_q, torch.int32)
         mid = self._to_device(model_id, torch.int32)
         tables, ftables, rtables, flags = self._snapshots(
             ("features", tuple(x0.shape)), lanes)
         t0 = time.perf_counter()
         out = DeviceResult(serve_lanes(x0, mid, tables, ftables, rtables,
-                                       self.lane_cfg, **flags))
+                                       self.lane_cfg, **flags),
+                           None if events is None else events[1])
         n = int(x0.shape[0])
         self.stats["packets"] += n
         self.stats["bytes_in"] += n * (HEADER_BYTES

@@ -83,7 +83,10 @@ import numpy as np
 
 from .packet import (FEATURE_BYTES, FLAG_REFLEX, HEADER_BYTES,
                      emit_results_np, parse_packets_np)
-from ..obs import Observability, StatsAdapter
+from ..obs import Observability, StageClock, StatsAdapter
+from ..obs.trace import (ENGINE_DISPATCH, INGRESS_DRAIN, INGRESS_KEY,
+                         INGRESS_LOOKUP, INGRESS_RETIRE, INGRESS_STAGE,
+                         INGRESS_WAIT)
 
 __all__ = ["PacketError", "BatchError", "ResultCache", "IngressPipeline",
            "pack_rows", "STATUS_PENDING", "STATUS_READY", "STATUS_ERROR",
@@ -537,6 +540,7 @@ class _InFlight:
     lanes: str = "both"     # lane program dispatched (salvage probes reuse
                             # it — same dispatch shape)
     t_dispatch: float = 0.0  # dispatch timestamp (cost-EWMA sample start)
+    t_issue: float = 0.0     # clock before the dispatch's first device call
     hold_until: float = 0.0  # overload chaos: earliest retire time (0 = now)
 
 
@@ -807,6 +811,10 @@ class IngressPipeline:
         # standalone pipeline gets a private one.
         self.obs = obs if obs is not None else Observability(clock=clock)
         self.tracer = self.obs.make_tracer(shard=self.shard_id, clock=clock)
+        # always-on self-time counters of the host stages (obs.trace.STAGES)
+        # in the shared registry under this pipeline's shard label
+        self.stages = StageClock(self.obs.registry, clock=self._clock,
+                                 shard=self.shard_id)
         # model-quality plane: the feature/prediction taps read
         # ``self.obs.drift`` per batch (one attribute check when off); an
         # attached ShadowScorer samples staged rows into its replay lane
@@ -837,11 +845,20 @@ class IngressPipeline:
         _c("ingress_reflex_served_total")
         _c("ingress_shed_total")
         _c("ingress_drain_timeouts_total")
-        # dispatch→retire wall cost per device batch — the deadline
-        # scheduler's safety margin is the EWMA of these samples
-        self._h_dispatch = reg.histogram(
-            "ingress_dispatch_seconds",
-            "device batch dispatch→retire wall seconds", shard=sid)
+        # On the card, one pair of timing events per staging buffer (a
+        # buffer's batch retires before the buffer dispatches again): each
+        # batch's time on the device clock, from its first copy up to the
+        # end of its copy back.  With the default clock the tracer stamps
+        # dispatch and device_done from the same pair.
+        events = [engine.timing_events() for _ in range(n_bufs)]
+        self._events = events if events[0] is not None else None
+        if self._events is not None:
+            self._c_device = reg.counter(
+                "engine_batch_device_seconds_total",
+                "device seconds per batch, first copy in to copy back, "
+                "from the batch's own events", shard=sid)
+        self._event_stamps = (self._events is not None and clock is None
+                              and self.obs.clock is None)
         lanes_sub = StatsAdapter()
         for lane in ("mlp", "forest", "both"):
             lanes_sub.bind(lane, reg.counter("ingress_lane_batches_total",
@@ -945,13 +962,17 @@ class IngressPipeline:
         full.  With ``flush_after`` set, an over-age partial staging batch
         is dispatched (padded) before this call returns.
         """
+        d = self.stages.enter()
         try:
             first, n = self._submit(pkts)
             self._observe_rate(n)
             return first, n
         finally:
-            self._maybe_flush_aged()
-            self._maybe_close_deadline()
+            try:
+                self._maybe_flush_aged()
+                self._maybe_close_deadline()
+            finally:
+                self.stages.leave(d)
 
     def poll(self) -> bool:
         """Latency-SLO tick for callers with idle arrival gaps: dispatch
@@ -1008,6 +1029,7 @@ class IngressPipeline:
                          f"[{HEADER_BYTES}, {self.wire_bytes}]")
             return first, n
 
+        k = self.stages.push(INGRESS_KEY)
         if length < self.wire_bytes:  # fixed wire shape: zero-pad the tail
             rows = np.zeros((n, self.wire_bytes), np.uint8)
             rows[:, :length] = arr
@@ -1026,11 +1048,13 @@ class IngressPipeline:
             rows_g = rows[good]
             tickets_g = tickets[good]
             if rows_g.shape[0] == 0:
+                self.stages.leave(k)
                 return first, n
         else:
             rows_g, tickets_g = rows, tickets
 
         self._ingest(rows_g, tickets_g)
+        self.stages.leave(k)
         return first, n
 
     def submit_features(self, x0, model_id, flags=None, *,
@@ -1050,6 +1074,7 @@ class IngressPipeline:
         at their submission-order positions — ``error_reason`` is one
         string or a per-row sequence — and never touch the cache, the
         pending window, or a device batch."""
+        d = self.stages.enter()
         try:
             x0 = np.ascontiguousarray(x0, np.int32)
             n = x0.shape[0]
@@ -1058,6 +1083,7 @@ class IngressPipeline:
             if n == 0:
                 return first, 0
             self.stats["ingress_packets_total"] += n
+            k = self.stages.push(INGRESS_KEY)
             mid = np.ascontiguousarray(model_id, np.int32).reshape(n)
             fl = (np.zeros(n, np.int32) if flags is None
                   else np.ascontiguousarray(flags, np.int32).reshape(n))
@@ -1081,11 +1107,15 @@ class IngressPipeline:
             from .packet import encode_packets_np
             rows = encode_packets_np(mid, self.engine.frac, x0, flags=fl)
             self._ingest(rows, tickets_g, parsed=(mid, fl, x0))
+            self.stages.leave(k)
             self._observe_rate(n)
             return first, n
         finally:
-            self._maybe_flush_aged()
-            self._maybe_close_deadline()
+            try:
+                self._maybe_flush_aged()
+                self._maybe_close_deadline()
+            finally:
+                self.stages.leave(d)
 
     def _ingest(self, rows: np.ndarray, tickets: np.ndarray,
                 parsed=None) -> None:
@@ -1098,12 +1128,17 @@ class IngressPipeline:
         for the fresh rows that will actually dispatch** (host twin of the
         device parser, bit-identical), or never, when the caller already
         has the parsed fields (``parsed = (mid, flags, x0)``).
+
+        Entered in the ``ingress_key`` stage; each phase swaps the stage
+        clock's innermost stage, which the caller closes.
         """
         n = rows.shape[0]
+        stages = self.stages
         if self.tracer is not None:
             self.tracer.on_submit(tickets)
         words = pack_rows(rows, self.key_words)
         hashes = hash_words(words)
+        stages.swap(INGRESS_LOOKUP)
         generation = self.cp.version
         if self.cache is not None:
             hit_mask, hit_vals = self.cache.lookup(words, generation, hashes)
@@ -1151,6 +1186,7 @@ class IngressPipeline:
         else:
             fresh = np.ones(n_uniq, bool)
         n_fresh = int(fresh.sum())
+        stages.swap(INGRESS_STAGE)
 
         # the one byte-parse of the serving path — fresh unique rows only
         # (or a slice of the caller's already-parsed fields)
@@ -1293,6 +1329,7 @@ class IngressPipeline:
                 self._stage("forest", s_x0[isf], s_mid[isf],
                             s_flags[isf], s_words[isf],
                             s_hashes[isf], s_idx[isf], generation, df)
+        stages.swap(INGRESS_RETIRE)
         self._resolve_ready_chunks()
 
     # -- hard-latency layer ------------------------------------------------
@@ -1518,6 +1555,8 @@ class IngressPipeline:
         o = self._open.pop(family, None)
         if o is None:
             return
+        stages = self.stages
+        k = stages.push(ENGINE_DISPATCH)
         while len(self._inflight) >= self.max_inflight:
             self._retire_oldest()
         size = o.size
@@ -1541,8 +1580,10 @@ class IngressPipeline:
         # racing install()/remove() may have reassigned an id, so fall back
         # to the always-correct both-lane program for this batch
         lanes = o.family if gen_before == o.gen0 else "both"
+        t_issue = stages.last  # before the batch's first device call
+        events = None if self._events is None else self._events[o.buf]
         try:
-            future = self._run_guarded(x0, mid, lanes)
+            future = self._run_guarded(x0, mid, lanes, events)
             gen_after = self.cp.version
             if lanes != "both" and gen_after != gen_before:
                 # a table write landed between the lane decision and the
@@ -1554,7 +1595,7 @@ class IngressPipeline:
                 self.engine.credit_bytes(-size * in_row, -size * out_row)
                 lanes = "both"
                 gen_before = self.cp.version
-                future = self._run_guarded(x0, mid, lanes)
+                future = self._run_guarded(x0, mid, lanes, events)
                 gen_after = self.cp.version
         except Exception as err:
             # every retry exhausted at the dispatch site: the device never
@@ -1564,6 +1605,7 @@ class IngressPipeline:
             self.stats["ingress_dispatch_failures_total"] += 1
             self._salvage_failed_batch(o.buf, o.miss_idx[:count].copy(),
                                        count, size, lanes, err)
+            stages.leave(k)
             return
         generation = gen_before if gen_after == gen_before else None
         # overload chaos (slow-device): an armed factor holds this batch's
@@ -1583,19 +1625,23 @@ class IngressPipeline:
         self._inflight.append(_InFlight(
             future=future, miss_idx=o.miss_idx[:count].copy(), count=count,
             size=size, buf_idx=o.buf, generation=generation, lanes=lanes,
-            t_dispatch=self._clock(), hold_until=hold))
+            t_dispatch=self._clock(), t_issue=t_issue, hold_until=hold))
         self.stats["ingress_dispatched_rows_total"] += size
         self.stats["ingress_batches_total"] += 1
         self.stats["lane_batches"][lanes] += 1
         if self.tracer is not None:
-            self.tracer.on_dispatch(o.miss_idx[:count])
+            self.tracer.on_dispatch(
+                o.miss_idx[:count], at=t_issue if self._event_stamps else None)
+        stages.leave(k)
 
-    def _run_guarded(self, x0: np.ndarray, mid: np.ndarray, lanes: str):
+    def _run_guarded(self, x0: np.ndarray, mid: np.ndarray, lanes: str,
+                     events=None):
         """One device dispatch under the fault plan and the bounded
         retry-with-backoff policy.  The stall site fires first (an injected
         wedge a supervising watchdog must notice — it delays, never
         raises); a dispatch-site fault or a real engine error is retried
-        ``max_retries`` times with exponential backoff before giving up."""
+        ``max_retries`` times with exponential backoff before giving up.
+        ``events`` is the staging buffer's timing-event pair (the card)."""
         last = None
         for attempt in range(self.max_retries + 1):
             if attempt:
@@ -1608,7 +1654,7 @@ class IngressPipeline:
                     plan.fire("stall", self.shard_id, mid)
                     plan.fire("dispatch", self.shard_id, mid)
                 return self.engine.run_features(x0, mid, block=False,
-                                                lanes=lanes)
+                                                lanes=lanes, events=events)
             except Exception as e:  # noqa: BLE001 — any device failure
                 last = e
         raise last
@@ -1729,6 +1775,8 @@ class IngressPipeline:
             self._miss_failed = f
 
     def _retire_oldest(self) -> None:
+        stages = self.stages
+        k = stages.push(INGRESS_WAIT)
         rec = self._inflight.popleft()
         if rec.hold_until:
             rem = rec.hold_until - self._clock()
@@ -1737,6 +1785,7 @@ class IngressPipeline:
         try:
             out = np.asarray(rec.future)  # blocks until the batch is done
         except Exception as err:  # noqa: BLE001 — device died mid-batch
+            stages.swap(ENGINE_DISPATCH)  # the salvage's probe dispatches
             # run_features credited this batch when it dispatched; cancel
             # so the salvage pass accounts it exactly once
             in_row = HEADER_BYTES + FEATURE_BYTES * self.width
@@ -1746,20 +1795,30 @@ class IngressPipeline:
             self.stats["ingress_dispatch_failures_total"] += 1
             self._salvage_failed_batch(rec.buf_idx, rec.miss_idx, rec.count,
                                        rec.size, rec.lanes, err)
+            stages.leave(k)
             return
+        stages.swap(INGRESS_RETIRE)
         # a whole batch came back: the device is alive
         self.consecutive_dispatch_failures = 0
         # measured dispatch→retire cost feeds the deadline-aware closer:
         # an EWMA seeded from the first retired batch, so the scheduler's
         # notion of "how long a trip costs" tracks the device it has
         dt = self._clock() - rec.t_dispatch
-        self._h_dispatch.observe(dt)
         self.dispatch_cost_ewma = (
             dt if self.dispatch_cost_ewma == 0.0
             else (1.0 - self._COST_ALPHA) * self.dispatch_cost_ewma
             + self._COST_ALPHA * dt)
+        done_at = None
+        if self._events is not None:
+            # the batch's own events: its first copy in to its copy back,
+            # on the device clock (done has fired: the wait above)
+            start, done = self._events[rec.buf_idx]
+            dev_s = start.elapsed_time(done) * 1e-3
+            self._c_device.value += dev_s
+            if self._event_stamps:
+                done_at = rec.t_issue + dev_s
         if self.tracer is not None:
-            self.tracer.on_device_done(rec.miss_idx)
+            self.tracer.on_device_done(rec.miss_idx, at=done_at)
         # model-quality prediction tap: per-model egress-code distribution
         # over the batch's real rows (int32 output codes, pre-encode)
         drift = self.obs.drift
@@ -1813,6 +1872,7 @@ class IngressPipeline:
                               assume_unique=True)
         self._free_bufs.append(rec.buf_idx)
         self._resolve_ready_chunks()
+        stages.leave(k)
 
     _FAIL_REASONS = {
         1: "device dispatch failed — row quarantined",
@@ -1862,6 +1922,7 @@ class IngressPipeline:
         deadline = (None if timeout_us is None
                     else self._clock() + float(timeout_us) * 1e-6)
         expired = False
+        stages = self.stages
         self._dispatch()
         while self._inflight:
             if deadline is not None and (
@@ -1870,14 +1931,20 @@ class IngressPipeline:
                 expired = True
                 break
             self._retire_oldest()
-        if not expired:
+        if not expired and (self.shadow is not None
+                            or self.reflex_confirm is not None):
+            k = stages.push(ENGINE_DISPATCH)  # their replay dispatches
             if self.shadow is not None:
                 self.shadow.flush()
             if self.reflex_confirm is not None:
                 self.reflex_confirm.flush()
+            stages.leave(k)
+        k = stages.push(INGRESS_RETIRE)
         self._resolve_ready_chunks()
         if expired:
+            stages.swap(INGRESS_DRAIN)
             self._abandon_pending()
+        stages.leave(k)
         assert not self._chunks, "unresolved chunks after full retire"
 
     _POLL_S = 20e-6  # sleep between completion-event polls
@@ -1924,15 +1991,20 @@ class IngressPipeline:
         bounds the flush (see :meth:`flush`); expired tickets come back as
         ``PacketError(DRAIN_TIMEOUT)`` slots in their submission
         positions."""
-        self.flush(timeout_us)
-        status, rows = self.results_array()
-        if not self._errors:  # common case: one vectorized unpack
-            out: List[Union[np.ndarray, PacketError]] = list(rows)
-        else:
-            out = [self._errors[t] if status[t] == STATUS_ERROR else rows[t]
-                   for t in range(self._n_tickets)]
-        self.reset_tickets()
-        return out
+        d = self.stages.enter()
+        try:
+            self.flush(timeout_us)
+            self.stages.push(INGRESS_DRAIN)
+            status, rows = self.results_array()
+            if not self._errors:  # common case: one vectorized unpack
+                out: List[Union[np.ndarray, PacketError]] = list(rows)
+            else:
+                out = [self._errors[t] if status[t] == STATUS_ERROR
+                       else rows[t] for t in range(self._n_tickets)]
+            self.reset_tickets()
+            return out
+        finally:
+            self.stages.leave(d)
 
     def reset_tickets(self) -> None:
         """Forget delivered tickets/results (between serving windows).

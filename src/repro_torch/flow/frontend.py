@@ -44,6 +44,7 @@ from ..core.packet import HEADER_BYTES
 from ..data.packets import RAW_KEY_BYTES, RawHeaderBatch, parse_raw_headers
 from ..kernels.ops import flow_update
 from ..kernels.ref import N_FLOW_FEATURES, N_FLOW_REGISTERS, flow_update_numpy
+from ..obs.trace import FLOW_GATHER, FLOW_PARSE, FLOW_STATE, FLOW_TABLE
 from .table import FlowTable
 
 __all__ = ["FlowParams", "FlowFrontend", "reference_features"]
@@ -136,6 +137,8 @@ class FlowFrontend:
         stats.bind("flow_raw_packets_total", Counter())
         stats.bind("flow_raw_batches_total", Counter())
         self.stats = stats
+        # the pipeline's host stage counters: the flow stages charge there
+        self.stages = pipeline.stages
         self._arange = np.arange(0).reshape(0, 1)  # grown on demand
         self._ones = np.ones(0, np.int32)
 
@@ -209,39 +212,47 @@ class FlowFrontend:
         sketch, and the fabric's per-packet estimates replace lane
         ``N_FLOW_FEATURES - 1`` once the features are back on the host.
         """
-        if fields is None:
-            fields = parse_raw_headers(raw)
-        n = fields.model_id.shape[0]
-        if n == 0:
-            return (np.zeros((0, N_FLOW_FEATURES), np.int32), fields,
-                    np.zeros(0, bool), np.zeros(0, bool))
-        self.stats["flow_raw_packets_total"] += n
-        self.stats["flow_raw_batches_total"] += 1
-        words, hashes = FlowTable.pack_keys(fields.key_bytes, self.key_words)
-        slots, is_new, rank = self.table.lookup_or_insert(
-            words, hashes, fields.ts, want_rank=True)
-        rejected = slots < 0
-        cells = self.params.cms_cells(hashes)
-        if rejected.any():
-            # overflow degradation: whole flows were rejected, so the kept
-            # packets' slots and within-flow ranks are still exact — run
-            # the update on the kept subset and leave zero rows (never
-            # served) at the rejected positions
-            keep = np.nonzero(~rejected)[0]
-            feats = np.zeros((n, N_FLOW_FEATURES), np.int32)
-            if keep.size:
-                feats[keep] = self._update(
-                    slots[keep], cells[keep], fields.ts[keep],
-                    fields.length[keep],
-                    None if rank is None else rank[keep])
-        else:
-            feats = self._update(slots, cells, fields.ts, fields.length,
-                                 rank)
-        if cms_est_q is not None:
-            if not feats.flags.writeable:
-                feats = np.array(feats)
-            feats[:, N_FLOW_FEATURES - 1] = cms_est_q
-        return feats, fields, is_new, rejected
+        stages = self.stages
+        k = stages.push(FLOW_PARSE)
+        try:
+            if fields is None:
+                fields = parse_raw_headers(raw)
+            n = fields.model_id.shape[0]
+            if n == 0:
+                return (np.zeros((0, N_FLOW_FEATURES), np.int32), fields,
+                        np.zeros(0, bool), np.zeros(0, bool))
+            stages.swap(FLOW_TABLE)
+            self.stats["flow_raw_packets_total"] += n
+            self.stats["flow_raw_batches_total"] += 1
+            words, hashes = FlowTable.pack_keys(fields.key_bytes,
+                                                self.key_words)
+            slots, is_new, rank = self.table.lookup_or_insert(
+                words, hashes, fields.ts, want_rank=True)
+            rejected = slots < 0
+            cells = self.params.cms_cells(hashes)
+            stages.swap(FLOW_STATE)
+            if rejected.any():
+                # overflow degradation: whole flows were rejected, so the kept
+                # packets' slots and within-flow ranks are still exact — run
+                # the update on the kept subset and leave zero rows (never
+                # served) at the rejected positions
+                keep = np.nonzero(~rejected)[0]
+                feats = np.zeros((n, N_FLOW_FEATURES), np.int32)
+                if keep.size:
+                    feats[keep] = self._update(
+                        slots[keep], cells[keep], fields.ts[keep],
+                        fields.length[keep],
+                        None if rank is None else rank[keep])
+            else:
+                feats = self._update(slots, cells, fields.ts, fields.length,
+                                     rank)
+            if cms_est_q is not None:
+                if not feats.flags.writeable:
+                    feats = np.array(feats)
+                feats[:, N_FLOW_FEATURES - 1] = cms_est_q
+            return feats, fields, is_new, rejected
+        finally:
+            stages.leave(k)
 
     # -- serving -------------------------------------------------------------
 
@@ -278,29 +289,40 @@ class FlowFrontend:
         ``fields``/``cms_est_q`` pass through to :meth:`extract` (the
         sharded fabric's pre-parsed, global-sketch entry).
         """
-        if drop_mask is not None and drop_mask.any():
-            return self._submit_raw_partial(raw, fields, cms_est_q,
-                                            np.asarray(drop_mask, bool),
-                                            drop_reason)
-        feats, fields, _, rejected = self.extract(raw, fields=fields,
-                                                  cms_est_q=cms_est_q)
-        n = feats.shape[0]
-        if n == 0:
-            return self.pipeline.submit_features(
-                np.zeros((0, self.width), np.int32), np.zeros(0, np.int32))
-        gathered = self._gather(feats, fields.model_id)
-        if rejected.any():
-            return self.pipeline.submit_features(
-                gathered, fields.model_id, error_mask=rejected,
-                error_reason="flow table overflow — flow rejected")
-        return self.pipeline.submit_features(gathered, fields.model_id)
+        stages = self.stages
+        d = stages.enter()
+        try:
+            if drop_mask is not None and drop_mask.any():
+                return self._submit_raw_partial(raw, fields, cms_est_q,
+                                                np.asarray(drop_mask, bool),
+                                                drop_reason)
+            feats, fields, _, rejected = self.extract(raw, fields=fields,
+                                                      cms_est_q=cms_est_q)
+            n = feats.shape[0]
+            if n == 0:
+                return self.pipeline.submit_features(
+                    np.zeros((0, self.width), np.int32),
+                    np.zeros(0, np.int32))
+            k = stages.push(FLOW_GATHER)
+            gathered = self._gather(feats, fields.model_id)
+            stages.leave(k)
+            if rejected.any():
+                return self.pipeline.submit_features(
+                    gathered, fields.model_id, error_mask=rejected,
+                    error_reason="flow table overflow — flow rejected")
+            return self.pipeline.submit_features(gathered, fields.model_id)
+        finally:
+            stages.leave(d)
 
     def _submit_raw_partial(self, raw, fields, cms_est_q,
                             drop: np.ndarray, drop_reason: str
                             ) -> Tuple[int, int]:
         """Validation-rejected rows interleave as error tickets while the
         good subset runs the full flow stage (rejected rows must never
-        touch register/sketch state)."""
+        touch register/sketch state).  Assembling the submission-order
+        rows charges to ``flow_gather``."""
+        stages = self.stages
+        k = stages.push(FLOW_GATHER)
         n_total = drop.size
         x_full = np.zeros((n_total, self.width), np.int32)
         mid_full = np.zeros(n_total, np.int32)
@@ -327,6 +349,7 @@ class FlowFrontend:
                 gi = good[rejected]
                 err[gi] = True
                 reasons[gi] = "flow table overflow — flow rejected"
+        stages.leave(k)
         return self.pipeline.submit_features(
             x_full, mid_full, error_mask=err, error_reason=reasons)
 

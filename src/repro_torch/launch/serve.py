@@ -46,6 +46,7 @@ from ..core.ingress import BatchError, IngressPipeline
 from ..core.packet import HEADER_BYTES
 from ..models.api import build_model
 from ..obs import Observability
+from ..obs.trace import FLOW_PARSE
 from ..serve import ShardedPacketServer
 
 if TYPE_CHECKING:
@@ -259,21 +260,28 @@ class PacketServer:
         per-packet :class:`~repro_torch.core.ingress.PacketError` slots at
         their submission-order positions
         (:func:`repro_torch.data.packets.validate_raw_rows`)."""
-        if self._window_t0 is None:
-            self._window_t0 = time.perf_counter()
-        from ..data.packets import validate_raw_rows
-        known = (self.control_plane.installed_ids()
-                 if self.strict_model_ids else None)
-        rows, bad, reasons = validate_raw_rows(raw, known_model_ids=known)
-        t0 = time.perf_counter() if self._submit_h is not None else 0.0
+        stages = self.ingress.stages
+        d = stages.enter()
         try:
-            if bad is None:
-                return self.flow.submit_raw(rows)
-            return self.flow.submit_raw(rows, drop_mask=bad,
-                                        drop_reason=reasons)
+            if self._window_t0 is None:
+                self._window_t0 = time.perf_counter()
+            from ..data.packets import validate_raw_rows
+            known = (self.control_plane.installed_ids()
+                     if self.strict_model_ids else None)
+            k = stages.push(FLOW_PARSE)
+            rows, bad, reasons = validate_raw_rows(raw, known_model_ids=known)
+            stages.leave(k)
+            t0 = time.perf_counter() if self._submit_h is not None else 0.0
+            try:
+                if bad is None:
+                    return self.flow.submit_raw(rows)
+                return self.flow.submit_raw(rows, drop_mask=bad,
+                                            drop_reason=reasons)
+            finally:
+                if self._submit_h is not None:
+                    self._submit_h.observe(time.perf_counter() - t0)
         finally:
-            if self._submit_h is not None:
-                self._submit_h.observe(time.perf_counter() - t0)
+            stages.leave(d)
 
     # -- streaming ingress (coalescing queue + duplicate cache) ------------
 
@@ -281,15 +289,20 @@ class PacketServer:
         """Feed one ragged per-connection chunk into the ingress pipeline.
         Returns ``(first_ticket, n_packets)``; results arrive in submission
         order via :meth:`drain_packets`."""
-        if self._window_t0 is None:
-            self._window_t0 = time.perf_counter()
-        if self._submit_h is None:
-            return self.ingress.submit(packets)
-        t0 = time.perf_counter()
+        stages = self.ingress.stages
+        d = stages.enter()
         try:
-            return self.ingress.submit(packets)
+            if self._window_t0 is None:
+                self._window_t0 = time.perf_counter()
+            if self._submit_h is None:
+                return self.ingress.submit(packets)
+            t0 = time.perf_counter()
+            try:
+                return self.ingress.submit(packets)
+            finally:
+                self._submit_h.observe(time.perf_counter() - t0)
         finally:
-            self._submit_h.observe(time.perf_counter() - t0)
+            stages.leave(d)
 
     def drain_packets(self, timeout_us: Optional[float] = None) -> list:
         """Flush the pipeline and return one entry per submitted packet in
@@ -298,13 +311,18 @@ class PacketServer:
         ``timeout_us`` bounds the drain: unresolved tickets backfill as
         ``PacketError(DRAIN_TIMEOUT)`` instead of waiting on a wedged
         device."""
-        out = self.ingress.drain(timeout_us)
-        self._close_window()
-        if self.obs.health is not None:
-            # step alert rules once per drain window (drift rules also step
-            # on the monitor's own window cadence)
-            self.obs.health.evaluate()
-        return out
+        stages = self.ingress.stages
+        d = stages.enter()
+        try:
+            out = self.ingress.drain(timeout_us)
+            self._close_window()
+            if self.obs.health is not None:
+                # step alert rules once per drain window (drift rules also
+                # step on the monitor's own window cadence)
+                self.obs.health.evaluate()
+            return out
+        finally:
+            stages.leave(d)
 
     def _close_window(self) -> None:
         if self._window_t0 is not None:

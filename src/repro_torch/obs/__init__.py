@@ -7,10 +7,13 @@ registry under per-shard labels, the control plane and fault supervisor
 emit into the shared event log, and (when ``trace_every > 0``) each shard
 pipeline gets its own :class:`~repro_torch.obs.trace.PacketTracer` (tickets and
 staging-row indices are per-pipeline namespaces, so tracers cannot be
-shared across shards).
+shared across shards).  Every shard pipeline also gets an always-on
+:class:`~repro_torch.obs.trace.StageClock`: the self-time counters of its
+host stages, ``<stage>_seconds_total`` under its ``shard`` label.
 
-Everything is host-side numpy/Python — instrumentation never touches the
-device and never adds a serving configuration.
+Everything is host-side numpy/Python and never adds a serving
+configuration; the one device read is each batch's pair of timing events
+on the card (``engine_batch_device_seconds_total``).
 
     obs = Observability(trace_every=64)
     srv = ShardedPacketServer(n_shards=4, obs=obs)
@@ -29,7 +32,7 @@ from .events import EVENT_KINDS, Event, EventLog
 from .health import AlertRule, HealthMonitor
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       StatsAdapter)
-from .trace import TRACE_STAGES, PacketTracer
+from .trace import STAGES, TRACE_STAGES, PacketTracer, StageClock
 
 __all__ = [
     "Observability",
@@ -43,6 +46,8 @@ __all__ = [
     "EVENT_KINDS",
     "PacketTracer",
     "TRACE_STAGES",
+    "StageClock",
+    "STAGES",
     "DriftMonitor",
     "ShadowScorer",
     "drift_scores",

@@ -22,6 +22,13 @@ only submit/retire and are flagged ``short_circuit``.
 
 The tracer reuses the injectable ``clock=`` plumbing: pass the
 same fake clock as the pipeline's to make spans deterministic in tests.
+On the card the pipeline stamps a batch's dispatch and device_done from
+the batch's own timing events (see ``IngressPipeline._retire_oldest``), so
+``device_s`` is the device's time for the batch.
+
+:class:`StageClock` is the always-on companion: self-time counters of the
+host stages every submit and drain passes through (``STAGES``), one
+``<stage>_seconds_total`` registry counter each.
 """
 
 from __future__ import annotations
@@ -32,11 +39,121 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-__all__ = ["PacketTracer", "TRACE_STAGES"]
+from .metrics import Counter
+
+__all__ = ["PacketTracer", "TRACE_STAGES", "StageClock", "STAGES"]
 
 TRACE_STAGES = ("submit", "stage", "dispatch", "device_done", "retire")
 
 _SUBMIT, _STAGE, _DISPATCH, _DEVICE, _RETIRE = range(5)
+
+# The host stages of the serving path, in :class:`StageClock`'s index order
+# (the module constants below name the indices).  Together they partition
+# every call to ``PacketServer.submit_packets``, ``submit_raw`` and
+# ``drain_packets``:
+#
+#   server_call      the entry points' own work no stage below covers
+#                    (ticket allocation, chunk-level checks)
+#   flow_parse       raw-row validation and ``parse_raw_headers``
+#   flow_table       key packing, ``FlowTable.lookup_or_insert``, sketch cells
+#   flow_state       ``FlowFrontend._update`` (on the card: the register
+#                    file's round trip and the flow kernel)
+#   flow_gather      the FeatureSpec gather
+#   ingress_key      wire rows: pad, feature-count check or encode, packing
+#                    and hashing
+#   ingress_lookup   result-cache lookup and hit fill, dedup, pending window
+#   ingress_stage    fresh-row parse, admission, chunk records, pending
+#                    insert, staging copies
+#   engine_dispatch  ``run_features`` under the retry policy, and salvage
+#   ingress_wait     the host blocked on a batch's completion
+#   ingress_retire   egress encode, result writes, cache insert, chunk
+#                    resolution
+#   ingress_drain    the drain's result assembly and ticket reset
+STAGES = ("server_call", "flow_parse", "flow_table", "flow_state",
+          "flow_gather", "ingress_key", "ingress_lookup", "ingress_stage",
+          "engine_dispatch", "ingress_wait", "ingress_retire",
+          "ingress_drain")
+(SERVER_CALL, FLOW_PARSE, FLOW_TABLE, FLOW_STATE, FLOW_GATHER, INGRESS_KEY,
+ INGRESS_LOOKUP, INGRESS_STAGE, ENGINE_DISPATCH, INGRESS_WAIT,
+ INGRESS_RETIRE, INGRESS_DRAIN) = range(len(STAGES))
+
+
+class StageClock:
+    """Self-time counters of nested host stages.
+
+    A stack of open stages; every boundary (:meth:`push`, :meth:`swap`,
+    :meth:`pop`, :meth:`leave`) reads the clock once and charges the time
+    since the previous boundary to the innermost open stage, so a nested
+    stage's time is never counted in its parent too.  Time while no stage
+    is open is charged to none.  ``last`` is the latest boundary's reading.
+
+    The cells are ``<stage>_seconds_total`` counters of ``registry`` under
+    ``labels`` (plain cells when ``registry`` is None).  An entry point
+    opens ``server_call`` with :meth:`enter` and closes with :meth:`leave`
+    in a ``finally``, which also unwinds whatever an exception left open.
+    """
+
+    __slots__ = ("_clock", "cells", "_stack", "last")
+
+    def __init__(self, registry=None, clock=None, **labels) -> None:
+        self._clock = clock if clock is not None else time.perf_counter
+        self.cells = [
+            Counter() if registry is None else registry.counter(
+                f"{name}_seconds_total",
+                f"host seconds in the {name} stage, nested stages excluded",
+                **labels)
+            for name in STAGES]
+        self._stack: List[int] = []
+        self.last = 0.0
+
+    @property
+    def depth(self) -> int:
+        return len(self._stack)
+
+    def push(self, stage: int) -> int:
+        """Open ``stage`` inside the innermost; returns the depth before."""
+        now = self._clock()
+        stack = self._stack
+        d = len(stack)
+        if d:
+            self.cells[stack[-1]].value += now - self.last
+        stack.append(stage)
+        self.last = now
+        return d
+
+    def swap(self, stage: int) -> None:
+        """Close the innermost stage and open ``stage`` in its place."""
+        now = self._clock()
+        stack = self._stack
+        self.cells[stack[-1]].value += now - self.last
+        stack[-1] = stage
+        self.last = now
+
+    def pop(self) -> None:
+        now = self._clock()
+        self.cells[self._stack.pop()].value += now - self.last
+        self.last = now
+
+    def enter(self) -> int:
+        """Open ``server_call`` when no stage is open; returns the depth
+        to :meth:`leave` at."""
+        d = len(self._stack)
+        if not d:
+            self.push(SERVER_CALL)
+        return d
+
+    def leave(self, depth: int) -> None:
+        """Close every stage above ``depth`` (one clock read)."""
+        stack = self._stack
+        if len(stack) > depth:
+            now = self._clock()
+            self.cells[stack[-1]].value += now - self.last
+            del stack[depth:]
+            self.last = now
+
+    def seconds(self) -> Dict[str, float]:
+        """Each stage's seconds so far."""
+        return {name: float(c.value) for name, c in zip(STAGES, self.cells)}
 
 
 class PacketTracer:
@@ -130,7 +247,7 @@ class PacketTracer:
                 self._miss.setdefault(m, t)
 
     def _stamp_miss(self, miss_idx: np.ndarray, slot: int,
-                    pop: bool = False) -> None:
+                    pop: bool = False, at: Optional[float] = None) -> None:
         # Work must stay O(#sampled), not O(batch): dispatched rows are a
         # contiguous index range, so membership is two scalar compares per
         # open sampled row; ragged callers fall back to a C-level isin.
@@ -148,7 +265,7 @@ class PacketTracer:
             present = keys[np.isin(keys, arr)].tolist()
         if not present:
             return
-        now = self._clock()
+        now = self._clock() if at is None else at
         for m in present:
             t = self._miss[m]
             span = self._open.get(t)
@@ -157,13 +274,19 @@ class PacketTracer:
             if pop:
                 del self._miss[m]
 
-    def on_dispatch(self, miss_idx: np.ndarray) -> None:
-        self._stamp_miss(miss_idx, _DISPATCH)
+    def on_dispatch(self, miss_idx: np.ndarray,
+                    at: Optional[float] = None) -> None:
+        """Stamp the batch's dispatch, now or at ``at`` (same clock)."""
+        self._stamp_miss(miss_idx, _DISPATCH, at=at)
 
-    def on_device_done(self, miss_idx: np.ndarray) -> None:
+    def on_device_done(self, miss_idx: np.ndarray,
+                       at: Optional[float] = None) -> None:
+        """Stamp the batch's device completion, now or at ``at``: on the
+        card the pipeline passes the dispatch stamp plus the batch's time
+        between its own device events."""
         # device_done is the last per-row hook; pop the row mapping so a
         # reused staging row index can never stamp a stale span.
-        self._stamp_miss(miss_idx, _DEVICE, pop=True)
+        self._stamp_miss(miss_idx, _DEVICE, pop=True, at=at)
 
     def on_retire(self, tickets: np.ndarray) -> None:
         hit = self._sampled(tickets)

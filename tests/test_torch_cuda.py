@@ -161,6 +161,54 @@ def test_packet_server_on_card_matches_cpu_port(card, variant, weight_bits):
     np.testing.assert_array_equal(outs[0], outs[1])
 
 
+def test_batch_device_time_from_its_own_events(card):
+    """Each batch's time between its own timing events (summed into
+    ``engine_batch_device_seconds_total``) is above zero and at most the
+    host's dispatch→retire interval; the tracer's ``device_s`` is that
+    device time, at most the same interval, and its device_done stamp
+    never follows the retire."""
+    rng = np.random.default_rng(2)
+    srv = PacketServer(device=card, max_models=4, max_layers=3,
+                       max_width=16, ingress_batch=128, trace_every=1)
+    for m in range(4):
+        layers = [(rng.normal(size=(16, 16)).astype(np.float32) * 0.4,
+                   rng.normal(size=(16,)).astype(np.float32) * 0.1)
+                  for _ in range(3)]
+        srv.install(m + 1, layers, ["sigmoid", "leaky_relu"],
+                    final_activation="hard_sigmoid")
+    pipe = srv.ingress
+    retire = pipe._retire_oldest
+    batches = []
+
+    def timed_retire():
+        rec = pipe._inflight[0]
+        before = pipe._c_device.value
+        retire()
+        batches.append((pipe._c_device.value - before,
+                        pipe.stages.last - rec.t_issue))
+
+    pipe._retire_oldest = timed_retire
+    feats = rng.integers(-500, 500, (2000, 16)).astype(np.int32)
+    rows = encode_packets_np(rng.integers(1, 5, 2000).astype(np.int32),
+                             FRAC, feats)
+    for i in range(0, 2000, 111):
+        srv.submit_packets(rows[i: i + 111])
+    assert len(srv.drain_packets()) == 2000
+    assert len(batches) == pipe.stats["ingress_batches_total"] > 1
+    for dev, host in batches:
+        assert 0.0 < dev <= host
+    snap = srv.obs.registry.snapshot()
+    assert snap["engine_batch_device_seconds_total"]['shard="0"'] == \
+        pytest.approx(sum(d for d, _ in batches))
+    spans = [s for s in srv.obs.spans() if "device_s" in s]
+    assert spans
+    longest = max(h for _, h in batches)
+    for s in spans:
+        assert 0.0 < s["device_s"] <= s["retire"] - s["dispatch"]
+        assert s["device_s"] <= longest and s["drain_s"] >= 0.0
+        assert any(abs(s["device_s"] - d) <= 1e-9 for d, _ in batches)
+
+
 def test_quickstart_example_runs_on_card(card):
     import importlib.util
     from pathlib import Path
@@ -1190,7 +1238,8 @@ def test_serve_cli_on_card(card, tmp_path):
             timeout=300)
         assert r.returncode == 0, r.stderr
         names.append(sorted(json.loads(path.read_text())["metrics"]))
-    assert names[0] == names[1]
+    # the card adds the one counter that needs device events
+    assert names[0] == sorted(names[1] + ["engine_batch_device_seconds_total"])
 
 
 # ---------------------------------------------------------------------------

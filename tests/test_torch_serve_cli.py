@@ -23,12 +23,17 @@ from repro.data.packets import raw_trace as j_raw_trace
 from repro.launch import serve as jserve
 from repro_torch.data.packets import raw_trace
 from repro_torch.launch import serve as tserve
+from repro_torch.obs import STAGES
 
 torch.set_num_threads(1)
 
 FRAC = 8
 WIDTH = 16
 WINDOW = 256
+# the port's host stage counters, which the reference does not have, and
+# the reference's dispatch→retire histogram, which they replace in the port
+PORT_ONLY = {f"{s}_seconds_total" for s in STAGES}
+REFERENCE_ONLY = {"ingress_dispatch_seconds"}
 
 
 def _metrics(path):
@@ -62,8 +67,10 @@ def test_cli_snapshot_matches_reference(tmp_path, argv, capsys):
     assert "served 1536 packets" in capsys.readouterr().out
     assert jserve.main(argv + ["--metrics-json", str(j_path)]) == 0
     t, j = _metrics(t_path), _metrics(j_path)
-    assert sorted(t["metrics"]) == sorted(j["metrics"])
-    for name in t["metrics"]:
+    assert PORT_ONLY <= set(t["metrics"])
+    assert sorted(set(t["metrics"]) - PORT_ONLY) == \
+        sorted(set(j["metrics"]) - REFERENCE_ONLY)
+    for name in set(t["metrics"]) - PORT_ONLY:
         assert sorted(_cells(t["metrics"][name])) == \
             sorted(_cells(j["metrics"][name])), name
     assert _counters(t["metrics"]) == _counters(j["metrics"])
