@@ -19,9 +19,10 @@ three pieces the paper's NIC gets for free from hardware:
     bump makes every cached key unreachable before the new tables can ever
     serve a lookup.  Storage is a flat open-addressing hash table held in
     numpy arrays, keyed on the wire row packed into uint64 words; lookups
-    and inserts for a whole packet chunk are single vectorized probe sweeps
-    (insert rounds arbitrate slot claims by scatter — no sort, no
-    ``np.unique`` on the path) — no per-packet Python on the hot path.
+    and inserts for a whole packet chunk are one call of a C++ host routine
+    on those arrays (``kernels/csrc/result_cache.cpp``), or, where no C++
+    compiler is found, vectorized numpy probe rounds that leave the same
+    table — no per-packet Python on the hot path.
   * :class:`IngressPipeline` — the coalescing queue.  ``submit()`` accepts a
     ragged per-connection chunk, resolves cache hits immediately, dedupes the
     misses (byte-identical packets in one chunk dispatch once), byte-parses
@@ -81,6 +82,7 @@ from typing import Deque, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
+from ..kernels import ref as _ref, result_cache as _rc
 from .packet import (FEATURE_BYTES, FLAG_REFLEX, HEADER_BYTES,
                      emit_results_np, parse_packets_np)
 from ..obs import Observability, StageClock, StatsAdapter
@@ -234,8 +236,12 @@ class ResultCache:
       always safe — the pipeline simply dispatches.
 
     Keys are ingress rows packed into uint64 words (:func:`pack_rows`); all
-    operations take the whole packet chunk at once and run as vectorized
-    numpy probe sweeps (double hashing over a power-of-two table).
+    operations take the whole packet chunk at once (double hashing over a
+    power-of-two table).  ``lookup`` and ``insert`` walk the probe chains in
+    one native call (``kernels.result_cache``) where ``native`` is true,
+    else in the plain numpy rounds (``kernels.ref``); ``probe_keys`` and
+    ``probe_slots`` count the rows that walked a chain and the slots they
+    visited, in both.
     """
 
     def __init__(self, key_words: int, val_bytes: int, *,
@@ -247,7 +253,6 @@ class ResultCache:
                 f"rows beyond {_MULTS.size * 8} bytes are not supported")
         cap = 1 << capacity_pow2
         self._cap = cap
-        self._mask = np.int64(cap - 1)
         self._max_probe = max_probe
         self._load_limit = load_limit
         self._tombstone_limit = tombstone_limit
@@ -260,6 +265,12 @@ class ResultCache:
         # claim-arbitration scratch (insert probe rounds) — stale contents
         # are harmless: every round writes before it reads back
         self._claim = np.zeros(cap, np.int64)
+        # the probe sweeps: one native call per chunk where a C++ compiler
+        # is found, else the plain numpy rounds; both leave the same table
+        native = _rc.sweeps()
+        self.native = native is not None
+        self._lookup, self._insert = native or (
+            _ref.result_cache_lookup_ref, _ref.result_cache_insert_ref)
         self._count = 0
         self._tombstones = 0
         self._gen = -1
@@ -269,15 +280,10 @@ class ResultCache:
         self.flushes = 0
         self.compactions = 0
         self.stale_inserts_dropped = 0
+        self.probe_keys = 0    # rows that walked a probe chain
+        self.probe_slots = 0   # slots those chains visited
 
     # -- internals --------------------------------------------------------
-
-    def _slots_steps(self, hashes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        slot = (hashes & np.uint64(self._mask)).astype(np.int64)
-        # odd step → full-cycle double hashing over the power-of-two table
-        step = ((((hashes >> np.uint64(32)) << np.uint64(1)) | np.uint64(1))
-                .astype(np.int64)) & self._mask
-        return slot, step
 
     def _sync_generation(self, generation: int) -> bool:
         """Flush on a newer generation; return False if ``generation`` is
@@ -344,35 +350,16 @@ class ResultCache:
             return np.zeros(n, bool), np.zeros((0, self.val_bytes), np.uint8)
         if hashes is None:
             hashes = hash_words(words)
-        slot, _ = self._slots_steps(hashes)
-        # fast first round, no indirection: with load < load_limit almost
-        # every probe resolves at its home slot
-        st = self._state[slot]
-        match = (self._keys[slot] == words).all(axis=1) & (st == 1)
-        hit_slot = np.where(match, slot, np.int64(-1))
-        # keep probing through tombstones and colliding keys; an empty slot
-        # terminates the probe chain → definitive miss
-        pending = np.nonzero(~match & (st != 0))[0]
-        if pending.size:
-            _, step = self._slots_steps(hashes[pending])
-            cur = (slot[pending] + step) & self._mask
-            active = np.arange(pending.size)
-            for _ in range(self._max_probe - 1):
-                if active.size == 0:
-                    break
-                s = cur[active]
-                rows = pending[active]
-                st = self._state[s]
-                m = (self._keys[s] == words[rows]).all(axis=1) & (st == 1)
-                hit_slot[rows[m]] = s[m]
-                keep = ~m & (st != 0)
-                active = active[keep]
-                cur[active] = (cur[active] + step[active]) & self._mask
-        hits = hit_slot >= 0
-        n_hit = int(hits.sum())
+        hit_slot = np.empty(n, np.int64)
+        hit_vals = np.empty((n, self.val_bytes), np.uint8)
+        n_hit, visited = self._lookup(self._keys, self._vals, self._state,
+                                      self._max_probe, words, hashes,
+                                      hit_slot, hit_vals)
+        self.probe_keys += n
+        self.probe_slots += visited
         self.hits += n_hit
         self.misses += n - n_hit
-        return hits, self._vals[hit_slot[hits]]
+        return hit_slot >= 0, hit_vals[:n_hit]
 
     def insert(self, words: np.ndarray, vals: np.ndarray,
                model_ids: np.ndarray, generation: int,
@@ -417,67 +404,13 @@ class ResultCache:
         if self._count + n > self._cap * self._load_limit:
             self.clear()
             self._gen = generation
-        slot, step = self._slots_steps(hashes)
-        admitted = 0
-
-        def _settle(rows: np.ndarray, s: np.ndarray):
-            """One probe round for rows (indices into the chunk) at slots
-            ``s``: refresh matches, claim empties/tombstones, return the
-            boolean keep-probing mask over ``rows``."""
-            nonlocal admitted
-            st = self._state[s]
-            full = st == 1
-            match = (self._keys[s] == words[rows]).all(axis=1) & full
-            if match.any():
-                self._vals[s[match]] = vals[rows[match]]
-            claim = ~full
-            if claim.any():
-                ci = np.nonzero(claim)[0]
-                cs = s[ci]
-                # scatter arbitration: duplicate slots keep the last writer
-                # (deterministic in numpy fancy assignment); losers see a
-                # foreign row index on read-back and probe on
-                self._claim[cs] = ci
-                win = self._claim[cs] == ci
-                wi = ci[win]
-                ws = s[wi]
-                rw = rows[wi]
-                self._tombstones -= int((st[wi] == 2).sum())  # reclaimed
-                self._keys[ws] = words[rw]
-                self._vals[ws] = vals[rw]
-                self._model[ws] = model_ids[rw]
-                self._state[ws] = 1
-                self._count += ws.size
-                admitted += ws.size
-                unresolved = ~match
-                unresolved[wi] = False
-                # an arbitration loser whose slot was claimed by its OWN
-                # key this round (duplicate keys in one call) must refresh
-                # in place, not claim a second slot downstream
-                li = ci[~win]
-                if li.size:
-                    ls = s[li]
-                    lm = (self._keys[ls] == words[rows[li]]).all(axis=1) \
-                        & (self._state[ls] == 1)
-                    if lm.any():
-                        sel = li[lm]
-                        self._vals[s[sel]] = vals[rows[sel]]
-                        unresolved[sel] = False
-                return unresolved
-            return ~match
-
-        keep = _settle(np.arange(n), slot)  # fast home-slot round
-        if keep.any():
-            pending = np.nonzero(keep)[0]
-            stepp = step[pending]
-            cur = (slot[pending] + stepp) & self._mask
-            for _ in range(self._max_probe - 1):
-                if pending.size == 0:
-                    break
-                keep = _settle(pending, cur)
-                pending = pending[keep]
-                stepp = stepp[keep]
-                cur = (cur[keep] + stepp) & self._mask
+        admitted, reclaimed, visited = self._insert(
+            self._keys, self._vals, self._state, self._model, self._claim,
+            self._max_probe, words, vals, model_ids, hashes)
+        self._count += admitted
+        self._tombstones -= reclaimed
+        self.probe_keys += n
+        self.probe_slots += visited
         self.insertions += admitted
         return admitted
 
@@ -882,6 +815,18 @@ class IngressPipeline:
             "cache_stale_inserts_total": reg.counter(
                 "cache_stale_inserts_total", shard=sid),
         }
+        # probe work of both tables, counted by the sweeps themselves
+        probe_cells = [
+            (reg.counter("cache_probe_slots_total",
+                         "slots visited by probe chains",
+                         shard=sid, table=table),
+             reg.counter("cache_probe_keys_total",
+                         "rows that walked a probe chain",
+                         shard=sid, table=table))
+            for table in ("result", "pending")]
+        reg.gauge("cache_native", "1 where the probe sweeps run natively",
+                  shard=sid).set(
+            1.0 if self.cache is not None and self.cache.native else 0.0)
         g_entries = reg.gauge("cache_entries", shard=sid)
         g_tomb = reg.gauge("cache_tombstones", shard=sid)
         g_gate = reg.gauge("ingress_gate_open",
@@ -911,6 +856,11 @@ class IngressPipeline:
                     cache.stale_inserts_dropped)
                 g_entries.set(len(cache))
                 g_tomb.set(cache.tombstones)
+            for (slots, keys), table in zip(probe_cells,
+                                            (cache, self._pending)):
+                if table is not None:
+                    slots.set(table.probe_slots)
+                    keys.set(table.probe_keys)
             g_gate.set(1.0 if self._gate_open else 0.0)
             g_inflight.set(len(self._inflight))
             es = self.engine.stats

@@ -13,6 +13,9 @@
     (``csrc/taylor_activation.cu``)
   * ``wkv_scan``          — RWKV-6's chunked WKV recurrence in float32
     (``csrc/wkv_scan.cu``), the LM prefill's one kernel
+  * ``result_cache``     — the ingress result cache's probe sweeps as one
+    host call per chunk (``csrc/result_cache.cpp``, built with the host
+    C++ compiler)
   * ``ref``              — the plain versions every kernel is held to
   * ``ops``              — ``fused_mlp``, ``forest_traverse``,
     ``flow_update``, ``fixedpoint_matmul``, ``taylor_activation`` and

@@ -1,10 +1,13 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build and load the hand-written CUDA kernels and host routines.
 
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
 ``nvcc`` for ``sm_90a`` into ``<repo>/build/kernels/lib<name>-<hash>.so`` at
 first use (the hash is the source's, so an edited source rebuilds and a
-stale library is never loaded) and bound with ``ctypes``.  Nothing here runs
-at import time; a missing ``nvcc`` or a failed build raises.
+stale library is never loaded) and bound with ``ctypes``.  Each
+``csrc/<name>.cpp`` is a host routine, built the same way with the host C++
+compiler (``load_host``).  Nothing here runs at import time; a missing
+``nvcc`` or a failed build raises, and ``load_host`` returns ``None`` where
+no C++ compiler is found.
 """
 
 from __future__ import annotations
@@ -17,18 +20,19 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "build_all", "load",
-           "build_logs"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "CXX_FLAGS", "build",
+           "build_all", "load", "load_host", "build_logs"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[str, Optional[ctypes.CDLL]] = {}
 build_logs: Dict[str, str] = {}  # name -> nvcc's output (registers, smem)
 
 
@@ -42,23 +46,34 @@ def _nvcc() -> str:
                        "source on a machine with the CUDA toolkit")
 
 
-def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+def _cxx() -> Optional[str]:
+    for cand in ("c++", "g++"):
+        path = shutil.which(cand)
+        if path:
+            return path
+    return None
+
+
+def _target(src: Path, flags: List[str]) -> Path:
+    digest = hashlib.sha1(src.read_bytes() + " ".join(flags).encode()
                           ).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 
-def _start(name: str):
-    """Start one nvcc for ``name`` unless its library already exists.
-    Returns ``(target, process or None, temp path or None)``."""
-    target = _target(name)
+def _start(name: str, suffix: str = ".cu"):
+    """Start one compiler for ``csrc/<name><suffix>`` unless its library
+    already exists: ``nvcc`` for ``.cu``, the host C++ compiler for
+    ``.cpp``.  Returns ``(target, process or None, temp path or None)``."""
+    src = CSRC / f"{name}{suffix}"
+    cuda = suffix == ".cu"
+    flags = NVCC_FLAGS if cuda else CXX_FLAGS
+    target = _target(src, flags)
     if target.exists():
         return target, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc() if cuda else _cxx(), *flags, "-o", tmp, str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return target, proc, tmp
@@ -71,7 +86,7 @@ def _finish(name: str, target: Path, proc, tmp) -> Path:
     build_logs[name] = out
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+        raise RuntimeError(f"{proc.args[0]} failed for {name}:\n{out}")
     os.replace(tmp, target)  # atomic: a concurrent builder never sees half
     return target
 
@@ -96,3 +111,14 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
         return lib
+
+
+def load_host(name: str) -> Optional[ctypes.CDLL]:
+    """Build (if needed) and load the host routine ``csrc/<name>.cpp``;
+    cached per process.  ``None`` where no C++ compiler is found."""
+    with _lock:
+        key = name + ".cpp"
+        if key not in _libs:
+            _libs[key] = None if _cxx() is None else ctypes.CDLL(
+                str(_finish(name, *_start(name, ".cpp"))))
+        return _libs[key]

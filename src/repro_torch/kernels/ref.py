@@ -20,7 +20,11 @@ primitives, ``fixedpoint_matmul_ref`` (the W8A8 GEMM, C1) and
 ``core.fixedpoint.qmatmul`` share; and ``wkv_scan_ref``, the RWKV-6 WKV
 chunk scan in float32 (the one float kernel: its kernel is held to it
 with a tolerance, not bit for bit), with ``wkv_scan_two_phase_ref``, the
-kernel's decomposition of it (which the tests hold to it).  Every integer product and sum is int32 with
+kernel's decomposition of it (which the tests hold to it); and, in numpy,
+the ingress result cache's probe sweeps ``result_cache_lookup_ref`` and
+``result_cache_insert_ref``, the plain versions of the host routine
+``csrc/result_cache.cpp`` and the path ``core.ingress.ResultCache`` takes
+where no C++ compiler is found.  Every integer product and sum is int32 with
 two's-complement wraparound, as in the reference: products are int32
 tensor multiplies, and reductions use ``sum(..., dtype=torch.int32)`` so
 the accumulator wraps to int32 *before* the rounding shift (a plain
@@ -55,7 +59,8 @@ __all__ = ["rounding_rshift", "lane_clamp", "fused_mlp_ref",
            "flow_update_numpy", "flow_update_ref",
            "flow_update_two_phase_ref", "int32_matmul",
            "fixedpoint_matmul_ref", "taylor_activation_ref", "int32_coeffs",
-           "wkv_scan_ref", "wkv_scan_two_phase_ref"]
+           "wkv_scan_ref", "wkv_scan_two_phase_ref",
+           "result_cache_lookup_ref", "result_cache_insert_ref"]
 
 
 def rounding_rshift(x: torch.Tensor, shift: int) -> torch.Tensor:
@@ -982,3 +987,138 @@ def wkv_scan_two_phase_ref(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
     if not outs:
         return torch.zeros_like(a)
     return torch.stack(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# The ingress result cache's probe sweeps (numpy), the plain versions of
+# csrc/result_cache.cpp: one round of vectorized probes per chain step.
+# ---------------------------------------------------------------------------
+
+
+def _chain(hashes: np.ndarray, mask: np.int64):
+    """Home slots and odd steps of the cache's double hashing."""
+    slot = (hashes & np.uint64(mask)).astype(np.int64)
+    # odd step → full-cycle double hashing over the power-of-two table
+    step = ((((hashes >> np.uint64(32)) << np.uint64(1)) | np.uint64(1))
+            .astype(np.int64)) & mask
+    return slot, step
+
+
+def result_cache_lookup_ref(keys: np.ndarray, vals: np.ndarray,
+                            state: np.ndarray, max_probe: int,
+                            words: np.ndarray, hashes: np.ndarray,
+                            hit_slot: np.ndarray, hit_vals: np.ndarray):
+    """Probe ``words`` (``(N, key_words)`` uint64, their ``hashes``) in the
+    table ``keys``/``vals``/``state``.  Writes each row's hit slot or -1
+    into ``hit_slot`` and the hit rows' values, in row order, into the
+    first rows of ``hit_vals``.  Returns ``(hits, slots visited)``."""
+    mask = np.int64(keys.shape[0] - 1)
+    slot, _ = _chain(hashes, mask)
+    # fast first round, no indirection: with load < load_limit almost
+    # every probe resolves at its home slot
+    st = state[slot]
+    match = (keys[slot] == words).all(axis=1) & (st == 1)
+    hit_slot[:] = np.where(match, slot, np.int64(-1))
+    visited = slot.size
+    # keep probing through tombstones and colliding keys; an empty slot
+    # terminates the probe chain → definitive miss
+    pending = np.nonzero(~match & (st != 0))[0]
+    if pending.size:
+        _, step = _chain(hashes[pending], mask)
+        cur = (slot[pending] + step) & mask
+        active = np.arange(pending.size)
+        for _ in range(max_probe - 1):
+            if active.size == 0:
+                break
+            visited += active.size
+            s = cur[active]
+            rows = pending[active]
+            st = state[s]
+            m = (keys[s] == words[rows]).all(axis=1) & (st == 1)
+            hit_slot[rows[m]] = s[m]
+            keep = ~m & (st != 0)
+            active = active[keep]
+            cur[active] = (cur[active] + step[active]) & mask
+    hits = hit_slot >= 0
+    n_hit = int(hits.sum())
+    hit_vals[:n_hit] = vals[hit_slot[hits]]
+    return n_hit, visited
+
+
+def result_cache_insert_ref(keys: np.ndarray, vals: np.ndarray,
+                            state: np.ndarray, model: np.ndarray,
+                            claim: np.ndarray, max_probe: int,
+                            words: np.ndarray, new_vals: np.ndarray,
+                            model_ids: np.ndarray, hashes: np.ndarray):
+    """Insert rows ``words → new_vals`` (model ``model_ids``) into the
+    table in probe rounds: a row on a full slot holding its key refreshes
+    the value; rows on slots that are not full claim them, arbitrated by
+    **scatter** into the ``claim`` scratch (the last writer wins, losers
+    re-probe); a loser whose slot its own key just claimed refreshes in
+    place instead of claiming a second slot.  Rows still unplaced after
+    ``max_probe`` rounds are dropped.  Returns ``(admitted, tombstones
+    reclaimed, slots visited)``."""
+    n = words.shape[0]
+    mask = np.int64(keys.shape[0] - 1)
+    slot, step = _chain(hashes, mask)
+    admitted = reclaimed = visited = 0
+
+    def _settle(rows: np.ndarray, s: np.ndarray):
+        """One probe round for rows (indices into the chunk) at slots
+        ``s``: refresh matches, claim empties/tombstones, return the
+        boolean keep-probing mask over ``rows``."""
+        nonlocal admitted, reclaimed, visited
+        visited += rows.size
+        st = state[s]
+        full = st == 1
+        match = (keys[s] == words[rows]).all(axis=1) & full
+        if match.any():
+            vals[s[match]] = new_vals[rows[match]]
+        need = ~full
+        if need.any():
+            ci = np.nonzero(need)[0]
+            cs = s[ci]
+            # scatter arbitration: duplicate slots keep the last writer
+            # (deterministic in numpy fancy assignment); losers see a
+            # foreign row index on read-back and probe on
+            claim[cs] = ci
+            win = claim[cs] == ci
+            wi = ci[win]
+            ws = s[wi]
+            rw = rows[wi]
+            reclaimed += int((st[wi] == 2).sum())
+            keys[ws] = words[rw]
+            vals[ws] = new_vals[rw]
+            model[ws] = model_ids[rw]
+            state[ws] = 1
+            admitted += ws.size
+            unresolved = ~match
+            unresolved[wi] = False
+            # an arbitration loser whose slot was claimed by its OWN
+            # key this round (duplicate keys in one call) must refresh
+            # in place, not claim a second slot downstream
+            li = ci[~win]
+            if li.size:
+                ls = s[li]
+                lm = (keys[ls] == words[rows[li]]).all(axis=1) \
+                    & (state[ls] == 1)
+                if lm.any():
+                    sel = li[lm]
+                    vals[s[sel]] = new_vals[rows[sel]]
+                    unresolved[sel] = False
+            return unresolved
+        return ~match
+
+    keep = _settle(np.arange(n), slot)  # fast home-slot round
+    if keep.any():
+        pending = np.nonzero(keep)[0]
+        stepp = step[pending]
+        cur = (slot[pending] + stepp) & mask
+        for _ in range(max_probe - 1):
+            if pending.size == 0:
+                break
+            keep = _settle(pending, cur)
+            pending = pending[keep]
+            stepp = stepp[keep]
+            cur = (cur[keep] + stepp) & mask
+    return admitted, reclaimed, visited

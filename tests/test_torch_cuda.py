@@ -209,6 +209,43 @@ def test_batch_device_time_from_its_own_events(card):
         assert any(abs(s["device_s"] - d) <= 1e-9 for d, _ in batches)
 
 
+def test_result_cache_native_on_card_matches_cpu_port(card, monkeypatch):
+    """On the card's host the result cache probes natively
+    (``cache_native`` 1); its egress on a trace of repeats, drained
+    mid-trace so later repeats hit the cache, is byte-identical to a CPU
+    server's that runs the plain sweeps."""
+    from repro_torch.kernels import _build
+    rng = np.random.default_rng(5)
+    kw = dict(max_models=4, max_layers=3, max_width=16, ingress_batch=128)
+    servers = [PacketServer(device=card, **kw)]
+    monkeypatch.setattr(_build, "_cxx", lambda: None)
+    monkeypatch.setattr(_build, "_libs", {})
+    servers.append(PacketServer(device="cpu", **kw))
+    for m in range(4):
+        layers = [(rng.normal(size=(16, 16)).astype(np.float32) * 0.4,
+                   rng.normal(size=(16,)).astype(np.float32) * 0.1)
+                  for _ in range(3)]
+        for s in servers:
+            s.install(m + 1, layers, ["sigmoid", "leaky_relu"],
+                      final_activation="hard_sigmoid")
+    uniq = encode_packets_np(rng.integers(0, 6, 400).astype(np.int32), FRAC,
+                             rng.integers(-500, 500, (400, 16)
+                                          ).astype(np.int32))
+    rows = uniq[rng.integers(0, 400, 3000)]
+    outs = []
+    for s in servers:
+        out = []
+        for i in range(0, 3000, 101):
+            s.submit_packets(rows[i: i + 101])
+            if i % 505 == 0:
+                out += s.drain_packets()
+        outs.append(np.stack(out + s.drain_packets()))
+    snaps = [s.obs.registry.snapshot() for s in servers]
+    assert [s["cache_native"]['shard="0"'] for s in snaps] == [1.0, 0.0]
+    assert servers[0].ingress.cache.hits > 0
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
 def test_quickstart_example_runs_on_card(card):
     import importlib.util
     from pathlib import Path
