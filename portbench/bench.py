@@ -339,6 +339,12 @@ def run(workload: dict, bench: dict, *, seed: int, seconds: float,
     """Run one cell and return the result object (without printing)."""
     if t_start is None:
         t_start = time.perf_counter()
+    surface = deploy.load_config(workload["config"])["surface"]
+    if surface not in ("packets", "raw"):
+        return importlib.import_module(f"portbench.surfaces.{surface}").run(
+            workload, bench, seed=seed, seconds=seconds, trace=trace,
+            device=device, t_start=t_start, marks=marks,
+            mix_override=mix_override, server_override=server_override)
     name = workload["name"]
     t_run = time.perf_counter()
     cell = Cell(workload, seed, seconds, device=device,

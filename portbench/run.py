@@ -21,6 +21,10 @@ import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
+# the harness is imported as the package ``portbench``: its directory,
+# which holds a ``profile.py``, must not shadow the standard library
+if Path(sys.path[0]).resolve() == ROOT / "portbench":
+    del sys.path[0]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 

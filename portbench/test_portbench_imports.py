@@ -14,7 +14,8 @@ _CHECK = """
 import sys
 sys.path[:0] = [{root!r}, {src!r}]
 from portbench import bench, deploy, traffic, work, profile
-from portbench.reference import dataplane
+from portbench.reference import dataplane, lm
+from portbench.surfaces import lm_prefill
 import repro_torch.launch.serve, repro_torch.flow, repro_torch.forest
 spec = bench.load_benchmark()
 for m in spec["per_layer"]:
