@@ -4,7 +4,7 @@ installs, and the registry of the assigned LM architectures
 
 from __future__ import annotations
 
-from . import (base, chatglm3_6b, deepseek_v2_236b, gemma_7b,
+from . import (base, chatglm3_6b, deepseek_v2, deepseek_v2_236b, gemma_7b,
                granite_20b, granite_moe_3b_a800m, pixtral_12b, qwen2_1_5b,
                rwkv6_3b, whisper_base, zamba2_2_7b)
 from .base import SHAPES, ModelConfig, ShapeConfig, reduced
@@ -23,7 +23,12 @@ _MODULES = {
     "whisper-base": whisper_base,
 }
 
+#: the assigned architectures, the reference's registry
 ARCH_NAMES = tuple(_MODULES)
+
+#: architectures the port registers beyond the reference's, at their
+#: published configurations (not dry-run cells)
+_PUBLISHED = {"deepseek-v2": deepseek_v2}
 
 #: archs whose attention is sub-quadratic (or hybrid) — the only ones that
 #: run ``long_500k`` (full attention is quadratic at 500k tokens)
@@ -32,9 +37,10 @@ SUBQUADRATIC = ("rwkv6-3b", "zamba2-2.7b")
 
 def get_config(name: str) -> ModelConfig:
     try:
-        return _MODULES[name].CONFIG
+        return {**_MODULES, **_PUBLISHED}[name].CONFIG
     except KeyError:
-        raise KeyError(f"unknown arch '{name}'; choose from {ARCH_NAMES}") from None
+        raise KeyError(f"unknown arch '{name}'; choose from "
+                       f"{ARCH_NAMES + tuple(_PUBLISHED)}") from None
 
 
 def cells(include_skipped: bool = False):

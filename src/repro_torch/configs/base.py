@@ -20,8 +20,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "reduced", "active_params",
-           "param_count", "remat_group_size", "n_heads_ssm"]
+__all__ = ["ModelConfig", "DeepSeekConfig", "ShapeConfig", "SHAPES",
+           "reduced", "active_params", "param_count", "remat_group_size",
+           "n_heads_ssm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +116,47 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    # DeepSeek-V2's published knobs (``DeepSeekConfig`` makes them fields),
+    # at the values that leave every other model as it is: no leading
+    # dense layers, one routing group, renormalised unscaled gates, GShard
+    # capacity, plain RoPE
+    first_k_dense_replace = 0
+    n_group = 1
+    topk_group = 1
+    routed_scaling_factor = 1.0
+    norm_topk_prob = True
+    moe_dropless = False
+    rope_scaling = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepSeekConfig(ModelConfig):
+    """A :class:`ModelConfig` with DeepSeek-V2's published routing, layer
+    pattern and YaRN keys as fields, named as in its ``config.json``.  The
+    reference's ``ModelConfig`` has none of them; on a plain
+    ``ModelConfig`` they read the class defaults above.
+
+    * ``first_k_dense_replace``: the leading layers whose FFN is the dense
+      SwiGLU of width ``d_ff``; the rest are MoE of width ``moe_d_ff``.
+    * ``n_group``/``topk_group``: group-limited greedy routing, the experts
+      in ``n_group`` equal groups, a token's top-k taken among the experts
+      of its ``topk_group`` best groups (a group scores its best expert).
+    * ``routed_scaling_factor``, ``norm_topk_prob``: the gates are the
+      chosen probabilities times the factor, renormalised or not.
+    * ``moe_dropless``: every routed slot is computed (no capacity).
+    * ``rope_scaling``: the ``config.json`` block as sorted (key, value)
+      pairs; ``type`` ``"yarn"`` selects YaRN frequencies and the softmax
+      scale's ``mscale``.
+    """
+
+    first_k_dense_replace: int = 0
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scaling_factor: float = 1.0
+    norm_topk_prob: bool = True
+    moe_dropless: bool = False
+    rope_scaling: Tuple[Tuple[str, object], ...] = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,13 +262,15 @@ def param_count(cfg: ModelConfig) -> int:
         n_shared = 1  # zamba: weights shared across applications
         return embed + L * per_ssm + n_shared * shared_attn
     per_layer = _dense_layer_params(cfg)
+    k = cfg.first_k_dense_replace if cfg.n_experts else 0
+    dense = k * (per_layer + _ffn_params(cfg, cfg.d_ff))
     if cfg.n_experts:
         per_layer += cfg.n_experts * _ffn_params(cfg, cfg.moe_d_ff)
         per_layer += cfg.n_shared_experts * _ffn_params(cfg, cfg.moe_d_ff)
         per_layer += cfg.d_model * cfg.n_experts  # router
     else:
         per_layer += _ffn_params(cfg, cfg.d_ff)
-    total = embed + L * per_layer
+    total = embed + dense + (L - k) * per_layer
     if cfg.n_encoder_layers:
         total += cfg.n_encoder_layers * (_dense_layer_params(cfg) + _ffn_params(cfg, cfg.d_ff))
     return total
@@ -239,9 +283,11 @@ def active_params(cfg: ModelConfig) -> int:
     d, L = cfg.d_model, cfg.n_layers
     embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
     per_layer = _dense_layer_params(cfg)
+    k = cfg.first_k_dense_replace
+    dense = k * (per_layer + _ffn_params(cfg, cfg.d_ff))
     per_layer += (cfg.top_k + cfg.n_shared_experts) * _ffn_params(cfg, cfg.moe_d_ff)
     per_layer += cfg.d_model * cfg.n_experts
-    return embed + L * per_layer
+    return embed + dense + (L - k) * per_layer
 
 
 def n_heads_ssm(cfg: ModelConfig) -> int:

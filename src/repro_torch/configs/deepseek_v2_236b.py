@@ -1,8 +1,22 @@
-"""deepseek-v2-236b [moe] — arXiv:2405.04434 (hf-verified).
+"""deepseek-v2-236b [moe] — the reference's simplification of DeepSeek-V2
+(arXiv:2405.04434), kept field for field equal to the JAX package's preset
+so that the port-vs-reference tests hold it.
 
 60L, d_model=5120, 128 heads with MLA (kv_lora=512, rope_dim=64,
 nope_dim=128, v_head=128), per-expert d_ff=1536, 160 routed experts top-6 +
-2 shared, vocab 102400.  236B total / ~21B active parameters.
+2 shared, vocab 102400.  It departs from the published model:
+
+* every layer is MoE (``d_ff`` 1536): no dense layer 0 of width 12288;
+* gates are a renormalised softmax top-k with no group limit (the
+  published routing is group-limited greedy, 8 groups, best 3, gates
+  ``16·p`` unrenormalised);
+* experts have GShard capacity (``moe_capacity_factor`` 1.25) and drop the
+  tokens over it (the published MoE is dropless);
+* RoPE is plain and the softmax scale ``1/√192`` (published: YaRN, factor
+  40, and ``mscale²/√192``).
+
+``configs/deepseek_v2.py`` (``get_config("deepseek-v2")``) is the
+published model.
 """
 
 from .base import ModelConfig

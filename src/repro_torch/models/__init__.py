@@ -4,8 +4,9 @@ Mamba-2 layers and a shared attention block, and the Whisper
 encoder–decoder (their quantized projections run the hand-written W8A8
 kernel), and RWKV-6 (its prefill runs the hand-written WKV kernel)."""
 
-from . import api, encdec, flash, layers, mla, rwkv6, ssm, transformer
+from . import (api, encdec, flash, layers, mla, rwkv6, ssm, taps,
+               transformer)
 from .api import Model, build_model, params_from_numpy
 
 __all__ = ["api", "encdec", "flash", "layers", "mla", "rwkv6", "ssm",
-           "transformer", "Model", "build_model", "params_from_numpy"]
+           "taps", "transformer", "Model", "build_model", "params_from_numpy"]

@@ -27,6 +27,7 @@ init across with ``models.api.params_from_numpy``.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -44,7 +45,8 @@ from ..distributed.constrain import (is_dtensor, constrain, constrain_batch,
                                      current_mesh, gather_data, local_lookup,
                                      local_rows, mesh_axis_size, tp_matmul)
 
-__all__ = ["init_linear", "linear", "init_norm", "norm", "rope", "act_fn",
+__all__ = ["init_linear", "linear", "init_norm", "norm", "rope",
+           "rope_inv_freq", "yarn_mscale", "act_fn", "moe_stats",
            "softmax_fn", "init_mlp", "mlp", "init_attention", "attention",
            "maybe_quantize_kv", "dequantize_kv", "init_kv_cache",
            "taylor_linear_attention", "init_taylor_linear_cache",
@@ -255,28 +257,89 @@ def norm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def rope(x: torch.Tensor, pos: torch.Tensor, theta: float,
-         fraction: float = 1.0) -> torch.Tensor:
+         fraction: float = 1.0,
+         inv_freq: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rotary embedding on the leading ``fraction`` of each head's dims.
 
     x: (B, S, H, Dh); pos: (B, S) absolute positions.  The frequencies and
     angles are float32; the rotation acts on the two halves of the rotated
     dims (not on interleaved pairs).  ``fraction=0.5`` is chatglm3's
-    2D-RoPE (half the dims stay unrotated)."""
+    2D-RoPE (half the dims stay unrotated).  ``inv_freq`` (float32, one
+    per rotated pair) replaces ``theta``'s frequencies (YaRN:
+    :func:`rope_inv_freq`)."""
     d = x.shape[-1]
     d_rot = int(d * fraction)
     d_rot -= d_rot % 2
     xr, xp = x[..., :d_rot], x[..., d_rot:]
     half = d_rot // 2
     f32 = torch.float32
-    expo = true_divide(-torch.arange(0, half, dtype=f32, device=x.device),
-                       half)
-    freqs = torch.pow(torch.full((), theta, dtype=f32, device=x.device), expo)
+    if inv_freq is not None:
+        freqs = inv_freq
+    else:
+        expo = true_divide(-torch.arange(0, half, dtype=f32,
+                                         device=x.device), half)
+        freqs = torch.pow(torch.full((), theta, dtype=f32, device=x.device),
+                          expo)
     ang = pos[:, :, None, None].to(f32) * freqs[None, None, None, :]
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = xr[..., :half], xr[..., half:]
     rotated = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                         dim=-1).to(x.dtype)
     return torch.cat([rotated, xp], dim=-1) if d_rot < d else rotated
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature: ``0.1·mscale·ln(factor) + 1`` (1 for
+    ``factor`` ≤ 1)."""
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+def rope_inv_freq(cfg: ModelConfig, dim: int, device
+                  ) -> Optional[torch.Tensor]:
+    """The rotary frequencies of ``cfg.rope_scaling`` for ``dim`` rotated
+    dims (float32 on ``device``), or None for plain RoPE.
+
+    YaRN (DeepSeek-V2's ``DeepseekV2YarnRotaryEmbedding``): for pair ``j``,
+    ``extra = θ^(−2j/dim)``, ``inter = extra / factor``, and a ramp from
+    the correction dims of ``beta_fast`` (floor) to ``beta_slow`` (ceil),
+    ``dim·ln(L₀/(2π·β)) / (2·ln θ)`` over the original ``L₀`` positions:
+    ``inv_freq = inter·ramp + extra·(1 − ramp)``.  Cos and sin keep unit
+    scale (``mscale / mscale_all_dim`` is 1 for DeepSeek-V2; any other
+    ratio is refused)."""
+    if not cfg.rope_scaling:
+        return None
+    return _yarn_inv_freq(cfg.rope_scaling, cfg.rope_theta, dim,
+                          str(device)).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _yarn_inv_freq(scaling: tuple, theta: float, dim: int, device: str
+                   ) -> torch.Tensor:
+    sc = dict(scaling)
+    if sc.get("type") != "yarn":
+        raise ValueError(f"rope_scaling type {sc.get('type')!r}: only "
+                         "'yarn' is implemented")
+    factor = float(sc["factor"])
+    if yarn_mscale(factor, sc["mscale"]) != yarn_mscale(
+            factor, sc["mscale_all_dim"]):
+        raise ValueError("YaRN with mscale != mscale_all_dim scales cos "
+                         "and sin; not implemented")
+    l0 = sc["original_max_position_embeddings"]
+
+    def corr(rot):
+        return dim * math.log(l0 / (rot * 2 * math.pi)) / (
+            2 * math.log(theta))
+
+    lo = max(math.floor(corr(sc["beta_fast"])), 0)
+    hi = min(math.ceil(corr(sc["beta_slow"])), dim - 1)
+    if lo == hi:
+        hi += 0.001
+    j = torch.arange(dim // 2, dtype=torch.float64)
+    extra = theta ** (-2.0 * j / dim)
+    inter = extra / factor
+    ramp = ((j - lo) / (hi - lo)).clamp(0, 1)
+    inv = inter * ramp + extra * (1 - ramp)
+    return inv.to(torch.float32).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -750,20 +813,142 @@ def _ep_dispatch(fn, dispatch, xg):
                      redistribute_inputs=True)(dispatch, xg)
 
 
+class MoEStats:
+    """Counters of the MoE layers since the last :meth:`reset`: tokens,
+    routed slots (tokens × top-k) and layer calls, host integers from the
+    shapes (no device read).  The dropless path drops no slot by
+    construction: every one of its T·k slots is a row of the expert
+    GEMMs."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.tokens = self.slots = self.layer_calls = 0
+
+    def count(self, tokens: int, k: int) -> None:
+        self.tokens += tokens
+        self.slots += tokens * k
+        self.layer_calls += 1
+
+
+#: the MoE layers' counters (``moe_stats.reset()`` to start a count)
+moe_stats = MoEStats()
+
+
+def _route(probs: torch.Tensor, cfg: ModelConfig
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gates and expert ids (…, k) of the router's probabilities
+    (…, E).  With ``cfg.n_group > 1``, group-limited greedy: group ``g``
+    holds experts ``g·E/G … (g+1)·E/G − 1`` and scores its best expert;
+    the top ``topk_group`` groups are kept and the top k taken among their
+    experts (the others masked to 0).  Ties go to the lower index, groups
+    and experts alike.  Gates renormalised with ``norm_topk_prob``, else
+    times ``routed_scaling_factor`` (as DeepSeek-V2's code applies it)."""
+    k = cfg.top_k
+    if cfg.n_group > 1:
+        e = probs.shape[-1]
+        grouped = probs.reshape(*probs.shape[:-1], cfg.n_group,
+                                e // cfg.n_group)
+        _, best = _top_k(grouped.amax(-1), cfg.topk_group)
+        keep = torch.zeros(grouped.shape[:-1], dtype=torch.bool,
+                           device=probs.device).scatter_(-1, best, True)
+        probs = grouped.masked_fill(~keep[..., None], 0.0).reshape(
+            probs.shape)
+    gates, idx = _top_k(probs, k)
+    if cfg.norm_topk_prob:
+        return gates / torch.clamp_min(gates.sum(-1, keepdim=True),
+                                       1e-9), idx
+    return gates * cfg.routed_scaling_factor, idx
+
+
+def _grouped_mm(xs: torch.Tensor, w: torch.Tensor, offs: torch.Tensor,
+                counts: Optional[List[int]] = None) -> torch.Tensor:
+    """``xs`` (R, K), rows grouped by expert (``offs``: the int32 ends of
+    each expert's rows), times that expert's ``w[e]`` (E, K, N) → (R, N).
+    ``torch._grouped_mm`` (one launch, no host read of ``offs``);
+    ``counts`` (each expert's rows, on the host) runs a loop of matmuls
+    instead, for dtypes the grouped kernel does not take."""
+    if counts is None:
+        return torch._grouped_mm(xs, w, offs=offs)
+    return torch.cat([a @ w[i] for i, a in enumerate(xs.split(counts))
+                      if a.shape[0]] or [xs.new_zeros((0, w.shape[-1]))])
+
+
+def _moe_dropless(p: Params, x: torch.Tensor, cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dropless token-choice MoE: every routed slot is computed.
+
+    The T·k slots are sorted by expert (stable, so each expert's rows stay
+    in token order), each expert's GEMMs run over only the rows it
+    received (:func:`_grouped_mm`), and the rows go back to token order
+    by the inverse permutation, a gather; each token's k rows are summed
+    with their gates in float32 in slot order.  No atomics: a call
+    repeats bit for bit.  Profiler ranges ``moe.route``,
+    ``moe.dispatch``, ``moe.experts``, ``moe.combine`` and ``moe.shared``
+    mark the stages."""
+    from torch.profiler import record_function
+
+    if current_mesh() is not None:
+        raise ValueError("moe_ffn: the dropless dispatch runs on one "
+                         "device; it has no sharded form")
+    t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    dt = x.dtype
+    f32 = torch.float32
+    moe_stats.count(t, k)
+    with record_function("moe.route"):
+        logits = x.to(f32) @ p["router"]["w"].to(f32)
+        probs = softmax_fn(logits, cfg, axis=-1)
+        gates, idx = _route(probs, cfg)  # (T,k)
+        density = _one_hot(idx[:, 0], e, f32).mean(0)
+        aux = e * torch.sum(density * probs.mean(0))
+    with record_function("moe.dispatch"):
+        flat = idx.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        counts = torch.bincount(flat, minlength=e)
+        offs = torch.cumsum(counts, 0).to(torch.int32)
+        xs = x[order // k]  # (T·k, D), grouped by expert
+    host = None
+    if dt != torch.bfloat16 and x.is_cuda:
+        host = counts.tolist()  # the grouped kernel takes bf16 only
+    with record_function("moe.experts"):
+        h = act_fn(_grouped_mm(xs, p["w_gate"].to(dt), offs, host), cfg,
+                   "silu") * _grouped_mm(xs, p["w_up"].to(dt), offs, host)
+        ys = _grouped_mm(h, p["w_down"].to(dt), offs, host)
+    with record_function("moe.combine"):
+        inv = torch.empty_like(order).scatter_(
+            0, order, torch.arange(order.numel(), device=x.device))
+        y = ys[inv].view(t, k, d)
+        out = y[:, 0].to(f32) * gates[:, :1]
+        for j in range(1, k):
+            out = out + y[:, j].to(f32) * gates[:, j:j + 1]
+        out = out.to(dt)
+    if "shared" in p:
+        with record_function("moe.shared"):
+            out = out + mlp(p["shared"], x, cfg)
+    return out, aux
+
+
 def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token-choice top-k MoE with grouped dense dispatch (the GShard
-    formulation: every step is a batched GEMM).
+    formulation: every step is a batched GEMM), or with
+    ``cfg.moe_dropless`` the sorted dispatch of :func:`_moe_dropless`.
 
     x: (T, D) flattened tokens → (out, aux_loss).  Tokens go in groups of
     ≤512 (right-padded) with per-group expert capacity
     C = min(S, max(4, ⌈S·k·cf/E⌉)); overflow tokens are dropped (the
     residual path carries them).  The combine weights accumulate slot by
     slot in ``x``'s dtype and a token is dispatched where its weight is
-    > 0.  The router's softmax obeys the Taylor mode (C2)."""
+    > 0.  The router's softmax obeys the Taylor mode (C2); the gates come
+    from :func:`_route`."""
     _refuse_quantized_moe(p)
+    if cfg.moe_dropless:
+        return _moe_dropless(p, x, cfg)
     t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
+    moe_stats.count(t, k)
     sg = min(_MOE_GROUP, t)
     pad = (-t) % sg
     if pad:
@@ -785,8 +970,7 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
     logits = torch.einsum("gsd,de->gse", xg.to(f32),
                           gather_data(p["router"]["w"]).to(f32))
     probs = softmax_fn(logits, cfg, axis=-1)
-    gates, idx = _top_k(probs, k)  # (G,S,k)
-    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    gates, idx = _route(probs, cfg)  # (G,S,k)
 
     # load-balancing auxiliary loss (Switch-style), on slot 0's choice
     density = _one_hot(idx[..., 0], e, f32).mean((0, 1))

@@ -14,6 +14,12 @@ Two execution forms, as in the reference:
     into the output so attention runs in latent space.  The absorbed form
     reads ``wk_b``/``wv_b`` as float matrices; the reference has no integer
     form of it, so a quantized ``(codes, scale)`` pair there raises.
+
+With ``cfg.rope_scaling`` (YaRN, DeepSeek-V2 as published) the rotary
+parts take YaRN's frequencies and the softmax scale is
+``mscale²/√(dn + dr)`` (:func:`softmax_scale`).  Profiler ranges
+``mla.project`` (the projections, norms and rotary parts, and the output
+projection) and ``mla.attend`` (the attention itself) mark the stages.
 """
 
 from __future__ import annotations
@@ -22,14 +28,15 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from ..configs.base import ModelConfig
 from ..distributed.constrain import local_rows
 from .layers import (_NEG, Params, _cache_write, init_linear, init_norm,
                      split_heads,
-                     linear, norm, rope)
+                     linear, norm, rope, rope_inv_freq, yarn_mscale)
 
-__all__ = ["init_mla", "init_mla_cache", "mla_attention"]
+__all__ = ["init_mla", "init_mla_cache", "mla_attention", "softmax_scale"]
 
 
 def init_mla(generator: torch.Generator, cfg: ModelConfig, *, device="cpu",
@@ -75,7 +82,8 @@ def _queries(p: Params, x: torch.Tensor, cfg: ModelConfig,
         q = linear(p["wq"], x, cfg)
     q = split_heads(q, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    return q_nope, rope(q_rope, pos_arr, cfg.rope_theta)
+    return q_nope, rope(q_rope, pos_arr, cfg.rope_theta,
+                        inv_freq=rope_inv_freq(cfg, dr, x.device))
 
 
 def _latents(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -84,8 +92,21 @@ def _latents(p: Params, x: torch.Tensor, cfg: ModelConfig,
     kv = linear(p["wkv_a"], x, cfg)
     ckv, k_rope = kv[..., :lkv], kv[..., lkv:]
     ckv = norm(p["kv_norm"], ckv, cfg)
-    k_rope = rope(k_rope[:, :, None, :], pos_arr, cfg.rope_theta)[:, :, 0, :]
+    k_rope = rope(k_rope[:, :, None, :], pos_arr, cfg.rope_theta,
+                  inv_freq=rope_inv_freq(cfg, cfg.qk_rope_dim, x.device)
+                  )[:, :, 0, :]
     return ckv, k_rope
+
+
+def softmax_scale(cfg: ModelConfig) -> float:
+    """``1/√(dn + dr)``, times YaRN's ``mscale(factor, mscale_all_dim)²``
+    under ``cfg.rope_scaling``."""
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    if cfg.rope_scaling:
+        sc = dict(cfg.rope_scaling)
+        m = yarn_mscale(float(sc["factor"]), sc["mscale_all_dim"])
+        scale *= m * m
+    return scale
 
 
 def _float_matrix(p: Params, name: str, dtype) -> torch.Tensor:
@@ -99,6 +120,25 @@ def _float_matrix(p: Params, name: str, dtype) -> torch.Tensor:
     return w.to(dtype)
 
 
+def _expanded_attention(q, k, v, scale: float, dtype) -> torch.Tensor:
+    """Causal attention of the expanded form, q/k (B, S, H, dn + dr),
+    v (B, S, H, dv) → (B, S, H, dv): flash past 512 tokens."""
+    s = q.shape[1]
+    if s > 512:
+        from .flash import flash_attention
+        qs = q * torch.full((), scale, dtype=q.dtype, device=q.device)
+        return local_rows(
+            lambda q_, k_, v_: flash_attention(q_, k_, v_, True, 512),
+            [qs.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)],
+            [(0, 1)] * 3, [(0, 1)],
+            "flash attention: per (batch, head) rows").transpose(1, 2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
+    ar = torch.arange(s, device=q.device)
+    logits = logits.masked_fill(~(ar[:, None] >= ar[None, :]), _NEG)
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
 def mla_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                   pos: Optional[torch.Tensor] = None,
                   cache: Optional[Params] = None,
@@ -107,35 +147,23 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     h = cfg.n_heads
     dn, dr, dv, lkv = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
                        cfg.kv_lora_rank)
-    scale = 1.0 / math.sqrt(dn + dr)
+    scale = softmax_scale(cfg)
 
     if cache is None:
-        pos_arr = torch.arange(s, device=x.device)[None].expand(b, s)
-        q_nope, q_rope = _queries(p, x, cfg, pos_arr)
-        ckv, k_rope = _latents(p, x, cfg, pos_arr)
-        # expanded K/V
-        k_nope = split_heads(linear(p["wk_b"], ckv, cfg), h, dn)
-        v = split_heads(linear(p["wv_b"], ckv, cfg), h, dv)
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
-                      dim=-1)
-        q = torch.cat([q_nope, q_rope], dim=-1)
-        if s > 512:
-            from .flash import flash_attention
-            qs = q * torch.full((), scale, dtype=q.dtype, device=q.device)
-            out = local_rows(
-                lambda q_, k_, v_: flash_attention(q_, k_, v_, True, 512),
-                [qs.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)],
-                [(0, 1)] * 3, [(0, 1)],
-                "flash attention: per (batch, head) rows").transpose(1, 2)
-        else:
-            logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(
-                torch.float32) * scale
-            ar = torch.arange(s, device=x.device)
-            logits = logits.masked_fill(~(ar[:, None] >= ar[None, :]), _NEG)
-            probs = torch.softmax(logits, dim=-1).to(x.dtype)
-            out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        out = out.reshape(b, s, h * dv)
-        return linear(p["wo"], out, cfg), None
+        with record_function("mla.project"):
+            pos_arr = torch.arange(s, device=x.device)[None].expand(b, s)
+            q_nope, q_rope = _queries(p, x, cfg, pos_arr)
+            ckv, k_rope = _latents(p, x, cfg, pos_arr)
+            # expanded K/V
+            k_nope = split_heads(linear(p["wk_b"], ckv, cfg), h, dn)
+            v = split_heads(linear(p["wv_b"], ckv, cfg), h, dv)
+            k = torch.cat([k_nope,
+                           k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+            q = torch.cat([q_nope, q_rope], dim=-1)
+        with record_function("mla.attend"):
+            out = _expanded_attention(q, k, v, scale, x.dtype)
+        with record_function("mla.project"):
+            return linear(p["wo"], out.reshape(b, s, h * dv), cfg), None
 
     # ---- absorbed decode ----------------------------------------------------
     wk_b = _float_matrix(p, "wk_b", x.dtype).reshape(lkv, h, dn)

@@ -14,11 +14,15 @@ reference's vmapped init and scanned decode give them; otherwise they are
 lists with one tree per layer.  Both layouts are read as they are, so a
 tree converted leaf by leaf from the reference
 (``models.api.params_from_numpy``), or quantized by
-``core.quantize.quantize_tree``, runs unchanged.  The stacked layer axis
-is read once per pass (``layers.unstack_layers``).  Under ``cfg.remat``
-each layer, and each group of ``remat_group_size(cfg)`` layers, is
-recomputed in the backward (``layers.scan_layers``), as the reference's
-checkpointed, grouped scan; values do not change.  ``loss_fn`` returns the
+``core.quantize.quantize_tree``, runs unchanged.  An MoE model with
+leading dense layers (``cfg.first_k_dense_replace``, DeepSeek-V2) keeps
+them stacked apart, in ``params["dense_blocks"]``, before the MoE blocks
+of ``params["blocks"]`` (a per-layer list holds both kinds in order).
+The stacked layer axis is read once per pass
+(``layers.unstack_layers``).  Under ``cfg.remat`` each layer, and each
+group of ``remat_group_size(cfg)`` layers, is recomputed in the backward
+(``layers.scan_layers``), as the reference's checkpointed, grouped scan;
+values do not change.  ``loss_fn`` returns the
 reference's value and differentiates with autograd (flash attention
 through its hand-written backward).
 """
@@ -36,6 +40,7 @@ from ..core.losses import chunked_cross_entropy
 from ..distributed.constrain import constrain_batch, tp_matmul
 from . import layers as L
 from . import mla as MLA
+from . import taps
 from .layers import scan_layers, stack_layers, unstack_layers
 
 __all__ = ["init_block", "block_fwd", "init", "forward", "loss_fn",
@@ -50,14 +55,17 @@ Params = Dict[str, Any]
 
 
 def init_block(generator: torch.Generator, cfg: ModelConfig, *,
-               device="cpu", lead: tuple = ()) -> Params:
+               device="cpu", lead: tuple = (),
+               moe: Optional[bool] = None) -> Params:
+    """One block's parameters; its FFN is the MoE where ``moe`` (default:
+    the config has experts), else the dense MLP of width ``cfg.d_ff``."""
     kw = dict(device=device, lead=lead)
     p: Params = {"ln1": L.init_norm(cfg, **kw), "ln2": L.init_norm(cfg, **kw)}
     if cfg.mla:
         p["attn"] = MLA.init_mla(generator, cfg, **kw)
     else:
         p["attn"] = L.init_attention(generator, cfg, **kw)
-    if cfg.n_experts:
+    if bool(cfg.n_experts) if moe is None else moe:
         p["moe"] = L.init_moe(generator, cfg, **kw)
     else:
         p["mlp"] = L.init_mlp(generator, cfg, **kw)
@@ -68,7 +76,8 @@ def block_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               pos: Optional[torch.Tensor] = None,
               cache: Optional[Params] = None,
               ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
-    h = L.norm(p["ln1"], x, cfg)
+    x_in = x
+    h1 = h = L.norm(p["ln1"], x, cfg)
     if cfg.mla:
         attn_out, new_cache = MLA.mla_attention(p["attn"], h, cfg, pos=pos,
                                                 cache=cache)
@@ -77,14 +86,16 @@ def block_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                                           cache=cache)
     x = x + attn_out
     h = L.norm(p["ln2"], x, cfg)
-    if cfg.n_experts:
+    if "moe" in p:
         b, s, d = h.shape
         ffn_out, aux = L.moe_ffn(p["moe"], h.reshape(b * s, d), cfg)
         ffn_out = ffn_out.reshape(b, s, d)
     else:
         ffn_out = L.mlp(p["mlp"], h, cfg)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + ffn_out, new_cache, aux
+    y = x + ffn_out
+    taps.tap("block", x_in, h1, attn_out, h, ffn_out, y)
+    return y, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -104,11 +115,17 @@ def init(generator: torch.Generator, cfg: ModelConfig,
                              device=dev).mul_(0.02),
         "final_norm": L.init_norm(cfg, device=dev),
     }
+    k = _n_dense(cfg)
     if cfg.scan_layers:
-        p["blocks"] = init_block(g, cfg, device=dev, lead=(cfg.n_layers,))
+        if k:
+            p["dense_blocks"] = init_block(g, cfg, device=dev, lead=(k,),
+                                           moe=False)
+        p["blocks"] = init_block(g, cfg, device=dev,
+                                 lead=(cfg.n_layers - k,))
     else:
-        p["blocks"] = [init_block(g, cfg, device=dev)
-                       for _ in range(cfg.n_layers)]
+        p["blocks"] = [init_block(g, cfg, device=dev,
+                                  moe=None if i >= k else False)
+                       for i in range(cfg.n_layers)]
     if not cfg.tie_embeddings:
         p["head"] = torch.randn((cfg.d_model, cfg.vocab_size), generator=g,
                                 device=dev).mul_(1.0 / math.sqrt(cfg.d_model))
@@ -138,11 +155,27 @@ def _unembed(params: Params, x: torch.Tensor, cfg: ModelConfig
     return tp_matmul(x, _unembed_w(params, cfg))
 
 
-def _layers(blocks, cfg: ModelConfig):
-    """The per-layer parameter trees of either layout."""
+def _n_dense(cfg: ModelConfig) -> int:
+    """Leading dense layers of an MoE model."""
+    return cfg.first_k_dense_replace if cfg.n_experts else 0
+
+
+def _layers(blocks, cfg: ModelConfig, n: Optional[int] = None):
+    """The per-layer parameter trees of either layout (``n`` stacked
+    layers, default all)."""
     if cfg.scan_layers:
-        return unstack_layers(blocks, cfg.n_layers)
+        return unstack_layers(blocks, cfg.n_layers if n is None else n)
     return list(blocks)
+
+
+def _block_trees(params: Params, cfg: ModelConfig):
+    """Every block's parameter tree in layer order: the leading dense
+    blocks, then the rest."""
+    k = _n_dense(cfg)
+    if not (k and cfg.scan_layers):
+        return _layers(params["blocks"], cfg)
+    return (_layers(params["dense_blocks"], cfg, k)
+            + _layers(params["blocks"], cfg, cfg.n_layers - k))
 
 
 def _scan_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig
@@ -158,8 +191,7 @@ def _scan_blocks(params: Params, x: torch.Tensor, cfg: ModelConfig
 
     g = remat_group_size(cfg) if cfg.remat and cfg.scan_layers else 1
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return scan_layers(body, (x, aux), _layers(params["blocks"], cfg), cfg,
-                       g)
+    return scan_layers(body, (x, aux), _block_trees(params, cfg), cfg, g)
 
 
 def forward(params: Params, tokens, cfg: ModelConfig, *,
@@ -214,10 +246,13 @@ def prefill(params: Params, tokens, cfg: ModelConfig, *,
             patch_embeds=None) -> torch.Tensor:
     """Full-sequence forward returning LAST-position logits only: the
     hidden state is sliced before the unembed, so the (B,S,V) logits never
-    materialize."""
+    materialize.  Its intermediate values pass :mod:`.taps`."""
     x = _embed(params, tokens, cfg, patch_embeds)
+    taps.tap("embed", x)
     x, _ = _scan_blocks(params, x, cfg)
-    return _unembed(params, x[:, -1:], cfg)
+    logits = _unembed(params, x[:, -1:], cfg)
+    taps.tap("head", x[:, -1:], logits)
+    return logits
 
 
 def decode_step(params: Params, caches: Params, tokens, pos,
@@ -227,7 +262,7 @@ def decode_step(params: Params, caches: Params, tokens, pos,
     x = _embed(params, tokens, cfg)
     pos = torch.as_tensor(pos, device=x.device)
     new_caches = []
-    for bp, c in zip(_layers(params["blocks"], cfg), _layers(caches, cfg)):
+    for bp, c in zip(_block_trees(params, cfg), _layers(caches, cfg)):
         x, nc, _ = block_fwd(bp, constrain_batch(x), cfg, pos=pos, cache=c)
         new_caches.append(nc)
     if cfg.scan_layers:
