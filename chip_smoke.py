@@ -46,7 +46,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                shapes, the rwkv6-3b prefill geometry (B·H = 160, 32 chunks
                of 64, D = 64), C = 16 and C = 256, one row of one chunk and
                a ragged C and D, plus its state carry across chunks and an
-               empty input that must launch nothing.
+               empty input that must launch nothing; flash attention's
+               forward (bf16) at the two LM cells' shapes (qwen2-1.5b's
+               4 × 12/2 heads × 2048 × (128, 128), deepseek-v2's MLA
+               4 × 128 × 4096 × (192, 128)) against flash_attention's plain
+               path on the same grouped K/V: out within 2^-5, lse within
+               1e-5, no farther from float64 attention than the plain form
+               × 1.05, a second call bit-equal.
   4. serve   — PacketServer() at its defaults on the card serves seeded
                traces of ragged chunks with duplicates and unknown Model IDs;
                its egress must be byte-identical, in submission order, to
@@ -133,8 +139,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                port (forward and prefill logits).  Then the transformer
                families: qwen2-1.5b at full width and depth (28 layers,
                seeded float32 parameters, bf16 activations):
-               build_model(cfg).prefill on 4 × 2048 tokens (the flash
-               route, no kernel of the port's own), the attention of one
+               build_model(cfg).prefill on 4 × 2048 tokens (28
+               flash_attention launches, the kernel taking every call; no
+               other kernel of the port's own), the attention of one
                layer against F.scaled_dot_product_attention in turns,
                LMServer(batch=8, max_seq=256) generating 32 greedy tokens
                with a same-structure hot swap (trace_count flat), and the
@@ -173,9 +180,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                attention) and whisper at full depth (forward, prefill,
                decode after precompute_cross), 1e-3, decode against
                forward within the reference's 0.08 and 0.03.  Then LM
-               slice D, training (no kernel of the port's own on the
-               path: flash attention's backward and AdamW are PyTorch
-               ops): TrainLoop on qwen2-1.5b at full width and depth
+               slice D, training (flash attention's forward on its
+               kernel; its backward and AdamW are PyTorch ops):
+               TrainLoop on qwen2-1.5b at full width and depth
                (float32 parameters, bf16 activations, remat in groups of
                4) on 4 × 2048 tokens a step, 6 steps with float32 moments
                and 6 with int8 moments: every loss finite, step 1's equal
@@ -204,7 +211,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                projection shapes and at M = 1 and 17 on up and down, the
                kernel and the library call (torch._int_mm + the rescale)
                timed in turns on one card; the WKV scan at the prefill
-               geometry, its two device kernels split by the profiler; also each
+               geometry, its two device kernels split by the profiler;
+               flash attention's forward at both LM cells' shapes, the
+               kernel, the plain path and SDPA's fused backends timed in
+               turns against the causal FLOP over the bf16 peak; also each
                path's packets per second with its engine-call and kernel
                shares of the wall time (for the fabric runs also each
                kernel's launches per shard and a 1-shard PacketServer's
@@ -290,6 +300,7 @@ from repro_torch.configs.base import remat_group_size  # noqa: E402
 from repro_torch.core import tree as TREE  # noqa: E402
 from repro_torch.launch.train import TrainLoop  # noqa: E402
 from repro_torch.models import flash as FLASH  # noqa: E402
+from repro_torch.kernels import flash_attention as FLASH_KERNEL  # noqa: E402
 from repro_torch.optim import adamw as ADAMW  # noqa: E402
 from repro_torch.distributed.constrain import activation_mesh  # noqa: E402
 from repro_torch.distributed.sharding import (  # noqa: E402
@@ -351,9 +362,14 @@ KERNELS = {
         name="wkv_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/wkv_scan.cu",
         replaces="src/repro/kernels/wkv_scan.py:67"),
+    "flash_attention": dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/models/flash.py:58"),
 }
 SOURCES = ["fixedpoint_mlp", "forest_traversal", "flow_update",
-           "fixedpoint_matmul", "taylor_activation", "wkv_scan"]
+           "fixedpoint_matmul", "taylor_activation", "wkv_scan",
+           "flash_attention"]
 
 # one qwen2-1.5b decoder layer (src/repro/configs/qwen2_1_5b.py): d_model
 # 1536, q_dim 12·128, kv_dim 2·128, d_ff 8960; leaf names as
@@ -2652,7 +2668,7 @@ def wkv_numbers(dev, lm: dict, worst: float, card: str) -> dict:
 # qwen2-1.5b at its own width and depth (src/repro/configs/qwen2_1_5b.py: 28
 # layers, d_model 1536, 12 heads of 128, 2 KV heads, d_ff 8960, vocab
 # 151936, bf16 activations, float32 parameters); prefill on B sequences of
-# T seeded tokens, so attention takes the flash route (4 × 4 blocks of 512)
+# T seeded tokens, so attention takes the flash kernel (16 × 16 tiles of 128)
 TF_ARCH = "qwen2-1.5b"
 TF_BATCH, TF_SEQ = 4, 2048
 TF_PROJECTIONS = 7  # wq wk wv wo up gate down: W8A8 GEMMs per layer
@@ -2705,8 +2721,8 @@ def checked_gemms(record: dict):
 
 def attention_vs_sdpa(dev, cfg, card: str) -> dict:
     """One layer's attention at the prefill's shapes (B=4, T=2048, 12 query
-    and 2 KV heads of 128, bf16): the port's causal attention (the
-    KV repetition and the flash route) against
+    and 2 KV heads of 128, bf16): the port's causal attention (the flash
+    kernel on the grouped K/V) against
     ``F.scaled_dot_product_attention`` on the same operands, timed in
     turns.  SDPA is not on the path: its bf16 rounding is not the
     reference's."""
@@ -2732,7 +2748,7 @@ def attention_vs_sdpa(dev, cfg, card: str) -> dict:
     diff = rel_err(calls["sdpa"]().transpose(1, 2), calls["port"]())
     log(f"time attention per layer {TF_ARCH} B={TF_BATCH} T={TF_SEQ} "
         f"H={cfg.n_heads} H_kv={cfg.n_kv_heads} D={cfg.head_dim} bf16, in "
-        f"turns: the port (flash route, 512-blocks) {ms['port']:.4f} ms, "
+        f"turns: the port (flash kernel) {ms['port']:.4f} ms, "
         f"F.scaled_dot_product_attention {ms['sdpa']:.4f} ms "
         f"({ms['port'] / ms['sdpa']:.2f}x){'' if gqa else ' (KV repeated first)'}"
         f"; max |Δ| / max |port| {diff:.3e} (bf16 rounding differs) "
@@ -2740,11 +2756,169 @@ def attention_vs_sdpa(dev, cfg, card: str) -> dict:
     return dict(port_ms=ms["port"], sdpa_ms=ms["sdpa"])
 
 
+# flash attention's forward at the two LM prefill cells' shapes, bf16:
+# qwen2-1.5b (B=4, 12 query heads over 2 KV heads, S=2048, (Dqk, Dv) =
+# (128, 128)) and deepseek-v2's MLA (B=4, 128 heads, S=4096, (192, 128))
+FLASH_SHAPES = {"qwen2-1.5b": (4, 12, 2, 2048, 128, 128),
+                "deepseek-v2 MLA": (4, 128, 128, 4096, 192, 128)}
+# the card tests' limits (tests/test_torch_cuda.py): out within 2^-5 of the
+# plain form (4 bf16 units at 1), lse within 1e-5, and no farther from
+# float64 attention than the plain form x1.05
+FLASH_ATOL, FLASH_LSE_TOL, FLASH_VS_EXACT = 2.0 ** -5, 1e-5, 1.05
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+BF16_TENSOR_FLOPS = 989.4e12
+
+
+def flash_operands(dev, shape: tuple, seed: int) -> tuple:
+    """Seeded bf16 q (pre-scaled by 1/√Dqk), k and v as the model hands them
+    over: (B, S, H, D) tensors transposed to (B, H, S, D)."""
+    b, h, hkv, s, dqk, dv = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, s, h, dqk, generator=g, device=dev) / math.sqrt(dqk)
+    k = torch.randn(b, s, hkv, dqk, generator=g, device=dev)
+    v = torch.randn(b, s, hkv, dv, generator=g, device=dev)
+    return tuple(t.to(torch.bfloat16).transpose(1, 2) for t in (q, k, v))
+
+
+def flash_plain(q, k, v) -> tuple:
+    """``flash_attention``'s plain path: K/V repeated per query head, then
+    the 512-block forward; (out, lse)."""
+    n = q.shape[1] // k.shape[1]
+    return FLASH._flash_fwd(q, FLASH._repeat_heads(k, n),
+                            FLASH._repeat_heads(v, n), True, 512)
+
+
+def exact_rel_l2(q, k, v, outs, heads: int = 8) -> list:
+    """Relative L2 distance of each of ``outs`` from causal attention in
+    float64 on the same operands, ``heads`` query heads at a time."""
+    b, h, s, _ = q.shape
+    n = h // k.shape[1]
+    keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    num, den = [0.0] * len(outs), 0.0
+    for i in range(b):
+        for h0 in range(0, h, heads):
+            idx = torch.arange(h0, min(h0 + heads, h), device=q.device)
+            logits = q[i, idx].double() @ k[i, idx // n].double().mT
+            exact = torch.softmax(logits.masked_fill_(~keep, float("-inf")),
+                                  -1) @ v[i, idx // n].double()
+            del logits
+            den += float(exact.square().sum())
+            for j, out in enumerate(outs):
+                num[j] += float((out[i, idx].double() - exact).square().sum())
+    return [math.sqrt(x / den) for x in num]
+
+
+def check_flash_kernels(dev) -> float:
+    """Phase 3 for the flash kernel at the LM cells' shapes: the wrapper on
+    the grouped K/V against ``flash_attention``'s plain path, out within
+    ``FLASH_ATOL`` and lse within ``FLASH_LSE_TOL``, no farther from float64
+    attention than the plain form x ``FLASH_VS_EXACT``, a second call
+    bit-equal, one launch a call.  Returns the largest |Δ| of out."""
+    worst = 0.0
+    for i, (label, shape) in enumerate(FLASH_SHAPES.items()):
+        q, k, v = flash_operands(dev, shape, SEED + 70 + i)
+        FLASH_KERNEL.reset_launches()
+        out, lse = FLASH_KERNEL.flash_attention_fwd(q, k, v)
+        out2, lse2 = FLASH_KERNEL.flash_attention_fwd(q, k, v)
+        want, want_lse = flash_plain(q, k, v)
+        torch.cuda.synchronize()
+        launched = FLASH_KERNEL.launches["flash_attention"]
+        same = torch.equal(out, out2) and torch.equal(lse, lse2)
+        d_out = float((out.float() - want.float()).abs().max())
+        d_lse = float((lse - want_lse).abs().max())
+        e_kernel, e_plain = exact_rel_l2(q, k, v, (out, want))
+        log(f"kernel flash_attention {label} (B, H, H_kv, S, Dqk, Dv) = "
+            f"{shape} bf16: against the plain path max |Δ| out {d_out:.3e} "
+            f"(bound {FLASH_ATOL:.3e}), lse {d_lse:.3e} (bound "
+            f"{FLASH_LSE_TOL}); relative L2 to float64 kernel {e_kernel:.4e}, "
+            f"plain {e_plain:.4e} (bound x{FLASH_VS_EXACT}); second call "
+            f"{'bit-equal' if same else 'DIFFERS'}; launches {launched}")
+        if not (launched == 2 and same and d_out <= FLASH_ATOL
+                and d_lse <= FLASH_LSE_TOL
+                and e_kernel <= FLASH_VS_EXACT * e_plain):
+            raise SystemExit(f"flash_attention {label}: launches {launched}, "
+                             f"bit-equal {same}, |Δ| out {d_out} lse "
+                             f"{d_lse}, to float64 {e_kernel} vs plain "
+                             f"{e_plain}")
+        worst = max(worst, d_out)
+        del q, k, v, out, lse, out2, lse2, want, want_lse
+        free_card()
+    return worst
+
+
+def flash_numbers(dev, worst: float, launches: int, card: str) -> list:
+    """Phase 5 for the flash kernel at each LM cell's shape: the kernel,
+    ``flash_attention``'s plain path and F.scaled_dot_product_attention on
+    the grouped K/V (its fused backends only) timed in turns, and the bound:
+    S(S+1)/2 causal pairs a head at 2·(Dqk + Dv) FLOP each over the bf16
+    tensor-core peak.  One JSON entry per shape."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    fused = [getattr(SDPBackend, n) for n in (
+        "FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+        if hasattr(SDPBackend, n)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library(q, k, v):
+        with sdpa_kernel(fused):
+            return sdpa(q, k, v, is_causal=True, scale=1.0,
+                        enable_gqa=k.shape[1] != q.shape[1])
+
+    entries = []
+    for i, (label, shape) in enumerate(FLASH_SHAPES.items()):
+        b, h, hkv, s, dqk, dv = shape
+        q, k, v = flash_operands(dev, shape, SEED + 70 + i)
+        calls = {"kernel": functools.partial(
+                     FLASH_KERNEL.flash_attention_fwd, q, k, v),
+                 "plain": functools.partial(flash_plain, q, k, v),
+                 "sdpa": functools.partial(library, q, k, v)}
+        try:
+            calls["sdpa"]()
+        except (RuntimeError, TypeError) as e:  # no fused backend takes it
+            log(f"time flash_attention {label}: SDPA left out ({e})")
+            del calls["sdpa"]
+        ms = in_turns(calls, functools.partial(cuda_ms, reps=5, inner=3))
+        ops = b * h * s * (s + 1) * (dqk + dv)
+        n_bytes = nbytes(q, k, v) + b * h * s * (2 * dv + 4)
+        b_ms, b_by = bound_ms(n_bytes, ops, BF16_TENSOR_FLOPS)
+        lib_ms = ms.get("sdpa")
+        log(f"time flash_attention {label} (B, H, H_kv, S, Dqk, Dv) = "
+            f"{shape} bf16, in turns: kernel {ms['kernel']:.4f} ms per call "
+            f"({ops / (ms['kernel'] * 1e9):.1f} TFLOP/s, "
+            f"{b_ms / ms['kernel']:.4f} of the bound), plain "
+            f"{ms['plain']:.4f} ms, SDPA "
+            f"{'not run' if lib_ms is None else f'{lib_ms:.4f} ms'}; bound "
+            f"{b_ms:.6f} ms ({b_by}; {ops / 1e12:.3f} TFLOP) [{card}]")
+        entries.append(dict(KERNELS["flash_attention"], shape=label,
+                            launches=launches, max_abs_err=worst,
+                            ms=ms["kernel"], plain_ms=ms["plain"],
+                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+        del q, k, v, calls
+        free_card()
+    return entries
+
+
+def check_flash_calls(label: str, want: int) -> int:
+    """After a run that began with ``FLASH_KERNEL.reset_launches()`` and
+    ``FLASH.flash_stats.reset()``: every ``flash_attention`` call took the
+    kernel, ``want`` calls and launches.  Returns the launches."""
+    got = (FLASH_KERNEL.launches["flash_attention"], FLASH.flash_stats.kernel,
+           FLASH.flash_stats.plain)
+    if got != (want, want, 0):
+        raise SystemExit(f"{label}: flash kernel launches, kernel calls and "
+                         f"plain calls {got}, expected ({want}, {want}, 0)")
+    return want
+
+
+def reset_flash_calls() -> None:
+    FLASH_KERNEL.reset_launches()
+    FLASH.flash_stats.reset()
+
+
 def run_qwen2_full(dev, card: str) -> dict:
-    """qwen2-1.5b at full width and depth: the float prefill (no kernel of
-    the port's own; attention on the flash route), the attention against
-    SDPA, ``LMServer`` with a same-structure hot swap, and the quantized
-    prefill with every projection on the W8A8 kernel."""
+    """qwen2-1.5b at full width and depth: the float prefill (flash
+    attention's forward on its kernel, no other kernel of the port's own),
+    the attention against SDPA, ``LMServer`` with a same-structure hot swap,
+    and the quantized prefill with every projection on the W8A8 kernel."""
     cfg = get_config(TF_ARCH)
     params, g = transformer_params(cfg, SEED + 31, dev)
     tokens = torch.randint(0, cfg.vocab_size, (TF_BATCH, TF_SEQ),
@@ -2754,12 +2928,16 @@ def run_qwen2_full(dev, card: str) -> dict:
 
     torch.cuda.synchronize()
     reset_launches()
+    reset_flash_calls()
     logits = model.prefill(params, tokens=tokens)
     torch.cuda.synchronize()
     launches = {k: v for k, v in read_launches().items() if v}
     if launches:
         raise SystemExit(f"{TF_ARCH} float prefill launched {launches}: "
-                         "expected no kernel of the port's own")
+                         "expected no kernel of the port's own but flash "
+                         "attention's")
+    flash_launches = check_flash_calls(f"{TF_ARCH} float prefill",
+                                       cfg.n_layers)
     check_logits(f"{TF_ARCH} prefill", logits,
                  (TF_BATCH, 1, cfg.vocab_size))
     t0 = time.perf_counter()
@@ -2768,7 +2946,8 @@ def run_qwen2_full(dev, card: str) -> dict:
     prefill_s = time.perf_counter() - t0
     log(f"path transformer prefill {TF_ARCH} ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {n_params / 1e9:.3f}e9 float32 parameters, bf16 "
-        f"activations) on B={TF_BATCH} T={TF_SEQ}: last-position logits "
+        f"activations) on B={TF_BATCH} T={TF_SEQ}: flash_attention "
+        f"launches {flash_launches}, every call; last-position logits "
         f"{tuple(logits.shape)}, finite; {prefill_s:.4f} s, "
         f"{TF_BATCH * TF_SEQ / prefill_s:.0f} tokens/s (warm, host wall "
         f"with the card synchronised) [{card}]")
@@ -2803,10 +2982,13 @@ def run_qwen2_full(dev, card: str) -> dict:
     record = {}
     torch.cuda.synchronize()
     reset_launches()
+    reset_flash_calls()
     with checked_gemms(record):
         lq = model.prefill(q, tokens=tokens)
     torch.cuda.synchronize()
     q_launches = {k: v for k, v in read_launches().items() if v}
+    flash_launches += check_flash_calls(f"quantized {TF_ARCH} prefill",
+                                        cfg.n_layers)
     want = TF_PROJECTIONS * cfg.n_layers
     if q_launches != {"fixedpoint_matmul": want}:
         raise SystemExit(f"quantized {TF_ARCH} prefill launches {q_launches}, "
@@ -2824,7 +3006,8 @@ def run_qwen2_full(dev, card: str) -> dict:
     log(f"kernel fixedpoint_matmul {TF_ARCH} quantized prefill at full depth "
         f"({cfg.n_layers} layers, B={TF_BATCH} T={TF_SEQ}), the path's own "
         f"operands (K-major slices of the stacked codes): launches "
-        f"{q_launches}, GEMM layout copies 0; all {record['calls']} calls "
+        f"{q_launches} and flash_attention {cfg.n_layers}, GEMM layout "
+        f"copies 0; all {record['calls']} calls "
         f"equal to the plain version at (M, K, N) {record['shapes']} "
         f"(max_abs_err {record['err']})")
     t0 = time.perf_counter()
@@ -2848,6 +3031,7 @@ def run_qwen2_full(dev, card: str) -> dict:
     del params, p2, logits
     free_card()
     return dict(launches=q_launches, gemm_err=record["err"],
+                flash_launches=flash_launches,
                 prefill_tokens_per_s=TF_BATCH * TF_SEQ / prefill_s,
                 quantized_prefill_tokens_per_s=TF_BATCH * TF_SEQ / q_prefill_s,
                 decode_tokens_per_s=decode_tps, **attn)
@@ -3635,6 +3819,8 @@ def train_mode(dev, cfg, label: str, card: str) -> dict:
 
     with event_ranges(loop, "_step", steps), \
             event_ranges(FLASH, "_flash_fwd", flash, tag=at("forward")), \
+            event_ranges(FLASH_KERNEL, "flash_attention_fwd", flash,
+                         tag=at("forward")), \
             event_ranges(FLASH, "_flash_bwd", flash, tag=at("backward")), \
             event_ranges(ADAMW, "apply_updates", adam, tag=at("adamw")):
         t0 = time.perf_counter()
@@ -4162,6 +4348,9 @@ def main() -> int:
     t0 = time.perf_counter()
     worst["wkv_scan"] = check_wkv_kernels(dev)
     log(f"WKV kernel checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    worst["flash_attention"] = check_flash_kernels(dev)
+    log(f"flash attention kernel checks: {time.perf_counter() - t0:.1f} s")
 
     # -- 4. the serving path --------------------------------------------------
     mixed = dict(forests=forests, drifted=drifted)
@@ -4307,6 +4496,8 @@ def main() -> int:
         f"{lm['launches']['wkv_scan']}, sharded rwkv6 prefill "
         f"{dist['prefill']['wkv_launches']}")
     kernels.append(wkv)
+    kernels.extend(flash_numbers(dev, worst["flash_attention"],
+                                 tf["qwen"]["flash_launches"], smi))
     for label, p in path.items():
         kernel_s = sum(n * k_ms[k] * 1e-3 for k, n in p["launches"].items())
         log(f"path {label}: {p['packets_per_s']:.0f} packets/s, engine call "

@@ -13,6 +13,9 @@
     (``csrc/taylor_activation.cu``)
   * ``wkv_scan``          — RWKV-6's chunked WKV recurrence in float32
     (``csrc/wkv_scan.cu``), the LM prefill's one kernel
+  * ``flash_attention``   — flash attention's causal forward on wgmma and
+    TMA (``csrc/flash_attention.cu``), grouped K/V read by index;
+    ``models/flash.py`` takes it where its input allows
   * ``result_cache``     — the ingress result cache's probe sweeps as one
     host call per chunk (``csrc/result_cache.cpp``, built with the host
     C++ compiler)

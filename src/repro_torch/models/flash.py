@@ -25,6 +25,19 @@ reference's, in the same arithmetic.
 Under the dry run's folding cost counter (``distributed.cost``) each loop
 runs one block, its counts multiplied by the number of blocks (the causal
 pairs by their mean per row, (n + 1) / 2).
+
+K and V may have fewer heads than q (grouped-query attention): query head
+``h`` reads KV head ``h // (H / H_kv)``.  On the card, for causal bf16 or
+fp16 calls at the head dims it is built for, the forward is one
+hand-written kernel (``kernels/flash_attention.py``, wgmma and TMA, its
+own 128-key tiles whatever ``chunk``) that reads the grouped K/V by index
+and returns the same pair (out, lse), taking q, k and v as they lie (an
+operand TMA cannot read makes it raise; nothing is copied); the backward
+stays the plain one
+above, on K/V repeated per query head, with each group's gradients
+summed.  Everywhere else (the CPU, float32, non-causal, other head dims,
+under a dispatch mode such as the cost counter) the plain forward runs on
+K/V repeated per query head.  ``flash_stats`` counts the calls by path.
 """
 
 from __future__ import annotations
@@ -33,10 +46,13 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from ..distributed import cost
+from ..kernels import flash_attention as fa
+from .layers import _repeat_kv
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "flash_stats", "FlashStats"]
 
 _NEG = torch.finfo(torch.float32).min
 
@@ -53,17 +69,68 @@ def _mask(qi: int, kj: int, chunk: int, causal: bool, s_true: int,
     return valid.expand(chunk, chunk)
 
 
+class FlashStats:
+    """Calls of :func:`flash_attention` since the last :meth:`reset`, by
+    path: ``kernel`` (the hand-written forward) and ``plain``.  Host
+    integers (no device read)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.kernel = self.plain = 0
+
+
+#: the calls of :func:`flash_attention` by path (``flash_stats.reset()``)
+flash_stats = FlashStats()
+
+
+def _repeat_heads(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, H_kv, S, D) → (B, H_kv·n_rep, S, D): ``layers._repeat_kv`` on
+    the (B, S, H_kv, D) layout the callers transposed from."""
+    return _repeat_kv(x.transpose(1, 2), n_rep).transpose(1, 2)
+
+
+def _mode_active() -> bool:
+    """Whether a ``TorchDispatchMode`` (the dry run's cost counter, fake
+    tensors) sees the ops: it must see the plain form's."""
+    return _get_current_dispatch_mode() is not None
+
+
+def _kernel_path(q, k, v, causal: bool) -> bool:
+    return fa.kernel_applies(q.device.type, q.dtype, q.shape, k.shape,
+                             v.shape, causal, _mode_active()) \
+        and k.dtype == v.dtype == q.dtype \
+        and k.device == v.device == q.device
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, chunk: int = 512) -> torch.Tensor:
-    """q,k,v: (B,H,S,D[v]) — q pre-scaled by 1/√d. Returns (B,H,S,Dv);
-    differentiable in q, k and v through the hand-written backward."""
-    return _FlashAttention.apply(q, k, v, causal, chunk)
+    """q (B,H,S,D), k (B,H_kv,S,D), v (B,H_kv,S,Dv) with H % H_kv == 0 —
+    q pre-scaled by 1/√d; query head h reads KV head h // (H / H_kv).
+    Returns (B,H,S,Dv); differentiable in q, k and v through the
+    hand-written backward."""
+    h, hkv = q.shape[1], k.shape[1]
+    if hkv == 0 or h % hkv or v.shape[1] != hkv:
+        raise ValueError(f"{h} query heads do not group over K/V heads "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if _kernel_path(q, k, v, causal):
+        flash_stats.kernel += 1
+        return _FlashAttention.apply(q, k, v, causal, chunk, True)
+    flash_stats.plain += 1
+    n_rep = h // hkv
+    return _FlashAttention.apply(q, _repeat_heads(k, n_rep),
+                                 _repeat_heads(v, n_rep), causal, chunk,
+                                 False)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, chunk: int):
-        out, lse = _flash_fwd(q, k, v, causal, chunk)
+    def forward(ctx, q, k, v, causal: bool, chunk: int, kernel: bool):
+        if kernel:
+            out, lse = fa.flash_attention_fwd(q, k, v)
+        else:
+            out, lse = _flash_fwd(q, k, v, causal, chunk)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.chunk = causal, chunk
         return out
@@ -71,9 +138,15 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, ctx.causal,
-                                ctx.chunk)
-        return dq, dk, dv, None, None
+        hkv = k.shape[1]
+        n_rep = q.shape[1] // hkv
+        dq, dk, dv = _flash_bwd(q, _repeat_heads(k, n_rep),
+                                _repeat_heads(v, n_rep), out, lse, dout,
+                                ctx.causal, ctx.chunk)
+        if n_rep > 1:  # each KV head's gradient: the sum over its group
+            dk = dk.unflatten(1, (hkv, n_rep)).sum(2)
+            dv = dv.unflatten(1, (hkv, n_rep)).sum(2)
+        return dq, dk, dv, None, None, None
 
 
 def _flash_fwd(q, k, v, causal: bool, chunk: int

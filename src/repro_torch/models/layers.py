@@ -473,12 +473,11 @@ def _sdpa_causal_chunked(q, k, v, cfg: ModelConfig,
                          chunk: int = _ATTN_CHUNK) -> torch.Tensor:
     """Flash attention (online softmax, ``models/flash.py``): the peak
     attention temporary is one (B, H, chunk, chunk) tile.  ``q`` is scaled
-    by 1/√d rounded to its dtype."""
+    by 1/√d rounded to its dtype; the grouped K/V heads go in as they are
+    (``flash_attention`` reads them by index)."""
     from .flash import flash_attention
 
     def attend(q, k, v):
-        n_rep = q.shape[2] // k.shape[2]
-        k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
         scale = torch.full((), 1.0 / math.sqrt(q.shape[-1]), dtype=q.dtype,
                            device=q.device)
         out = flash_attention((q * scale).transpose(1, 2), k.transpose(1, 2),

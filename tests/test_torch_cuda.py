@@ -22,6 +22,7 @@ from repro_torch.forest import train_forest
 from repro_torch.forest.synthetic import (random_forest_tables,
                                           rejected_tables, stack_ranges)
 from repro_torch.kernels import fixedpoint_mlp as fmlp
+from repro_torch.kernels import flash_attention as fak
 from repro_torch.kernels import flow_update as fuk
 from repro_torch.kernels import forest_traversal as ftk
 from repro_torch.kernels import ops
@@ -30,6 +31,7 @@ from repro_torch.kernels.ref import (FLOW_CODE_MAX, flow_update_ref,
                                      forest_traverse_gather_ref,
                                      fused_mlp_gather_ref, fused_mlp_warp_ref)
 from repro_torch.launch.serve import PacketServer
+from repro_torch.models import flash as FL
 
 # the kernel modules (``repro_torch.kernels`` exports their wrappers, which
 # share the modules' names)
@@ -1845,3 +1847,154 @@ def test_kernel_custom_ops_launch_and_match_plain(card):
     out = torch.ops.repro_torch.fixedpoint_matmul(xc, wc, xs, ws)
     assert fmm.launches["fixedpoint_matmul"] == 1
     assert torch.equal(out, ref.fixedpoint_matmul_ref(xc, wc, xs, ws))
+
+
+# ---------------------------------------------------------------------------
+# flash attention's forward (csrc/flash_attention.cu) against the plain form
+# ---------------------------------------------------------------------------
+
+# The kernel and the plain form (models/flash.py::_flash_fwd, 512-key blocks)
+# round the same float32 quantities to the input type at the same points, but
+# sum in other orders and rescale at other running maxima (128-key tiles), so
+# a logit or a probability may land one unit in the last place apart: out is
+# held within 4 units of the input type at 1 (bf16 2^-5, fp16 2^-8; measured
+# 2^-6 and 2^-9), and no farther from float64 attention than the plain form
+# (×1.05); lse, a float32 sum, within 1e-5 (measured ≤ 1e-6).
+_FLASH_ATOL = {torch.bfloat16: 2.0 ** -5, torch.float16: 2.0 ** -8}
+
+
+def _flash_inputs(dev, b, h, hkv, s, dqk, dv, dtype=torch.bfloat16, seed=0):
+    """q (pre-scaled), k, v as the model hands them over: (B, S, H, D)
+    tensors transposed to (B, H, S, D)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, s, h, dqk, generator=g, device=dev) / dqk ** 0.5
+    k = torch.randn(b, s, hkv, dqk, generator=g, device=dev)
+    v = torch.randn(b, s, hkv, dv, generator=g, device=dev)
+    return tuple(t.to(dtype).transpose(1, 2) for t in (q, k, v))
+
+
+def _exact_attention(q, k, v):
+    s = q.shape[2]
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double())
+    keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    return torch.softmax(logits.masked_fill(~keep, float("-inf")), -1) \
+        @ v.double()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("s", [1, 77, 513, 1000, 2048])
+@pytest.mark.parametrize("ratio", [1, 6])
+@pytest.mark.parametrize("dqk,dv", fak.HEAD_DIMS)
+def test_flash_kernel_matches_plain(card, dqk, dv, ratio, s, dtype):
+    q, k, v = _flash_inputs(card, 2, 6, 6 // ratio, s, dqk, dv, dtype)
+    fak.reset_launches()
+    out, lse = fak.flash_attention_fwd(q, k, v)
+    assert fak.launches["flash_attention"] == 1
+    kr, vr = FL._repeat_heads(k, ratio), FL._repeat_heads(v, ratio)
+    want, want_lse = FL._flash_fwd(q, kr, vr, True, 512)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == want.shape
+    assert float((out.float() - want.float()).abs().max()) <= \
+        _FLASH_ATOL[dtype]
+    assert float((lse - want_lse).abs().max()) <= 1e-5
+    exact = _exact_attention(q, kr, vr)
+
+    def err(x):
+        return float((x.double() - exact).norm() / exact.norm())
+
+    assert err(out) <= 1.05 * err(want)
+
+
+def test_flash_kernel_matches_plain_across_ragged_row_chunks(card):
+    """Blocks walk the B·H (batch, head) rows in chunks of ``chunk_rows``:
+    here 13 rows a chunk over 256, so the last chunk holds 9, with a ragged
+    S.  Every row of out and lse (both from ``torch.empty``) is held to the
+    plain form."""
+    b, h, s, dqk, dv = 2, 128, 2000, 192, 128
+    rows = fak.chunk_rows(b, h, h, s, dqk, dv)
+    assert rows < b * h and (b * h) % rows
+    q, k, v = _flash_inputs(card, b, h, h, s, dqk, dv, seed=5)
+    out, lse = fak.flash_attention_fwd(q, k, v)
+    want, want_lse = FL._flash_fwd(q, k, v, True, 512)
+    torch.cuda.synchronize()
+    d_out = (out.float() - want.float()).abs().amax(dim=(2, 3))
+    d_lse = (lse - want_lse).abs().amax(dim=2)
+    assert d_out.shape == d_lse.shape == (b, h)
+    assert bool((d_out <= _FLASH_ATOL[torch.bfloat16]).all()), d_out.max()
+    assert bool((d_lse <= 1e-5).all()), d_lse.max()
+
+
+def test_flash_kernel_repeats_bit_for_bit(card):
+    q, k, v = _flash_inputs(card, 2, 12, 2, 2048, 128, 128)
+    out, lse = fak.flash_attention_fwd(q, k, v)
+    out2, lse2 = fak.flash_attention_fwd(q, k, v)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("dqk,dv,ratio", [(128, 128, 6), (192, 128, 1)])
+def test_flash_kernel_gradients_match_plain_forward(card, dqk, dv, ratio):
+    """The kernel path (its out and lse into the plain backward, the grouped
+    K/V's gradients summed per group) against the plain forward's path on
+    repeated K/V: every gradient within 1 % in relative L2 (the backward
+    recomputes p from lse and reads delta = rowsum(dO·O) from out, both at
+    the forward's bf16 level)."""
+    q, k, v = _flash_inputs(card, 1, 6, 6 // ratio, 1000, dqk, dv)
+    dout = torch.randn(q.shape[:3] + (dv,), device=card,
+                       generator=torch.Generator(device=card).manual_seed(3)
+                       ).to(q.dtype)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    FL.flash_stats.reset()
+    out = FL.flash_attention(*leaves, True, 512)
+    assert (FL.flash_stats.kernel, FL.flash_stats.plain) == (1, 0)
+    got = torch.autograd.grad(out, leaves, dout)
+    leaves2 = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    kr, vr = (FL._repeat_heads(t, ratio) for t in leaves2[1:])
+    out2 = FL._FlashAttention.apply(leaves2[0], kr, vr, True, 512, False)
+    want = torch.autograd.grad(out2, leaves2, dout)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape, name
+        rel = float((g.float() - w.float()).norm() / w.float().norm())
+        assert rel < 1e-2, (name, rel)
+
+
+def test_flash_attention_takes_the_kernel_in_the_model(card):
+    """``layers._sdpa_causal_chunked`` hands the grouped K/V over as they are:
+    one kernel launch, no plain call, and the plain path's values."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    cfg = get_config("qwen2-1.5b")
+    g = torch.Generator(device=card).manual_seed(4)
+    q, k, v = (torch.randn(2, 1024, n, 128, generator=g, device=card
+                           ).to(torch.bfloat16) for n in (12, 2, 2))
+    FL.flash_stats.reset()
+    fak.reset_launches()
+    got = L._sdpa_causal_chunked(q, k, v, cfg)
+    assert (FL.flash_stats.kernel, FL.flash_stats.plain) == (1, 0)
+    assert fak.launches["flash_attention"] == 1
+    scale = torch.full((), 128 ** -0.5, dtype=q.dtype, device=card)
+    kr, vr = (L._repeat_kv(t, 6).transpose(1, 2) for t in (k, v))
+    want = FL._flash_fwd((q * scale).transpose(1, 2), kr, vr, True, 512)[0]
+    torch.cuda.synchronize()
+    assert float((got.transpose(1, 2).float() - want.float()).abs().max()) \
+        <= _FLASH_ATOL[torch.bfloat16]
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(card):
+    q, k, v = _flash_inputs(card, 1, 4, 2, 256, 128, 128)
+    bad = {
+        "float32": (TypeError, (q.float(), k.float(), v.float())),
+        "mixed dtypes": (TypeError, (q, k.half(), v)),
+        "head dims": (ValueError, (q[..., :64], k[..., :64], v[..., :64])),
+        "heads": (ValueError, (q[:, :3], k, v)),
+        "lengths": (ValueError, (q, k[:, :, :128], v[:, :, :128])),
+        "3-d": (ValueError, (q[0], k[0], v[0])),
+        "strided D": (ValueError, (q.transpose(2, 3).contiguous()
+                                   .transpose(2, 3), k, v)),
+        "misaligned": (ValueError, (
+            torch.zeros(1, 4, 256, 136, dtype=q.dtype,
+                        device=card)[..., 1:129], k, v)),
+        "cpu": (ValueError, (q.cpu(), k.cpu(), v.cpu())),
+    }
+    for name, (err, args) in bad.items():
+        with pytest.raises(err):
+            fak.flash_attention_fwd(*args)
