@@ -1695,8 +1695,9 @@ def run_slo_reflex_drill(dev, card: str) -> dict:
 
 def run_serve_cli(card: str) -> None:
     """``python -m repro_torch.launch.serve --packets 8192 --shards 4`` on
-    the card and on the CPU: both exit 0 and write the same metric
-    names."""
+    the card and on the CPU: both exit 0 and write the same metric names,
+    the card one more, the counter that needs device events
+    (``engine_batch_device_seconds_total``)."""
     root = Path(__file__).resolve().parent
     out_dir = root / "build" / "serve_cli"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1718,9 +1719,13 @@ def run_serve_cli(card: str) -> None:
         log(f"serve CLI --device {dev} --shards 4: {r.stdout.strip()} "
             f"({time.perf_counter() - t0:.1f} s with the interpreter's "
             f"start) [{card}]")
-    if names["cuda"] != names["cpu"]:
-        raise SystemExit("serve CLI: the card's metric names differ from "
-                         "the CPU's")
+    want = sorted(names["cpu"] + ["engine_batch_device_seconds_total"])
+    if names["cuda"] != want:
+        raise SystemExit(
+            "serve CLI: the card's metric names differ from the CPU's and "
+            "its device-seconds counter: card only "
+            f"{sorted(set(names['cuda']) - set(want))}, missing on the card "
+            f"{sorted(set(want) - set(names['cuda']))}")
 
 
 def run_fabric_phase(dev, card: str, forests, drifted, flow_chunks) -> dict:

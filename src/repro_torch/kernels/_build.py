@@ -1,29 +1,41 @@
-"""Build and load the hand-written CUDA kernels and host routines.
+"""Build, load and launch the hand-written CUDA kernels and host routines.
 
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
 ``nvcc`` for ``sm_90a`` into ``<repo>/build/kernels/lib<name>-<hash>.so`` at
-first use (the hash is the source's, so an edited source rebuilds and a
-stale library is never loaded) and bound with ``ctypes``.  Each
+first use (the hash covers the source, the ``csrc/`` headers it includes
+and the flags, so an edited source or header rebuilds and a stale library
+is never loaded) and bound with ``ctypes`` by :func:`bind`.  Each
 ``csrc/<name>.cpp`` is a host routine, built the same way with the host C++
-compiler (``load_host``).  Nothing here runs at import time; a missing
-``nvcc`` or a failed build raises, and ``load_host`` returns ``None`` where
-no C++ compiler is found.
+compiler (``bind(..., host=True)``).  Nothing here runs at import time; a
+missing ``nvcc`` or a failed build raises, and a host routine binds to
+``None`` where no C++ compiler is found.
+
+The wrappers launch through the same few steps: :func:`check` each tensor,
+:func:`device_stream` for the launch's device and stream, the bound C
+function, then :func:`count_launch` on its return code; :func:`num_sms`
+sizes persistent grids.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Sequence
+
+import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "CXX_FLAGS", "build",
-           "build_all", "load", "load_host", "build_logs"]
+           "build_all", "bind", "build_logs", "check", "device_stream",
+           "count_launch", "num_sms"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -32,8 +44,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
-_libs: Dict[str, Optional[ctypes.CDLL]] = {}
+_libs: Dict[str, Optional[ctypes.CDLL]] = {}  # bound libraries by key
 build_logs: Dict[str, str] = {}  # name -> nvcc's output (registers, smem)
+
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
 
 def _nvcc() -> str:
@@ -54,9 +68,26 @@ def _cxx() -> Optional[str]:
     return None
 
 
+def _headers(src: Path) -> List[Path]:
+    """The headers beside ``src`` that it includes with ``#include "..."``,
+    directly or through one another: each once, depth first, in the order
+    of their ``#include`` lines."""
+    found: List[Path] = []
+
+    def walk(path: Path) -> None:
+        for m in _INCLUDE.finditer(path.read_bytes()):
+            header = src.parent / m.group(1).decode()
+            if header.is_file() and header not in found:
+                found.append(header)
+                walk(header)
+
+    walk(src)
+    return found
+
+
 def _target(src: Path, flags: List[str]) -> Path:
-    digest = hashlib.sha1(src.read_bytes() + " ".join(flags).encode()
-                          ).hexdigest()[:12]
+    text = src.read_bytes() + b"".join(h.read_bytes() for h in _headers(src))
+    digest = hashlib.sha1(text + " ".join(flags).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 
@@ -103,22 +134,77 @@ def build_all(names: Iterable[str]) -> List[Path]:
     return [_finish(n, t, p, tmp) for n, t, p, tmp in started]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``lib<name>``; cached per process."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            _libs[name] = lib
-        return lib
-
-
-def load_host(name: str) -> Optional[ctypes.CDLL]:
-    """Build (if needed) and load the host routine ``csrc/<name>.cpp``;
-    cached per process.  ``None`` where no C++ compiler is found."""
-    with _lock:
-        key = name + ".cpp"
-        if key not in _libs:
-            _libs[key] = None if _cxx() is None else ctypes.CDLL(
-                str(_finish(name, *_start(name, ".cpp"))))
+def bind(name: str, symbols: Dict[str, Sequence], *, restype=ctypes.c_int,
+         host: bool = False) -> Optional[ctypes.CDLL]:
+    """Build (if needed) and load ``csrc/<name>.cu`` — ``.cpp`` with
+    ``host`` — and give each of ``symbols``, ``{symbol: argtypes}``, its
+    ``argtypes`` and ``restype``; once per process, after which this is a
+    dictionary lookup.  The library's functions are its attributes.  A
+    host routine binds to ``None`` where no C++ compiler is found."""
+    key = name + ".cpp" if host else name
+    try:
         return _libs[key]
+    except KeyError:
+        pass
+    with _lock:
+        if key not in _libs:
+            lib = None
+            if not host:
+                lib = ctypes.CDLL(str(build(name)))
+            elif _cxx() is not None:
+                lib = ctypes.CDLL(str(_finish(name, *_start(name, ".cpp"))))
+            if lib is not None:
+                for symbol, argtypes in symbols.items():
+                    fn = getattr(lib, symbol)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = restype
+            _libs[key] = lib
+        return _libs[key]
+
+
+def check(name: str, t: torch.Tensor, dtype, shape, device: torch.device,
+          contiguous: bool = True) -> None:
+    """Refuse a kernel argument: ``ValueError`` unless ``t`` (the argument
+    ``name``) lies on ``device`` with ``shape`` (a tuple) and, with
+    ``contiguous``, contiguous; ``TypeError`` unless its dtype is ``dtype``
+    (a dtype, or a tuple of those it may be)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype is not dtype and not (isinstance(dtype, tuple)
+                                     and t.dtype in dtype):
+        want = f"one of {dtype}" if isinstance(dtype, tuple) else dtype
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {want}")
+    if t.shape != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def device_stream(dev: torch.device):
+    """``(context, stream)`` for a launch on the card ``dev``: a context
+    that makes ``dev`` current (none to enter when it already is: the
+    kernel, its stream and its shared-memory limit are the current
+    device's) and the raw handle of ``dev``'s current stream."""
+    ctx = (_SAME_DEVICE if dev.index == torch._C._cuda_getDevice()
+           else torch.cuda.device(dev))
+    return ctx, torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def count_launch(rc: int, kernel: str, counts: Dict[str, int],
+                 key: str) -> None:
+    """After a launch that returned CUDA error code ``rc``: raise a
+    ``RuntimeError`` naming ``kernel`` unless it is 0, else add one to
+    ``counts[key]``."""
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
+    counts[key] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(index: int) -> int:
+    """The SM count of card ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -38,17 +38,16 @@
 //    arrive adds the other slices' sums to its own registers and runs the
 //    epilogue (int32 sums are exact and associative, so the bits depend neither
 //    on the split nor on the order of arrival; no block ever waits for
-//    another).  The tensor maps are encoded on the host with
-//    cuTensorMapEncodeTiled (reached through cudaGetDriverEntryPoint) and
-//    passed as __grid_constant__ parameters.
+//    another).  The tensor maps are encoded on the host (hopper.cuh's
+//    encode_tiled) and passed as __grid_constant__ parameters.
 //
 // Interface: a plain C entry point (bound with ctypes), launching on the
 // caller's stream, allocating nothing and returning a cudaError_t code.
 
 #include <cstdint>
 #include <mutex>
-#include <cuda.h>
-#include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -65,94 +64,6 @@ constexpr int kWgThreads = 384;        // producer + two consumer warpgroups
 constexpr int kOutBytes = kTile * kTile * 4;    // the float32 output tile, staged
 constexpr int kOutSlab = 32;                    // floats per 128-byte row of a store box
 constexpr int kWgSmem = kStages * kStageBytes + kOutBytes + 2 * kStages * 8 + 16 + 1024;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Spins until the phase of parity `parity` has completed.  A wait that has
-// not been satisfied after ~2^34 cycles (seconds) traps, so a pipeline
-// fault ends the launch with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  long long start = 0;
-  while (true) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > (1LL << 34)) {
-      __trap();
-    }
-  }
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// shared → global through a tensor map, in the issuing thread's bulk group
-__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0,
-                                             int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// barrier `id` over the 128 threads of one warpgroup
-__device__ __forceinline__ void warpgroup_bar(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
-// Shared-memory matrix descriptor of a K-major operand in 128-byte swizzle:
-// rows of 128 bytes, 8-row atoms 1024 bytes apart (the stride byte offset);
-// the leading byte offset is unused for this layout.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  uint64_t d = static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
-  d |= static_cast<uint64_t>(1) << 16;
-  d |= static_cast<uint64_t>(1024 >> 4) << 32;
-  d |= static_cast<uint64_t>(1) << 62;
-  return d;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 
 // D (64×128, int32, accumulated) += A (64×32 int8, K-major) · B (128×32 int8, K-major)ᵀ
 __device__ __forceinline__ void wgmma_m64n128k32(int32_t (&d)[64], uint64_t da,
@@ -240,14 +151,14 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_x,
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, 8);  // one arrival per consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     // ---- producer -------------------------------------------------------
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
       int stage = 0;
       uint32_t phase = 0;
@@ -269,7 +180,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_x,
     }
   } else {
     // ---- consumers: warpgroup cw owns rows [64·cw, 64·cw + 64) of a tile --
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    setmaxnreg_inc<232>();
     const int cw = wg - 1;
     const int t128 = threadIdx.x - 128 * wg;
     const int warp = t128 >> 5;
@@ -286,8 +197,8 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_x,
       for (int kt = t.kb; kt < t.ke; ++kt) {
         mbar_wait(full0 + 8 * stage, phase);
         const uint32_t buf = base + stage * kStageBytes;
-        const uint64_t da = smem_desc(buf + cw * 64 * kTileK);
-        const uint64_t db = smem_desc(buf + kTile * kTileK);
+        const uint64_t da = desc_k_major(buf + cw * 64 * kTileK);
+        const uint64_t db = desc_k_major(buf + kTile * kTileK);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kTileK / 32; ++kk) {
@@ -428,26 +339,6 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &status) == cudaSuccess &&
-        status == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
 // The two kinds of tensor map: an int8 operand (rows, K) read in boxes of
 // 128 rows × 128 bytes, and the float32 output (rows, cols) written in boxes
 // of 64 rows × 32 floats (128 bytes); both row-major, 128-byte swizzle.
@@ -542,13 +433,8 @@ extern "C" int fixedpoint_matmul_wgmma_launch(const void* x, const void* w,
   if (tma_out && !map_cache.get(encode, &map_out, kOutput, out, M, N)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        wgmma_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set = true;
-  }
+  const cudaError_t err = raise_smem_limit(wgmma_gemm_kernel, kWgSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   wgmma_gemm_kernel<<<grid, kWgThreads, kWgSmem, static_cast<cudaStream_t>(stream)>>>(
       map_x, map_w, map_out, tma_out, static_cast<const float*>(xs),
       static_cast<const float*>(ws),

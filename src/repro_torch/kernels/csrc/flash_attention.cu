@@ -55,10 +55,10 @@
 // a cudaError_t code.
 
 #include <cstdint>
-#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
-#include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -79,86 +79,6 @@ struct Layout {
   static constexpr int kSmem = kBarOffset + 8 * kBars + 1024;  // + alignment slack
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Spins until the phase of parity `parity` has completed; traps after ~2^34
-// cycles so that a pipeline fault ends the launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  long long start = 0;
-  while (true) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > (1LL << 34)) {
-      __trap();
-    }
-  }
-}
-
-// one box of a (D, S, H, B) tensor map at element coordinates (c0, c1, c2, c3)
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// Shared-memory descriptor of a K-major operand in 128-byte swizzle: rows of
-// 128 bytes, 8-row atoms 1024 bytes apart (stride byte offset); the leading
-// byte offset is unused for this layout.
-__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
-  uint64_t d = static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
-  d |= static_cast<uint64_t>(1) << 16;
-  d |= static_cast<uint64_t>(1024 >> 4) << 32;
-  d |= static_cast<uint64_t>(1) << 62;
-  return d;
-}
-
-// Descriptor of an MN-major operand in 128-byte swizzle (v: rows are keys,
-// the K dimension of p · v; each row holds 64 contiguous columns of N): 8-key
-// atoms 1024 bytes apart (stride byte offset), the next 64 columns one box,
-// 16 KB, further on (leading byte offset).
-__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
-  uint64_t d = static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
-  d |= static_cast<uint64_t>(kBoxBytes >> 4) << 16;
-  d |= static_cast<uint64_t>(1024 >> 4) << 32;
-  d |= static_cast<uint64_t>(1) << 62;
-  return d;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
 // Pins registers at this point of the program: the compiler moves no read
 // or write of them across it, and so none across the wgmma wait before it.
 template <int N>
@@ -172,11 +92,6 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[8][4]) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[t][i])::"memory");
   }
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 #define FA_D64                                                                   \
@@ -321,14 +236,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_init(kempty0 + 8 * s, 8);  // one arrival per consumer warp
       mbar_init(vempty0 + 8 * s, 8);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     // ---- producer ---------------------------------------------------------
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_bar, L::kQBytes);
 #pragma unroll
@@ -360,7 +275,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 
   // ---- consumers: warpgroup cw owns query rows [64·cw, 64·cw + 64) --------
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  setmaxnreg_inc<232>();
   const int cw = wg - 1;
   const int t128 = threadIdx.x - 128 * wg;
   const int warp = t128 >> 5;
@@ -390,8 +305,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_wait(vfull0 + 8 * st, (kt / kStages) & 1);
     const uint32_t vb = v_smem + st * L::kVBytes;
 #pragma unroll
+    // v is MN-major (rows are keys): its next 64 columns lie one box on
     for (int t = 0; t < 8; ++t) {  // 16 keys = 2 atoms of 8 a step
-      wgmma_rs<kHalf>(o, pa[t], desc_mn_major(vb + t * 2048));
+      wgmma_rs<kHalf>(o, pa[t], desc_mn_major(vb + t * 2048, kBoxBytes));
     }
     wgmma_commit();
   };
@@ -519,26 +435,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &status) == cudaSuccess &&
-        status == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
 // A (B, heads, S, D) view with D contiguous as a (D, S, heads, B) tensor map,
 // read in boxes of 64 columns (128 bytes) × 128 rows with 128-byte swizzle;
 // loads past S are zero-filled.
@@ -564,18 +460,8 @@ int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, 
            void* lse, int B, int H, int group, int S, int chunk_rows, cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<DQK, DV, kHalf>;
   constexpr int smem = Layout<DQK, DV>::kSmem;
-  // The shared-memory limit is an attribute of each device's context: raise
-  // it once on each device this instance launches on.
-  constexpr int kMaxDevices = 64;
-  static bool attr_set[kMaxDevices] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  const cudaError_t err = raise_smem_limit(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (device >= kMaxDevices || !attr_set[device]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (device < kMaxDevices) attr_set[device] = true;
-  }
   const long long grid =
       static_cast<long long>((S + kBlockM - 1) / kBlockM) * B * H;
   if (grid > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidConfiguration);

@@ -91,7 +91,8 @@
 // kernel, the launch floor.
 
 #include <cstdint>
-#include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -118,10 +119,6 @@ __device__ __forceinline__ int bin_of(int32_t s, int n_forests) {
              : n_forests;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    smem_addr(dst)),
@@ -139,35 +136,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Spins until phase 0 of the barrier has completed (each block uses it
-// once); traps after ~2^34 cycles instead of hanging the card.
-__device__ __forceinline__ void mbar_wait0(uint32_t bar) {
-  uint32_t done = 0;
-  const long long start = clock64();
-  while (true) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > (1LL << 34)) __trap();
-  }
 }
 
 // A global → shared copy of n int32 words for stage_tables.
@@ -393,7 +361,10 @@ __device__ __forceinline__ int begin_block(
     int* bin_out, int* mode_out) {
   __shared__ alignas(8) uint64_t staged_bar;
   const uint32_t bar = smem_addr(&staged_bar);
-  if (threadIdx.x == 0) mbar_init(bar);  // published by pass 1's barriers
+  if (threadIdx.x == 0) {  // published by pass 1's barriers
+    mbar_init(bar, 1);
+    mbar_init_fence();
+  }
   int keep[kScanPer];
   int c = 0;
   const int bin = find_chunk(slot, sh.n_batch, sh.n_forests, sh.chunk,
@@ -420,7 +391,7 @@ __device__ __forceinline__ int begin_block(
   fetch_codes(smem + lay.xbuf + 2 * warp * (sh.width + 1), x, list, warp,
               count, sh.width);
   cp_async_wait_all();
-  mbar_wait0(bar);
+  mbar_wait(bar, 0);  // each block uses the barrier once
   __syncthreads();
   *bin_out = bin;
   return count;
@@ -729,11 +700,8 @@ int range(const void* x, const void* slot, const void* feat,
                                 : forest_range_kernel<0, true, kPrologueOnly>)
                        : (fixed ? forest_range_kernel<kServingEntries, false, kPrologueOnly>
                                 : forest_range_kernel<0, false, kPrologueOnly>);
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t e = raise_smem_limit(kernel, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int grid = (n_batch + chunk - 1) / chunk + min(n_forests + 1, n_batch);
   kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(x), static_cast<const int32_t*>(slot),

@@ -57,7 +57,8 @@
 // caller's stream, allocating nothing and returning cudaGetLastError().
 
 #include <cstdint>
-#include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -255,7 +256,7 @@ wkv_intra_kernel(const float* __restrict__ a, const float* __restrict__ b,
 // zeros (the source is not read).
 template <int kBytes>
 __device__ __forceinline__ void cp_async(float* dst, const float* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const uint32_t d = smem_addr(dst);
   if (kBytes == 16) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                  "r"(valid ? 16 : 0)
@@ -412,20 +413,15 @@ extern "C" int wkv_scan_launch(const void* a, const void* b, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (bh == 0 || nc == 0) return static_cast<int>(cudaSuccess);
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        wkv_intra_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kIntraSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set = true;
-  }
+  cudaError_t err = raise_smem_limit(wkv_intra_kernel, kIntraSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   wkv_intra_kernel<<<static_cast<unsigned>(bh * nc), kIntraThreads, kIntraSmem, s>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const float*>(v), static_cast<const float*>(tot),
       static_cast<const float*>(diag), static_cast<float*>(o),
       static_cast<float*>(dstate), c, d);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_slices = (d + kSlice - 1) / kSlice;
   wkv_state_kernel<<<static_cast<unsigned>(bh * n_slices), kStateThreads, kStateSmem, s>>>(

@@ -29,9 +29,7 @@ caller, to check every split against the exact product.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import functools
 from typing import Dict, Tuple
 
 import torch
@@ -57,20 +55,13 @@ def reset_launches() -> None:
     relayouts["fixedpoint_matmul"] = 0
 
 
-_lib = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SYMBOLS = {"fixedpoint_matmul_wgmma_launch": [_P] * 7 + [_I] * 6 + [_P]}
 
 
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the kernel library."""
-    global _lib
-    if _lib is None:
-        lib = _build.load("fixedpoint_matmul")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fixedpoint_matmul_wgmma_launch.argtypes = [p, p, p, p, p, p, p, i,
-                                                       i, i, i, i, i, p]
-        lib.fixedpoint_matmul_wgmma_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    return _build.bind("fixedpoint_matmul", _SYMBOLS)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -89,25 +80,10 @@ def plan(m: int, n: int, k: int, num_sms: int) -> int:
     return SPLIT if long_k and tiles * SPLIT <= num_sms else 1
 
 
-@functools.lru_cache(maxsize=None)
-def _num_sms(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
 def _k_major(w: torch.Tensor) -> bool:
     """Whether a (K, N) ``w`` has strides (1, K) (size-1 dims aside)."""
     k, n = w.shape
     return (k <= 1 or w.stride(0) == 1) and (n <= 1 or w.stride(1) == k)
-
-
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
 
 
 def _checked(x_codes, w_codes, x_scale, w_scale):
@@ -119,14 +95,11 @@ def _checked(x_codes, w_codes, x_scale, w_scale):
                          f"{tuple(w_codes.shape)}")
     (m, k), n = x_codes.shape, w_codes.shape[1]
     dev = x_codes.device
-    _check("x_codes", x_codes, torch.int8, (m, k), dev)
-    _check("w_codes", w_codes, torch.int8, (k, n), dev)
-    _check("x_scale", x_scale, torch.float32, (m, 1), dev)
-    _check("w_scale", w_scale, torch.float32, (1, n), dev)
-    for name, t in (("x_codes", x_codes), ("x_scale", x_scale),
-                    ("w_scale", w_scale)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _build.check("x_codes", x_codes, torch.int8, (m, k), dev)
+    _build.check("w_codes", w_codes, torch.int8, (k, n), dev,
+                 contiguous=False)  # either layout below
+    _build.check("x_scale", x_scale, torch.float32, (m, 1), dev)
+    _build.check("w_scale", w_scale, torch.float32, (1, n), dev)
     if not (w_codes.is_contiguous() or _k_major(w_codes)):
         raise ValueError("w_codes must be K-major (strides (1, K)) or "
                          "row-major (contiguous)")
@@ -194,25 +167,22 @@ def _launch(x_codes, w_codes, x_scale, w_scale, split: int) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0 or n == 0:
         return out
-    lib = load_library()
-    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
-          else torch.cuda.device(dev)):
-        stream = torch._C._cuda_getCurrentRawStream(dev.index)
-        tiles = _cdiv(m, TILE) * _cdiv(n, TILE)
-        part = arrivals = None
-        if split > 1:  # partial sums, and each tile's count of arrivals
-            part = torch.empty((split, m, n), dtype=torch.int32, device=dev)
-            arrivals = _arrival_counts(dev, stream, tiles)
-        rc = lib.fixedpoint_matmul_wgmma_launch(
+    tiles = _cdiv(m, TILE) * _cdiv(n, TILE)
+    ctx, stream = _build.device_stream(dev)
+    part = arrivals = None
+    if split > 1:  # partial sums, and each tile's count of arrivals
+        part = torch.empty((split, m, n), dtype=torch.int32, device=dev)
+        arrivals = _arrival_counts(dev, stream, tiles)
+    with ctx:
+        rc = load_library().fixedpoint_matmul_wgmma_launch(
             x_codes.data_ptr(), w_codes.data_ptr(), x_scale.data_ptr(),
             w_scale.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(),
             None if arrivals is None else arrivals.data_ptr(), m, n, k,
             split, _cdiv(_cdiv(k, TILE), split),
-            min(_num_sms(dev), tiles * split), stream)
-    if rc != 0:
-        raise RuntimeError(f"fixedpoint_matmul launch failed: CUDA error {rc}")
-    launches["fixedpoint_matmul"] += 1
+            min(_build.num_sms(dev.index), tiles * split), stream)
+    _build.count_launch(rc, "fixedpoint_matmul", launches,
+                        "fixedpoint_matmul")
     return out
 
 
@@ -228,7 +198,7 @@ def fixedpoint_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor,
                            device=x_codes.device)
     x_codes, w_codes = _tma_operands(x_codes, w_codes)
     return _launch(x_codes, w_codes, x_scale, w_scale,
-                   plan(m, n, k, _num_sms(x_codes.device)))
+                   plan(m, n, k, _build.num_sms(x_codes.device.index)))
 
 
 # ---------------------------------------------------------------------------

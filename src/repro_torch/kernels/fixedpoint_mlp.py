@@ -15,7 +15,6 @@ launch adds one to ``launches[variant]``.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from typing import Dict, Tuple
@@ -44,20 +43,14 @@ def reset_launches() -> None:
         launches[v] = 0
 
 
-_launch_fn = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SYMBOLS = {"fixedpoint_mlp_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                                      _I, _I, _I, _P, _I, _I, _I, _P]}
 
 
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the kernel library."""
-    global _launch_fn
-    lib = _build.load("fixedpoint_mlp")
-    if _launch_fn is None:
-        fn = lib.fixedpoint_mlp_launch
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, p, p, p, p, i, i, i, i, i, p, i, i, i, p]
-        fn.restype = ctypes.c_int
-        _launch_fn = fn
-    return lib
+    return _build.bind("fixedpoint_mlp", _SYMBOLS)
 
 
 @functools.lru_cache(maxsize=64)
@@ -72,18 +65,6 @@ def _constants(sig_coeffs) -> Tuple[tuple, ctypes.Array]:
     if not isinstance(sig_coeffs, tuple):
         sig_coeffs = tuple(np.asarray(sig_coeffs).reshape(-1).tolist())
     return _packed(sig_coeffs)
-
-
-def _check(name: str, t: torch.Tensor, dtypes, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def fixedpoint_mlp(x_q: torch.Tensor, slot: torch.Tensor, w: torch.Tensor,
@@ -110,13 +91,13 @@ def fixedpoint_mlp(x_q: torch.Tensor, slot: torch.Tensor, w: torch.Tensor,
     n_batch, width = x.shape
     n_models, n_layers = act.shape
     dev = x.device
-    _check("x", x, (torch.int32,), (n_batch, width), dev)
-    _check("slot", slot, (torch.int32,), (n_batch,), dev)
+    _build.check("x", x, torch.int32, (n_batch, width), dev)
+    _build.check("slot", slot, torch.int32, (n_batch,), dev)
     w_types = (torch.int8,) if variant == "int8" else tuple(_W_BYTES)
-    _check("w", w, w_types, (n_models, n_layers, width, width), dev)
-    _check("b", b, (torch.int32,), (n_models, n_layers, width), dev)
-    _check("act", act, (torch.int32,), (n_models, n_layers), dev)
-    _check("layer_on", layer_on, (torch.int32,), (n_models, n_layers), dev)
+    _build.check("w", w, w_types, (n_models, n_layers, width, width), dev)
+    _build.check("b", b, torch.int32, (n_models, n_layers, width), dev)
+    _build.check("act", act, torch.int32, (n_models, n_layers), dev)
+    _build.check("layer_on", layer_on, torch.int32, (n_models, n_layers), dev)
     if not 1 <= width <= MAX_WIDTH:
         raise ValueError(f"width {width} outside the kernel's [1, {MAX_WIDTH}]")
     if not 1 <= len(coeffs) <= _MAX_COEFFS:
@@ -127,17 +108,12 @@ def fixedpoint_mlp(x_q: torch.Tensor, slot: torch.Tensor, w: torch.Tensor,
     out = torch.empty_like(x)
     if n_batch == 0:
         return out
-    if _launch_fn is None:
-        load_library()
-    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
-          else torch.cuda.device(dev)):
-        stream = torch._C._cuda_getCurrentRawStream(dev.index)
-        rc = _launch_fn(
+    ctx, stream = _build.device_stream(dev)
+    with ctx:
+        rc = load_library().fixedpoint_mlp_launch(
             x.data_ptr(), slot.data_ptr(), w.data_ptr(), _W_BYTES[w.dtype],
             b.data_ptr(), act.data_ptr(), layer_on.data_ptr(), out.data_ptr(),
             n_batch, n_models, n_layers, width, int(frac), sig, len(coeffs),
             int(leaky_alpha_q), int(variant == "int8"), stream)
-    if rc != 0:
-        raise RuntimeError(f"fixedpoint_mlp launch failed: CUDA error {rc}")
-    launches[variant] += 1
+    _build.count_launch(rc, "fixedpoint_mlp", launches, variant)
     return out

@@ -76,15 +76,14 @@ def chunk_rows(b: int, h: int, hkv: int, s: int, dqk: int, dv: int) -> int:
     return max(1, min(b * h, L2_SHARE // max(per_row, 1)))
 
 
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_SYMBOLS = {"flash_attention_fwd_launch": [_P] * 5 + [_I] * 7 + [_I64] * 9
+            + [_I, _P]}
+
+
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the kernel library."""
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention_fwd_launch
-    if fn.argtypes is None:
-        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [p] * 5 + [i] * 7 + [i64] * 9 + [i, p]
-        fn.restype = ctypes.c_int
-    return lib
+    return _build.bind("flash_attention", _SYMBOLS)
 
 
 def _tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
@@ -140,15 +139,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    lib = load_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_fwd_launch(
+    ctx, stream = _build.device_stream(q.device)
+    with ctx:
+        rc = load_library().flash_attention_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, h, hkv, s, dqk, dv,
             int(q.dtype == torch.float16), *strides[0], *strides[1],
             *strides[2], chunk_rows(b, h, hkv, s, dqk, dv), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
-    launches["flash_attention"] += 1
+    _build.count_launch(rc, "flash_attention", launches, "flash_attention")
     return out, lse

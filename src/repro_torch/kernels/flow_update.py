@@ -38,7 +38,6 @@ Three realizations, all bit-exact against the pure-Python per-packet oracle
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import Dict
 
@@ -46,7 +45,6 @@ import numpy as np
 import torch
 
 from . import _build
-from .forest_traversal import _check
 from .ref import (FLOW_CODE_MAX, N_FLOW_FEATURES, N_FLOW_REGISTERS,
                   REG_BYTE_COUNT, REG_EWMA_IAT, REG_EWMA_LEN, REG_FIRST_TS,
                   REG_LAST_TS, REG_MAX_LEN, REG_MIN_LEN, REG_PKT_COUNT,
@@ -247,20 +245,13 @@ def flow_update_gather(state: np.ndarray, cms: np.ndarray, slots: np.ndarray,
 # ---------------------------------------------------------------------------
 
 
-_launch_fn = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SYMBOLS = {"flow_update_launch": [_P] * 12 + [_I] * 8 + [_P]}
 
 
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the kernel library."""
-    global _launch_fn
-    lib = _build.load("flow_update")
-    if _launch_fn is None:
-        fn = lib.flow_update_launch
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 12 + [i] * 8 + [p]
-        fn.restype = ctypes.c_int
-        _launch_fn = fn
-    return lib
+    return _build.bind("flow_update", _SYMBOLS)
 
 
 def launch(state: torch.Tensor, cms: torch.Tensor, slots: torch.Tensor,
@@ -281,20 +272,15 @@ def launch(state: torch.Tensor, cms: torch.Tensor, slots: torch.Tensor,
              n * N_FLOW_FEATURES, (4 + depth) * n, 1)
     parts = torch.empty(sum(sizes), dtype=torch.int32,
                         device=dev).split(sizes)
-    if _launch_fn is None:
-        load_library()
-    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
-          else torch.cuda.device(dev)):
-        stream = torch._C._cuda_getCurrentRawStream(dev.index)
-        rc = _launch_fn(
+    ctx, stream = _build.device_stream(dev)
+    with ctx:
+        rc = load_library().flow_update_launch(
             state.data_ptr(), cms.data_ptr(), slots.data_ptr(),
             cells.data_ptr(), ts.data_ptr(), length.data_ptr(),
             live.data_ptr(), *(t.data_ptr() for t in parts), n, n_slots,
             depth, width_c, int(frac), int(ewma_shift), int(byte_shift),
             int(dur_shift), stream)
-    if rc != 0:
-        raise RuntimeError(f"flow_update launch failed: CUDA error {rc}")
-    launches["flow_update"] += 1
+    _build.count_launch(rc, "flow_update", launches, "flow_update")
     return (parts[0].view(n_slots, N_FLOW_REGISTERS),
             parts[1].view(depth, width_c),
             parts[2].view(n, N_FLOW_FEATURES), parts[4])
@@ -330,12 +316,12 @@ def flow_update_kernel(state: torch.Tensor, cms: torch.Tensor,
     n_slots = state.shape[0]
     depth, width_c = cms.shape
     n = slots.shape[0]
-    _check("state", state, (n_slots, N_FLOW_REGISTERS), dev)
-    _check("cms", cms, (depth, width_c), dev)
-    _check("cells", cells, (n, depth), dev)
+    _build.check("state", state, torch.int32, (n_slots, N_FLOW_REGISTERS), dev)
+    _build.check("cms", cms, torch.int32, (depth, width_c), dev)
+    _build.check("cells", cells, torch.int32, (n, depth), dev)
     for name, t in (("slots", slots), ("ts", ts), ("length", length),
                     ("live", live)):
-        _check(name, t, (n,), dev)
+        _build.check(name, t, torch.int32, (n,), dev)
     if not 1 <= depth <= MAX_DEPTH:
         raise ValueError(f"sketch depth {depth} outside the kernel's "
                          f"[1, {MAX_DEPTH}]")

@@ -26,9 +26,7 @@ serves one packet per warp in index order.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import functools
 from typing import Dict, NamedTuple
 
 import torch
@@ -89,43 +87,16 @@ def plan(n_batch: int, n_trees: int, n_entries: int, n_leaves: int,
     return Plan(chunk, staged)
 
 
-@functools.lru_cache(maxsize=None)
-def _num_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-_chase_fn = None
-_range_fn = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SYMBOLS = {"forest_chase_launch": [_P] * 6 + [_I] * 7 + [_P],
+            "forest_range_launch": [_P] * 9 + [_I] * 9 + [_P],
+            "forest_range_prologue_launch": [_P] * 9 + [_I] * 9 + [_P],
+            "forest_empty_launch": [_P]}
 
 
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the kernel library."""
-    global _chase_fn, _range_fn
-    lib = _build.load("forest_traversal")
-    if _range_fn is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for fn, argtypes in (
-                (lib.forest_chase_launch, [p] * 6 + [i] * 7 + [p]),
-                (lib.forest_range_launch, [p] * 9 + [i] * 9 + [p]),
-                (lib.forest_range_prologue_launch, [p] * 9 + [i] * 9 + [p]),
-                (lib.forest_empty_launch, [p])):
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _chase_fn = lib.forest_chase_launch
-        _range_fn = lib.forest_range_launch
-    return lib
-
-
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected torch.int32")
-    if t.shape != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    return _build.bind("forest_traversal", _SYMBOLS)
 
 
 def _check_common(x, slot, tree_on, mode, n_forests, n_trees, frac):
@@ -133,27 +104,15 @@ def _check_common(x, slot, tree_on, mode, n_forests, n_trees, frac):
         raise ValueError(f"no forest kernel for device {x.device}")
     n_batch, width = x.shape
     dev = x.device
-    _check("x", x, (n_batch, width), dev)
-    _check("slot", slot, (n_batch,), dev)
-    _check("tree_on", tree_on, (n_forests, n_trees), dev)
-    _check("mode", mode, (n_forests,), dev)
+    _build.check("x", x, torch.int32, (n_batch, width), dev)
+    _build.check("slot", slot, torch.int32, (n_batch,), dev)
+    _build.check("tree_on", tree_on, torch.int32, (n_forests, n_trees), dev)
+    _build.check("mode", mode, torch.int32, (n_forests,), dev)
     if not 1 <= width <= MAX_WIDTH:
         raise ValueError(f"width {width} outside the kernel's [1, {MAX_WIDTH}]")
     if not 0 <= frac <= 30:
         raise ValueError(f"frac={frac} outside the kernel's [0, 30]")
     return n_batch, width, dev
-
-
-def _device(index: int):
-    """No context switch when the tensors are on the current device."""
-    return (contextlib.nullcontext() if index == torch.cuda.current_device()
-            else torch.cuda.device(index))
-
-
-def _finish(rc: int, variant: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"forest {variant} launch failed: CUDA error {rc}")
-    launches[variant] += 1
 
 
 def forest_traverse(x_q: torch.Tensor, slot: torch.Tensor,
@@ -168,21 +127,21 @@ def forest_traverse(x_q: torch.Tensor, slot: torch.Tensor,
     n_forests, n_trees, n_nodes, _ = nodes.shape
     n_batch, width, dev = _check_common(x_q, slot, tree_on, mode, n_forests,
                                         n_trees, frac)
-    _check("nodes", nodes, (n_forests, n_trees, n_nodes, 5), dev)
+    _build.check("nodes", nodes, torch.int32, (n_forests, n_trees, n_nodes, 5),
+                 dev)
     if max_depth < 0:
         raise ValueError(f"max_depth={max_depth} < 0")
     out = torch.empty_like(x_q)
     if n_batch == 0:
         return out
-    if _chase_fn is None:
-        load_library()
-    with _device(dev.index):
-        rc = _chase_fn(
+    ctx, stream = _build.device_stream(dev)
+    with ctx:
+        rc = load_library().forest_chase_launch(
             x_q.data_ptr(), slot.data_ptr(), nodes.data_ptr(),
             tree_on.data_ptr(), mode.data_ptr(), out.data_ptr(), n_batch,
             n_forests, n_trees, n_nodes, width, int(max_depth), int(frac),
-            torch._C._cuda_getCurrentRawStream(dev.index))
-    _finish(rc, "chase")
+            stream)
+    _build.count_launch(rc, "forest chase", launches, "chase")
     return out
 
 
@@ -200,8 +159,10 @@ def forest_range(x_q: torch.Tensor, slot: torch.Tensor, feat: torch.Tensor,
     n_batch, width, dev = _check_common(x_q, slot, tree_on, mode, n_forests,
                                         n_trees, frac)
     for name, t in (("feat", feat), ("thresh", thresh), ("lmask", lmask)):
-        _check(name, t, (n_forests, n_trees, n_entries), dev)
-    _check("payload", payload, (n_forests, n_trees, n_leaves), dev)
+        _build.check(name, t, torch.int32, (n_forests, n_trees, n_entries),
+                     dev)
+    _build.check("payload", payload, torch.int32,
+                 (n_forests, n_trees, n_leaves), dev)
     if not 1 <= n_leaves <= 32:
         raise ValueError(f"{n_leaves} leaves outside the 32-bit leaf mask's "
                          "[1, 32]")
@@ -210,16 +171,15 @@ def forest_range(x_q: torch.Tensor, slot: torch.Tensor, feat: torch.Tensor,
     out = torch.empty_like(x_q)
     if n_batch == 0:
         return out
-    if _range_fn is None:
-        load_library()
     chunk, staged = plan(n_batch, n_trees, n_entries, n_leaves,
-                         _num_sms(dev.index))
-    with _device(dev.index):
-        rc = _range_fn(
+                         _build.num_sms(dev.index))
+    ctx, stream = _build.device_stream(dev)
+    with ctx:
+        rc = load_library().forest_range_launch(
             x_q.data_ptr(), slot.data_ptr(), feat.data_ptr(),
             thresh.data_ptr(), lmask.data_ptr(), payload.data_ptr(),
             tree_on.data_ptr(), mode.data_ptr(), out.data_ptr(), n_batch,
             n_forests, n_trees, n_entries, n_leaves, width, int(frac), chunk,
-            int(staged), torch._C._cuda_getCurrentRawStream(dev.index))
-    _finish(rc, "range")
+            int(staged), stream)
+    _build.count_launch(rc, "forest range", launches, "range")
     return out

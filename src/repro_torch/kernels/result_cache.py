@@ -6,8 +6,9 @@ by pointer, where the plain versions (``ref.result_cache_lookup_ref`` and
 ``ref.result_cache_insert_ref``) sweep the chunk in rounds of numpy calls.
 Both leave the same table and return the same numbers; the tests hold
 them to each other.  The library is built with the host C++ compiler at
-first use (``_build.load_host``); where there is none, ``load_library``
-and ``sweeps`` return ``None`` and the cache keeps the plain sweeps.
+first use (``_build.bind(..., host=True)``); where there is none,
+``load_library`` and ``sweeps`` return ``None`` and the cache keeps the
+plain sweeps.
 """
 
 from __future__ import annotations
@@ -24,18 +25,13 @@ __all__ = ["load_library", "sweeps", "lookup", "insert"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
+_SYMBOLS = {"rc_lookup": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P],
+            "rc_insert": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                          _I, _P, _P]}
 
 
 def load_library() -> Optional[ctypes.CDLL]:
-    lib = _build.load_host("result_cache")
-    if lib is not None:
-        lib.rc_lookup.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _I,
-                                  _P, _P, _P]
-        lib.rc_lookup.restype = _I
-        lib.rc_insert.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-                                  _P, _P, _I, _P, _P]
-        lib.rc_insert.restype = _I
-    return lib
+    return _build.bind("result_cache", _SYMBOLS, restype=_I, host=True)
 
 
 def sweeps():

@@ -36,15 +36,14 @@ def reset_launches() -> None:
     launches["taylor_activation"] = 0
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SYMBOLS = {"taylor_activation_launch": [_P, _P, ctypes.c_int64, _P, _I, _I,
+                                         _P]}
+
+
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the kernel library."""
-    lib = _build.load("taylor_activation")
-    fn = lib.taylor_activation_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, ctypes.c_int64, p, i, i, p]
-        fn.restype = ctypes.c_int
-    return lib
+    return _build.bind("taylor_activation", _SYMBOLS)
 
 
 def _device_coeffs(coeffs: tuple, dev: torch.device) -> torch.Tensor:
@@ -69,10 +68,7 @@ def taylor_activation(x_q: torch.Tensor, coeffs, x_frac: int) -> torch.Tensor:
                                      x_frac)
     if x_q.device.type != "cuda":
         raise ValueError(f"no taylor_activation kernel for device {x_q.device}")
-    if x_q.dtype != torch.int32:
-        raise TypeError(f"x_q has dtype {x_q.dtype}, expected torch.int32")
-    if not x_q.is_contiguous():
-        raise ValueError("x_q must be contiguous")
+    _build.check("x_q", x_q, torch.int32, x_q.shape, x_q.device)
     if x_frac > 31:
         raise ValueError(f"x_frac={x_frac} above the int32 shift range")
     out = torch.empty_like(x_q)
@@ -80,13 +76,11 @@ def taylor_activation(x_q: torch.Tensor, coeffs, x_frac: int) -> torch.Tensor:
         return out
     dev = x_q.device
     c = _device_coeffs(consts, dev)
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.taylor_activation_launch(x_q.data_ptr(), out.data_ptr(),
-                                          x_q.numel(), c.data_ptr(), len(consts),
-                                          int(x_frac), stream)
-    if rc != 0:
-        raise RuntimeError(f"taylor_activation launch failed: CUDA error {rc}")
-    launches["taylor_activation"] += 1
+    ctx, stream = _build.device_stream(dev)
+    with ctx:
+        rc = load_library().taylor_activation_launch(
+            x_q.data_ptr(), out.data_ptr(), x_q.numel(), c.data_ptr(),
+            len(consts), int(x_frac), stream)
+    _build.count_launch(rc, "taylor_activation", launches,
+                        "taylor_activation")
     return out

@@ -39,14 +39,13 @@ def reset_launches() -> None:
     launches["wkv_scan"] = 0
 
 
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_SYMBOLS = {"wkv_scan_launch": [_P] * 7 + [_I64, _I64, _I, _I, _P]}
+
+
 def load_library() -> ctypes.CDLL:
     """Build (first use) and bind the kernel library."""
-    lib = _build.load("wkv_scan")
-    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    if lib.wkv_scan_launch.argtypes is None:
-        lib.wkv_scan_launch.argtypes = [p, p, p, p, p, p, p, i64, i64, i, i, p]
-        lib.wkv_scan_launch.restype = ctypes.c_int
-    return lib
+    return _build.bind("wkv_scan", _SYMBOLS)
 
 
 def _check_shapes(a, b, v, tot, diag) -> None:
@@ -76,28 +75,18 @@ def wkv_scan(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
     if a.device.type != "cuda":
         raise ValueError(f"no wkv_scan kernel for device {a.device}")
     for name, t in zip(("a", "b", "v", "tot", "diag"), args):
-        if t.device != a.device:
-            raise ValueError(f"{name} is on {t.device}, a on {a.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} has dtype {t.dtype}, expected "
-                            "torch.float32")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        _build.check(name, t, torch.float32, t.shape, a.device)
     bh, nc, c, d = a.shape
     out = torch.empty_like(a)
     if out.numel() == 0:
         return out
-    lib = load_library()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        ptrs = [t.data_ptr() for t in args] + [out.data_ptr()]
-        state = torch.empty((bh, nc, d, d), dtype=torch.float32,
-                            device=a.device)
-        rc = lib.wkv_scan_launch(*ptrs, state.data_ptr(), bh, nc, c, d,
-                                 stream)
-    if rc != 0:
-        raise RuntimeError(f"wkv_scan launch failed: CUDA error {rc}")
-    launches["wkv_scan"] += 1
+    state = torch.empty((bh, nc, d, d), dtype=torch.float32, device=a.device)
+    ctx, stream = _build.device_stream(a.device)
+    with ctx:
+        rc = load_library().wkv_scan_launch(
+            *(t.data_ptr() for t in args), out.data_ptr(), state.data_ptr(),
+            bh, nc, c, d, stream)
+    _build.count_launch(rc, "wkv_scan", launches, "wkv_scan")
     return out
 
 

@@ -1998,3 +1998,40 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(card):
     for name, (err, args) in bad.items():
         with pytest.raises(err):
             fak.flash_attention_fwd(*args)
+
+
+# ---------------------------------------------------------------------------
+# every card in one process
+# ---------------------------------------------------------------------------
+
+
+def test_gemm_wkv_and_flash_on_every_card_in_one_process(card):
+    """One process launches the GEMM, the WKV scan and flash on each card in
+    turn, with card 0 current throughout: each launch raises its kernel's
+    shared-memory limit on its own card, and each result equals its plain
+    version there."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip(f"needs two or more cards, found {n_cards}")
+    for i in range(n_cards):
+        dev = torch.device("cuda", i)
+        xc, wc, xs, ws = _gemm_case(np.random.default_rng(i), 255, 1536, 512,
+                                    dev)
+        got = fmm.fixedpoint_matmul(xc, wc, xs, ws)
+        want = ops.fixedpoint_matmul(xc, wc, xs, ws, backend="ref")
+        scan = _wkv_operands(i, dev, 4, 2, 64, 64)
+        got_o = wk.wkv_scan(*scan)
+        want_o = ops.wkv_scan(*scan, backend="ref")
+        q, k, v = _flash_inputs(dev, 1, 6, 1, 513, 128, 128, seed=i)
+        out, lse = fak.flash_attention_fwd(q, k, v)
+        kr, vr = FL._repeat_heads(k, 6), FL._repeat_heads(v, 6)
+        want_out, want_lse = FL._flash_fwd(q, kr, vr, True, 512)
+        torch.cuda.synchronize(dev)
+        assert got.device == got_o.device == out.device == dev
+        assert torch.equal(got, want)
+        np.testing.assert_allclose(got_o.cpu().numpy(), want_o.cpu().numpy(),
+                                   rtol=2e-5, atol=2e-5)
+        assert float((out.float() - want_out.float()).abs().max()) <= \
+            _FLASH_ATOL[torch.bfloat16]
+        assert float((lse - want_lse).abs().max()) <= 1e-5
+    assert torch.cuda.current_device() == 0
