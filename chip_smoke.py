@@ -52,7 +52,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                4 × 128 × 4096 × (192, 128)) against flash_attention's plain
                path on the same grouped K/V: out within 2^-5, lse within
                1e-5, no farther from float64 attention than the plain form
-               × 1.05, a second call bit-equal.
+               × 1.05, a second call bit-equal; the row quantize (the W8A8
+               linear's activation codes and scales) against the plain
+               chain bit for bit at the qwen2 prefill's two shapes
+               (8192 × 1536 and × 8960, bf16, 4 and 8 bits), K = 8961, fp16
+               and fp32.
   4. serve   — PacketServer() at its defaults on the card serves seeded
                traces of ragged chunks with duplicates and unknown Model IDs;
                its egress must be byte-identical, in submission order, to
@@ -148,7 +152,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                quantized prefill (quantize_tree at full depth: 196
                fixedpoint_matmul launches, all wgmma with no layout copy,
                each equal to the plain version on the operands the path
-               gave it; NMSE at 2 layers below 0.15); the 7 transformer
+               gave it; 196 activation quantizes, every one on the row
+               quantize kernel; NMSE at 2 layers below 0.15); the 7 transformer
                configs at full width, 2 layers (deepseek-v2: 1), float32,
                forward and prefill on the card against the CPU port
                (qwen2 also at T = 640, the padded flash route; chatglm3's
@@ -214,7 +219,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                geometry, its two device kernels split by the profiler;
                flash attention's forward at both LM cells' shapes, the
                kernel, the plain path and SDPA's fused backends timed in
-               turns against the causal FLOP over the bf16 peak; also each
+               turns against the causal FLOP over the bf16 peak; the row
+               quantize and the plain chain it replaces (with its float32
+               scale cast) in turns at 8192 × 1536 and × 8960 against the
+               bytes bound (3 B an element); also each
                path's packets per second with its engine-call and kernel
                shares of the wall time (for the fabric runs also each
                kernel's launches per shard and a 1-shard PacketServer's
@@ -275,6 +283,7 @@ from repro_torch.kernels import fixedpoint_mlp as fmlp  # noqa: E402
 from repro_torch.kernels import flow_update as fuk  # noqa: E402
 from repro_torch.kernels import forest_traversal as ftk  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import row_quantize as ROW_QUANT  # noqa: E402
 from repro_torch.kernels.ops import forest_traverse, fused_mlp  # noqa: E402
 from repro_torch.kernels.ref import (FLOW_CODE_MAX,  # noqa: E402
                                      flow_update_ref,
@@ -366,10 +375,15 @@ KERNELS = {
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/models/flash.py:58"),
+    "row_quantize": dict(
+        name="row_quantize", route="cuda",
+        source="src/repro_torch/kernels/csrc/row_quantize.cu",
+        replaces="none: src/repro/core/quantize.py::absmax_quantize is plain "
+                 "jax.numpy"),
 }
 SOURCES = ["fixedpoint_mlp", "forest_traversal", "flow_update",
            "fixedpoint_matmul", "taylor_activation", "wkv_scan",
-           "flash_attention"]
+           "flash_attention", "row_quantize"]
 
 # one qwen2-1.5b decoder layer (src/repro/configs/qwen2_1_5b.py): d_model
 # 1536, q_dim 12·128, kv_dim 2·128, d_ff 8960; leaf names as
@@ -2902,6 +2916,101 @@ def flash_numbers(dev, worst: float, launches: int, card: str) -> list:
     return entries
 
 
+@contextlib.contextmanager
+def plain_quantize():
+    """``absmax_quantize`` on its plain chain for the block: the row
+    kernel bypassed."""
+    rule = tq.row_kernel_applies
+    tq.row_kernel_applies = lambda *a: False
+    try:
+        yield
+    finally:
+        tq.row_kernel_applies = rule
+
+
+# the activation quantize's shapes on the qwen2 prefill: every projection
+# but down (K = d_model) and down (K = d_ff), M = 4 · 2048 tokens
+ROW_QUANT_SHAPES = {"K=1536": (TF_BATCH * TF_SEQ, D_MODEL),
+                    "K=8960": (TF_BATCH * TF_SEQ, D_FF)}
+
+
+def row_quant_input(dev, m: int, k: int, dtype, seed: int) -> torch.Tensor:
+    """Normal rows at per-row power-of-two scales, with a zero row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    e = torch.randint(-12, 12, (m, 1), generator=g, device=dev).float()
+    x = torch.randn(m, k, generator=g, device=dev) * torch.exp2(e)
+    x[0] = 0.0
+    return x.to(dtype)
+
+
+def check_row_quantize_kernels(dev) -> int:
+    """Phase 3 for the row quantize kernel: at the qwen2 prefill's two
+    activation shapes in bf16 (4- and 8-bit codes), a K that is not a
+    multiple of 8 (the scalar form), fp16 and fp32, the kernel's codes and
+    scales against the plain chain's on the card bit for bit, one launch a
+    call.  Returns the largest |Δ| of the codes (0)."""
+    cases = [(label, m, k, torch.bfloat16, bits)
+             for label, (m, k) in ROW_QUANT_SHAPES.items() for bits in (8, 4)]
+    cases += [("K=8961", TF_BATCH * TF_SEQ, D_FF + 1, torch.bfloat16, 8),
+              ("K=1536", TF_BATCH * TF_SEQ, D_MODEL, torch.float16, 8),
+              ("K=1536", TF_BATCH * TF_SEQ, D_MODEL, torch.float32, 8)]
+    for i, (label, m, k, dtype, bits) in enumerate(cases):
+        x = row_quant_input(dev, m, k, dtype, SEED + 80 + i)
+        before = ROW_QUANT.launches["row_quantize"]
+        codes, scale = tq.absmax_quantize(x, bits=bits)
+        launched = ROW_QUANT.launches["row_quantize"] - before
+        with plain_quantize():
+            want_c, want_s = tq.absmax_quantize(x, bits=bits)
+        torch.cuda.synchronize()
+        ok = (launched == 1 and torch.equal(codes, want_c)
+              and torch.equal(scale, want_s))
+        log(f"kernel row_quantize {label} M={m} {dtype} bits={bits}: codes "
+            f"and scales {'equal' if ok else 'DIFFER'} to the plain chain; "
+            f"launches {launched}")
+        if not ok:
+            raise SystemExit(f"row_quantize {label} {dtype} bits={bits}: "
+                             f"launches {launched}, differs from the plain "
+                             "chain")
+        del x, codes, scale, want_c, want_s
+    return 0
+
+
+def row_quantize_numbers(dev, launches: int, card: str) -> list:
+    """Phase 5 for the row quantize kernel at the qwen2 prefill's two
+    activation shapes (bf16): the kernel (codes, scale and its float32
+    copy) and the plain chain with the float32 cast of its scale that
+    ``w8a8_matmul_int`` adds, timed in turns per call and queued, and the
+    bound: a bf16 read and an int8 write per element, the bf16 and float32
+    scales per row, over HBM bandwidth.  One JSON entry per shape."""
+    entries = []
+    for i, (label, (m, k)) in enumerate(ROW_QUANT_SHAPES.items()):
+        x = row_quant_input(dev, m, k, torch.bfloat16, SEED + 90 + i)
+
+        def plain():
+            with plain_quantize():
+                _, xs = tq.absmax_quantize(x)
+            return xs.reshape(-1, 1).to(torch.float32).contiguous()
+
+        calls = {"kernel": lambda: ROW_QUANT.row_quantize(x),
+                 "plain": plain}
+        per_call = in_turns(calls, cuda_ms)
+        queued = in_turns(calls, queued_ms)
+        b_ms, b_by = bound_ms(m * k * 3 + m * (2 + 4), 0, 1.0)
+        log(f"time row_quantize {label} M={m} bf16: kernel "
+            f"{per_call['kernel']:.4f} ms per call ({queued['kernel']:.4f} "
+            f"queued, device only; {b_ms / queued['kernel']:.4f} of the "
+            f"bound), plain chain {per_call['plain']:.4f} ms "
+            f"({queued['plain']:.4f} queued), bound {b_ms:.6f} ms ({b_by}) "
+            f"[{card}]")
+        entries.append(dict(KERNELS["row_quantize"], shape=label,
+                            launches=launches, max_abs_err=0,
+                            ms=per_call["kernel"], queued_ms=queued["kernel"],
+                            plain_ms=per_call["plain"], bound_ms=b_ms,
+                            bound_by=b_by, library_ms=None))
+        del x
+    return entries
+
+
 def check_flash_calls(label: str, want: int) -> int:
     """After a run that began with ``FLASH_KERNEL.reset_launches()`` and
     ``FLASH.flash_stats.reset()``: every ``flash_attention`` call took the
@@ -2988,6 +3097,8 @@ def run_qwen2_full(dev, card: str) -> dict:
     torch.cuda.synchronize()
     reset_launches()
     reset_flash_calls()
+    tq.quantize_stats.reset()
+    ROW_QUANT.reset_launches()
     with checked_gemms(record):
         lq = model.prefill(q, tokens=tokens)
     torch.cuda.synchronize()
@@ -2995,6 +3106,14 @@ def run_qwen2_full(dev, card: str) -> dict:
     flash_launches += check_flash_calls(f"quantized {TF_ARCH} prefill",
                                         cfg.n_layers)
     want = TF_PROJECTIONS * cfg.n_layers
+    quant = (tq.quantize_stats.kernel, tq.quantize_stats.plain,
+             ROW_QUANT.launches["row_quantize"])
+    log(f"quantized {TF_ARCH} prefill: activation quantizes (kernel calls, "
+        f"plain calls, row_quantize launches) {quant}")
+    if quant != (want, 0, want):
+        raise SystemExit(f"quantized {TF_ARCH} prefill: activation quantizes "
+                         f"(kernel, plain, launches) {quant}, expected "
+                         f"({want}, 0, {want})")
     if q_launches != {"fixedpoint_matmul": want}:
         raise SystemExit(f"quantized {TF_ARCH} prefill launches {q_launches}, "
                          f"expected fixedpoint_matmul {want}")
@@ -3036,7 +3155,7 @@ def run_qwen2_full(dev, card: str) -> dict:
     del params, p2, logits
     free_card()
     return dict(launches=q_launches, gemm_err=record["err"],
-                flash_launches=flash_launches,
+                flash_launches=flash_launches, quantize_launches=want,
                 prefill_tokens_per_s=TF_BATCH * TF_SEQ / prefill_s,
                 quantized_prefill_tokens_per_s=TF_BATCH * TF_SEQ / q_prefill_s,
                 decode_tokens_per_s=decode_tps, **attn)
@@ -4349,6 +4468,7 @@ def main() -> int:
     worst["fixedpoint_matmul"] = max(check_gemm_kernels(dev),
                                      check_slice_c_gemms(dev))
     worst["taylor_activation"] = check_taylor_kernels(dev)
+    worst["row_quantize"] = check_row_quantize_kernels(dev)
     log(f"C1/C2 kernel checks: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     worst["wkv_scan"] = check_wkv_kernels(dev)
@@ -4503,6 +4623,8 @@ def main() -> int:
     kernels.append(wkv)
     kernels.extend(flash_numbers(dev, worst["flash_attention"],
                                  tf["qwen"]["flash_launches"], smi))
+    kernels.extend(row_quantize_numbers(dev, tf["qwen"]["quantize_launches"],
+                                        smi))
     for label, p in path.items():
         kernel_s = sum(n * k_ms[k] * 1e-3 for k, n in p["launches"].items())
         log(f"path {label}: {p['packets_per_s']:.0f} packets/s, engine call "

@@ -8,6 +8,15 @@ scale.  Counterpart of ``repro.core.quantize``, with its three modes:
                     weights, dynamic per-row int8 activations, int32
                     accumulation (the FPGA stage, C1).
 
+``absmax_quantize`` runs per row on the card as one hand-written kernel
+(``kernels/row_quantize.py``) wherever :func:`row_kernel_applies` says so
+— a CUDA tensor (not a DTensor) in bf16, fp16 or fp32, the absmax over its
+contiguous last axis, at most 8 bits, no autograd graph through it, no
+dispatch mode — with the plain chain's codes and scales bit for bit; the
+weights' per-channel quantization, the CPU and meta paths and DTensor
+shards keep the plain chain.  ``quantize_stats`` counts the calls on card
+tensors by path.
+
 ``w8a8_matmul_int`` quantizes ``x`` per row, flattens its leading dims to
 ``(M, K)`` and calls ``kernels.ops.fixedpoint_matmul`` with the weight codes
 as they are (under a mesh, on each rank's shards: column-parallel weights
@@ -37,14 +46,19 @@ import re
 from typing import Callable, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from ..distributed.constrain import is_dtensor, reduce_partial, tp_layout
 from ..kernels import ops
+from ..kernels import row_quantize as rq
 from .fixedpoint import fake_quant, true_divide
 from .inference import resolve_device
 
 __all__ = [
     "absmax_quantize",
+    "row_kernel_applies",
+    "quantize_stats",
+    "QuantizeStats",
     "w8a8_matmul_int",
     "w8a8_matmul_sim",
     "matmul",
@@ -55,17 +69,57 @@ __all__ = [
 ]
 
 
+class QuantizeStats:
+    """Calls of :func:`absmax_quantize` on card tensors since the last
+    :meth:`reset`, by path: ``kernel`` (the row kernel) and ``plain``.
+    Host integers (no device read)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.kernel = self.plain = 0
+
+
+#: the calls of :func:`absmax_quantize` on card tensors by path
+#: (``quantize_stats.reset()``)
+quantize_stats = QuantizeStats()
+
+
+def row_kernel_applies(x: torch.Tensor, bits: int, axis: int) -> bool:
+    """Whether :func:`absmax_quantize` takes the row kernel for ``x``: what
+    ``kernels.row_quantize.kernel_applies`` takes, and ``x`` is no DTensor,
+    autograd records no graph through it and no dispatch mode (the dry
+    run's cost counter, fake tensors) is active, which must see the plain
+    ops."""
+    return (rq.kernel_applies(x.device.type, x.dtype, x.shape,
+                              x.stride(-1) if x.dim() else 0, axis, bits)
+            and not (x.requires_grad and torch.is_grad_enabled())
+            and not is_dtensor(x) and _get_current_dispatch_mode() is None)
+
+
 def absmax_quantize(x: torch.Tensor, bits: int = 8, axis: int = -1,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-slice quantization: ``(codes, scale)`` with
     ``x ≈ codes * scale``.  ``axis`` is the absmax reduction axis (``-1``:
     per row for activations; ``0`` or ``-2``: per output channel for
     weights).  The scale keeps ``x``'s dtype."""
+    return _absmax_quantize(x, bits, axis)[:2]
+
+
+def _absmax_quantize(x: torch.Tensor, bits: int, axis: int):
+    """:func:`absmax_quantize`'s pair and the scale as an (M, 1) float32
+    tensor where the row kernel wrote one (else ``None``)."""
+    if x.is_cuda:
+        if row_kernel_applies(x, bits, axis):
+            quantize_stats.kernel += 1
+            return rq.row_quantize(x, bits)
+        quantize_stats.plain += 1
     qmax = 2.0 ** (bits - 1) - 1
     absmax = torch.amax(torch.abs(x), dim=axis, keepdim=True)
     scale = true_divide(torch.clamp_min(absmax, 1e-8), qmax)
     codes = torch.clamp(torch.round(x / scale), -qmax - 1, qmax)
-    return codes.to(torch.int8 if bits <= 8 else torch.int16), scale
+    return codes.to(torch.int8 if bits <= 8 else torch.int16), scale, None
 
 
 def w8a8_matmul_int(x: torch.Tensor, w_codes: torch.Tensor,
@@ -77,10 +131,11 @@ def w8a8_matmul_int(x: torch.Tensor, w_codes: torch.Tensor,
     if w_codes.dim() != 2:
         raise ValueError(f"2-D weight codes expected, got {tuple(w_codes.shape)}")
     x, w_codes, kind = tp_layout(x, w_codes)
-    x_codes, x_scale = absmax_quantize(x, bits=bits, axis=-1)
+    x_codes, x_scale, x_scale32 = _absmax_quantize(x, bits, -1)
+    if x_scale32 is None:
+        x_scale32 = x_scale.reshape(-1, 1).to(torch.float32).contiguous()
     k, n = w_codes.shape
-    operands = (x_codes.reshape(-1, k), w_codes,
-                x_scale.reshape(-1, 1).to(torch.float32).contiguous(),
+    operands = (x_codes.reshape(-1, k), w_codes, x_scale32,
                 w_scale.reshape(1, n).to(torch.float32).contiguous())
     if kind == "rep" and not is_dtensor(x_codes):
         out = ops.fixedpoint_matmul(*operands)

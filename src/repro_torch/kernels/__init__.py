@@ -16,6 +16,9 @@
   * ``flash_attention``   — flash attention's causal forward on wgmma and
     TMA (``csrc/flash_attention.cu``), grouped K/V read by index;
     ``models/flash.py`` takes it where its input allows
+  * ``row_quantize``      — the W8A8 linear's per-row activation quantize
+    in one pass (``csrc/row_quantize.cu``); ``core.quantize.absmax_quantize``
+    takes it where its input allows
   * ``result_cache``     — the ingress result cache's probe sweeps as one
     host call per chunk (``csrc/result_cache.cpp``, built with the host
     C++ compiler)

@@ -26,6 +26,7 @@ from repro_torch.kernels import flash_attention as fak
 from repro_torch.kernels import flow_update as fuk
 from repro_torch.kernels import forest_traversal as ftk
 from repro_torch.kernels import ops
+from repro_torch.kernels import row_quantize as rqk
 from repro_torch.kernels.ref import (FLOW_CODE_MAX, flow_update_ref,
                                      forest_range_gather_ref,
                                      forest_traverse_gather_ref,
@@ -1998,6 +1999,228 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(card):
     for name, (err, args) in bad.items():
         with pytest.raises(err):
             fak.flash_attention_fwd(*args)
+
+
+# ---------------------------------------------------------------------------
+# the W8A8 linear's activation quantize (the row kernel)
+# ---------------------------------------------------------------------------
+
+
+def _plain_quantize(monkeypatch, x, bits=8, axis=-1):
+    """``absmax_quantize`` on the plain chain, the row kernel bypassed."""
+    with monkeypatch.context() as mp:
+        mp.setattr(tq, "row_kernel_applies", lambda *a: False)
+        return tq.absmax_quantize(x, bits=bits, axis=axis)
+
+
+def _bits(t):
+    """The raw bits of a float tensor (NaN compares equal to itself)."""
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def _rq_rows(m, k, dtype, seed):
+    """Normal rows, each at its own power-of-two scale within ``dtype``'s
+    range."""
+    g = torch.Generator().manual_seed(seed)
+    lo, hi = (-8, 10) if dtype == torch.float16 else (-40, 40)
+    e = torch.randint(lo, hi, (m, 1), generator=g).float()
+    return (torch.randn(m, k, generator=g) * torch.exp2(e)).to(dtype)
+
+
+def _rq_check(monkeypatch, x, bits, cpu_rows=None):
+    """The kernel path once (one launch, counted as a kernel call), equal to
+    the plain chain on the card bit for bit and, on ``cpu_rows`` (all rows
+    by default) whose quotients hold no NaN, to the CPU's (a NaN code is
+    the device's own float-to-int8 conversion)."""
+    tq.quantize_stats.reset()
+    before = rqk.launches["row_quantize"]
+    codes, scale = tq.absmax_quantize(x, bits=bits)
+    assert (tq.quantize_stats.kernel, tq.quantize_stats.plain) == (1, 0)
+    assert rqk.launches["row_quantize"] == before + (x.numel() > 0)
+    want_c, want_s = _plain_quantize(monkeypatch, x, bits)
+    torch.cuda.synchronize()
+    assert codes.shape == want_c.shape and scale.shape == want_s.shape
+    assert torch.equal(codes, want_c)
+    assert torch.equal(_bits(scale), _bits(want_s))
+    out = codes, scale
+    if x.dim() > 1:
+        x, codes, scale = (t.reshape(-1, t.shape[-1]) for t in (x, codes, scale))
+        if cpu_rows is not None:
+            x, codes, scale = x[cpu_rows], codes[cpu_rows], scale[cpu_rows]
+        keep = ~torch.isnan(x.float() / scale.float()).any(-1)
+        x, codes, scale = x[keep], codes[keep], scale[keep]
+    cpu_c, cpu_s = tq.absmax_quantize(x.cpu(), bits=bits)
+    assert torch.equal(codes.cpu(), cpu_c) and torch.equal(scale.cpu(), cpu_s)
+    return out
+
+
+@pytest.mark.parametrize("bits", [4, 7, 8])
+@pytest.mark.parametrize("m", [1, 3, 8192])
+@pytest.mark.parametrize("k", [1, 7, 8, 1536, 8960, 8961, 12288])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_row_quantize_kernel_equals_plain_chain(card, monkeypatch, dtype, k,
+                                                m, bits):
+    """Codes and scales of the row kernel bit for bit against the plain
+    chain on the card, and on every 64th row and the last against the
+    CPU's."""
+    x = _rq_rows(m, k, dtype, m * 7 + k + bits).to(card)
+    rows = sorted(set(range(0, m, 64)) | {m - 1})
+    _rq_check(monkeypatch, x, bits, rows)
+
+
+def _edge_rows(k, dtype):
+    """Rows at the edges of the chain: all zeros (scale T(1e-8)/qmax),
+    magnitudes under 1e-8, quotients on k + 0.5 at scale 1 and 3 (a tie
+    rint takes to the even side), codes at the ±127.5 saturation edge, a
+    NaN, +inf and -inf, and a random row."""
+    j = torch.arange(k, dtype=torch.float32)
+    ties = (j % 255) - 127 + 0.5
+    ties[0] = 127.0
+    sat = torch.where(j % 2 == 0, 1.0, -1.0) * (100.0 - (j % 7) * 2 ** -6)
+    sat[0] = -100.0
+    nan = torch.randn(k, generator=torch.Generator().manual_seed(k))
+    pinf, ninf = nan.clone(), nan.clone()
+    nan[k // 2] = float("nan")
+    pinf[k // 3] = float("inf")
+    ninf[(2 * k) // 3] = -float("inf")
+    rows = [torch.zeros(k), torch.linspace(-9e-9, 9e-9, k), ties, 3 * ties,
+            sat, -sat, ties / 127 * 7, nan, pinf, ninf,
+            torch.randn(k, generator=torch.Generator().manual_seed(k + 1))]
+    return torch.stack(rows).to(dtype)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("k", [8, 1536, 8961])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_row_quantize_kernel_edge_rows(card, monkeypatch, dtype, k, bits):
+    """The edge rows on the card bit for bit against the plain chain there
+    (a NaN row's scale and codes as the card's plain path gives them), the
+    finite rows against the CPU too."""
+    x = _edge_rows(k, dtype).to(card)
+    codes, scale = _rq_check(monkeypatch, x, bits)
+    floor = torch.tensor(1e-8, dtype=dtype)
+    assert torch.equal(scale[0].cpu(), fp.true_divide(
+        floor, 2.0 ** (bits - 1) - 1).reshape(1))
+    assert torch.isnan(scale[7]).item() and torch.isinf(scale[8]).item()
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_row_quantize_kernel_every_value_under_every_absmax(card, monkeypatch,
+                                                            dtype, bits):
+    """Every pair (x, absmax) of finite bf16 or fp16 values with
+    |x| <= absmax, of either sign: a row per absmax holding every
+    non-negative finite value (those above it cut to it), and its negation.
+    The kernel's codes and scales equal the plain chain's on the card."""
+    top = 0x7F80 if dtype == torch.bfloat16 else 0x7C00  # +inf's bits
+    vals = torch.arange(top, dtype=torch.int32, device=card).to(
+        torch.int16).view(dtype)
+    for sign in (1, -1):
+        for first in range(1, top, 4096):
+            c = vals[first:first + 4096, None]
+            x = sign * torch.where(vals[None, :] <= c, vals[None, :], c)
+            tq.quantize_stats.reset()
+            codes, scale = tq.absmax_quantize(x, bits=bits)
+            assert tq.quantize_stats.kernel == 1
+            want_c, want_s = _plain_quantize(monkeypatch, x, bits)
+            assert torch.equal(codes, want_c), (sign, first)
+            assert torch.equal(_bits(scale), _bits(want_s)), (sign, first)
+
+
+@pytest.mark.parametrize("view", ["padded", "every_other_row", "odd_k",
+                                  "unaligned_start", "3d_copy", "1d",
+                                  "empty"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_row_quantize_kernel_on_strided_views(card, monkeypatch, dtype, view):
+    """Row-strided views run in place (the vector form where every row
+    starts 16-byte aligned, the scalar form elsewhere), leading dims that
+    do not flatten to one stride through one exact copy, a 1-D row, and
+    no rows at all (no launch)."""
+    base = _rq_rows(24, 1552, dtype, 5).to(card)
+    x = {"padded": base[:, :1536],
+         "every_other_row": base[::2, :1536],
+         "odd_k": base[:, :1537],
+         "unaligned_start": base[:, 1:1537],
+         "3d_copy": base[:, :1536].reshape(4, 6, 1536)[:, :4],
+         "1d": base[5, :1536],
+         "empty": base[:0, :1536]}[view]
+    assert x.stride(-1) == 1
+    _rq_check(monkeypatch, x, 8)
+
+
+def test_row_quantize_kernel_longest_rows_and_refusals(card, monkeypatch):
+    """K = MAX_K in both forms; what the kernel does not take goes to the
+    plain chain from ``absmax_quantize`` and raises from the wrapper."""
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _rq_rows(3, rqk.MAX_K + 1, dtype, 9).to(card)
+        _rq_check(monkeypatch, x[:, :rqk.MAX_K].contiguous(), 8)  # vectors
+        _rq_check(monkeypatch, x[:, 1:], 8)  # unaligned rows: scalar form
+    x = _rq_rows(4, 64, torch.bfloat16, 1).to(card)
+    bad = {"cpu": (x.cpu(), 8), "float64": (x.double(), 8),
+           "bits": (x, 12), "strided last dim": (x[:, ::2], 8),
+           "no columns": (x[:, :0], 8),
+           "too long": (torch.zeros(1, rqk.MAX_K + 1, device=card), 8)}
+    before = rqk.launches["row_quantize"]
+    for name, (arg, bits) in bad.items():
+        with pytest.raises(ValueError):
+            rqk.row_quantize(arg, bits)
+    for name in ("float64", "bits", "strided last dim", "too long"):
+        arg, bits = bad[name]
+        tq.quantize_stats.reset()
+        got = tq.absmax_quantize(arg, bits=bits)
+        assert (tq.quantize_stats.kernel, tq.quantize_stats.plain) == (0, 1)
+        for g, w in zip(got, _plain_quantize(monkeypatch, arg, bits)):
+            assert torch.equal(g, w)
+    assert rqk.launches["row_quantize"] == before
+
+
+@pytest.mark.parametrize("k,n", [(1536, 1536), (1536, 256), (1536, 8960),
+                                 (8960, 1536)])
+def test_w8a8_matmul_int_row_kernel_equals_bypassed(card, monkeypatch, k, n):
+    """At the qwen2 cell's shapes (M = 4 · 2048, bf16 activations) the W8A8
+    linear through the row kernel equals the same call on the plain
+    chain."""
+    g = torch.Generator(device=card).manual_seed(k + n)
+    x = torch.randn(4, 2048, k, generator=g, device=card).to(torch.bfloat16)
+    w = torch.randn(k, n, generator=g, device=card) / k ** 0.5
+    wc, ws = tq.quantize_tree({"w": w})["w"]
+    tq.quantize_stats.reset()
+    got = tq.w8a8_matmul_int(x, wc, ws)
+    assert (tq.quantize_stats.kernel, tq.quantize_stats.plain) == (1, 0)
+    with monkeypatch.context() as mp:
+        mp.setattr(tq, "row_kernel_applies", lambda *a: False)
+        want = tq.w8a8_matmul_int(x, wc, ws)
+    torch.cuda.synchronize()
+    assert got.shape == (4, 2048, n) and torch.equal(got, want)
+
+
+def test_quantized_qwen2_prefill_quantizes_on_the_row_kernel(card,
+                                                             monkeypatch):
+    """qwen2-1.5b at full width, 2 layers, W8A8 weights: each of the 14
+    activation quantizes of the prefill is a kernel call, and the logits
+    equal those of the same prefill on the plain chain."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, transformer
+    cfg = get_config("qwen2-1.5b").replace(n_layers=2)
+    params = transformer.init(torch.Generator(device=card).manual_seed(2),
+                              cfg, device=card)
+    q = tq.quantize_tree(params)
+    del params
+    tok = torch.randint(0, cfg.vocab_size, (2, 256), device=card,
+                        generator=torch.Generator(device=card).manual_seed(3))
+    model = build_model(cfg, device=card)
+    tq.quantize_stats.reset()
+    rqk.reset_launches()
+    got = model.prefill(q, tokens=tok)
+    assert (tq.quantize_stats.kernel, tq.quantize_stats.plain) == (14, 0)
+    assert rqk.launches["row_quantize"] == 14
+    with monkeypatch.context() as mp:
+        mp.setattr(tq, "row_kernel_applies", lambda *a: False)
+        want = model.prefill(q, tokens=tok)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ from repro_torch.core import fixedpoint as tfp
 from repro_torch.core import quantize as tq
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import row_quantize as rqk
 
 torch.set_num_threads(1)
 
@@ -166,6 +167,102 @@ def test_quantized_linear_without_a_card_raises():
         pytest.skip("a CUDA card is visible: the default device works here")
     with pytest.raises(RuntimeError, match="cuda"):
         tq.QuantizedLinear(np.ones((4, 4), np.float32))
+
+
+# ---------------------------------------------------------------------------
+# which path absmax_quantize takes (the row kernel runs on the card only)
+# ---------------------------------------------------------------------------
+
+_ROW = dict(device_type="cuda", dtype=torch.bfloat16, shape=(8, 1536),
+            last_stride=1, axis=-1, bits=8)
+
+
+@pytest.mark.parametrize("change,takes", [
+    ({}, True),
+    ({"dtype": torch.float16}, True),
+    ({"dtype": torch.float32}, True),
+    ({"shape": (1536,)}, True),
+    ({"shape": (2, 3, 1536), "axis": 2}, True),
+    ({"bits": 1}, True),
+    ({"bits": 4}, True),
+    ({"shape": (8, rqk.MAX_K)}, True),
+    ({"device_type": "cpu"}, False),
+    ({"device_type": "meta"}, False),
+    ({"dtype": torch.float64}, False),
+    ({"dtype": torch.int8}, False),
+    ({"axis": 0}, False),
+    ({"axis": -2}, False),
+    ({"shape": (2, 3, 1536), "axis": 1}, False),
+    ({"shape": ()}, False),
+    ({"bits": 0}, False),
+    ({"bits": 12}, False),
+    ({"bits": 16}, False),
+    ({"last_stride": 2}, False),
+    ({"shape": (8, 0)}, False),
+    ({"shape": (8, rqk.MAX_K + 1)}, False),
+])
+def test_row_kernel_rule(change, takes):
+    """The row kernel takes a card tensor in bf16, fp16 or fp32 whose absmax
+    runs over its contiguous last axis, 1 ≤ K ≤ MAX_K, at 1 to 8 bits."""
+    assert rqk.kernel_applies(**{**_ROW, **change}) is takes
+
+
+@pytest.mark.parametrize("why", ["dtensor", "grad", "dispatch_mode"])
+def test_row_kernel_refused_by_the_caller(why, monkeypatch):
+    """Whatever the kernel's own rule says, ``row_kernel_applies`` keeps
+    DTensors, inputs autograd records a graph through and calls under a
+    dispatch mode (the dry run's cost counter) on the plain chain."""
+    monkeypatch.setattr(rqk, "kernel_applies", lambda *a: True)
+    x = torch.ones(4, 8)
+    assert tq.row_kernel_applies(x, 8, -1)
+    if why == "dtensor":
+        from torch.distributed.tensor import Replicate, distribute_tensor
+        from repro_torch.launch.mesh import fake_world, make_mesh
+        with fake_world(1):
+            mesh = make_mesh((1,), ("data",), device="meta")
+            d = distribute_tensor(x.to("meta"), mesh, [Replicate()])
+            assert not tq.row_kernel_applies(d, 8, -1)
+    elif why == "grad":
+        xg = x.clone().requires_grad_(True)
+        assert not tq.row_kernel_applies(xg, 8, -1)
+        with torch.no_grad():
+            assert tq.row_kernel_applies(xg, 8, -1)
+    else:
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class Seen(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                return func(*args, **(kwargs or {}))
+
+        with Seen():
+            assert not tq.row_kernel_applies(x, 8, -1)
+
+
+@pytest.mark.parametrize("device,grad", [("cpu", False), ("cpu", True),
+                                         ("meta", False)])
+@pytest.mark.parametrize("bits,axis", [(8, -1), (8, 0), (8, -2), (12, -1)])
+def test_absmax_quantize_off_the_card_counts_no_call(device, grad, bits,
+                                                     axis):
+    """Off the card every call runs the plain chain and ``quantize_stats``
+    (calls on card tensors) counts nothing; ``w8a8_matmul_int`` takes its
+    float32 scale from the plain scale there."""
+    x = _t(_data(bits, 2, 6, 40)).to(device).requires_grad_(grad)
+    tq.quantize_stats.reset()
+    codes, scale = tq.absmax_quantize(x, bits=bits, axis=axis)
+    codes3, scale3, scale32 = tq._absmax_quantize(x, bits, axis)
+    assert (tq.quantize_stats.kernel, tq.quantize_stats.plain) == (0, 0)
+    assert scale32 is None
+    assert codes.dtype == (torch.int8 if bits <= 8 else torch.int16)
+    red = [2, 6, 40]
+    red[axis] = 1
+    assert codes.shape == x.shape and scale.shape == tuple(red)
+    if device == "cpu":
+        assert torch.equal(codes, codes3) and torch.equal(scale, scale3)
+        w = _data(3, 40, 16)
+        wc, ws = jq.absmax_quantize(jnp.asarray(w), axis=0)
+        _eq(tq.w8a8_matmul_int(x.detach(), _t(wc), _t(ws)),
+            jq.w8a8_matmul_int(jnp.asarray(x.detach().numpy()), wc, ws))
+    assert (tq.quantize_stats.kernel, tq.quantize_stats.plain) == (0, 0)
 
 
 def _tree(seed):
