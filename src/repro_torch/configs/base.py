@@ -20,9 +20,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["ModelConfig", "DeepSeekConfig", "ShapeConfig", "SHAPES",
-           "reduced", "active_params", "param_count", "remat_group_size",
-           "n_heads_ssm"]
+__all__ = ["ModelConfig", "DeepSeekConfig", "Zamba2Config", "ShapeConfig",
+           "SHAPES", "reduced", "active_params", "param_count",
+           "remat_group_size", "n_heads_ssm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,6 +157,45 @@ class DeepSeekConfig(ModelConfig):
     norm_topk_prob: bool = True
     moe_dropless: bool = False
     rope_scaling: Tuple[Tuple[str, object], ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class Zamba2Config(ModelConfig):
+    """A :class:`ModelConfig` with Zamba2's published layer pattern, shared
+    blocks and Mamba-2 grouping as fields, named as in its ``config.json``
+    (family ``zamba2``, ``models/zamba2.py``).  The trunk's fields keep
+    their meaning: ``n_layers`` Mamba-2 layers of width ``d_model``,
+    ``ssm_state``, ``ssm_head_dim``, ``ssm_expand`` and ``conv_width``;
+    the shared blocks' ``n_heads`` heads of ``head_dim`` and the gated
+    GELU MLP of width ``d_ff``.
+
+    * ``hybrid_layer_ids``: the layers that run a shared block first;
+      application ``j`` runs before layer ``hybrid_layer_ids[j]`` on
+      block ``j % num_mem_blocks`` with adapter ``j``.
+    * ``num_mem_blocks``: the shared attention + MLP blocks.
+    * ``attention_hidden_size``: a shared block's input width, the
+      hidden state and the embedding concatenated (``2·d_model``).
+    * ``attention_head_dim``: ``head_dim`` under its published name.
+    * ``adapter_rank``, ``use_shared_mlp_adapter``,
+      ``use_shared_attention_adapter``: per-application LoRA on the MLP's
+      gate and up projection, and on q, k and v.
+    * ``mamba_ngroups``: groups of heads sharing one B and one C.
+    * ``use_mem_rope``: rotary positions in the shared attention.
+    * ``chunk_size``: the published SSD chunk, at which the benchmark
+      prices the SSD's work; the result does not depend on it, and the
+      port runs its own (``models/zamba2.py``).
+    """
+
+    hybrid_layer_ids: Tuple[int, ...] = ()
+    num_mem_blocks: int = 1
+    attention_hidden_size: int = 0
+    attention_head_dim: int = 0
+    adapter_rank: int = 0
+    use_shared_mlp_adapter: bool = False
+    use_shared_attention_adapter: bool = False
+    mamba_ngroups: int = 1
+    use_mem_rope: bool = False
+    chunk_size: int = 256
 
 
 @dataclasses.dataclass(frozen=True)

@@ -24,7 +24,7 @@ import torch
 from ..configs.base import ModelConfig, ShapeConfig
 from ..core.inference import resolve_device
 from ..core.quantize import k_major_pairs
-from . import encdec, rwkv6, ssm, transformer
+from . import encdec, rwkv6, ssm, transformer, zamba2
 
 __all__ = ["Model", "build_model", "params_from_numpy"]
 
@@ -135,6 +135,19 @@ def build_model(cfg: ModelConfig, *, wkv: Optional[str] = None,
             decode_step=lambda p, c, t, pos: ssm.decode_step(p, c, t, pos,
                                                              cfg),
             init_caches=lambda b, s: ssm.init_caches(cfg, b, s, device=dev),
+        )
+    if cfg.family == "zamba2":
+        dev = resolve_device(device)
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init=lambda g: zamba2.init(g, cfg, device=dev),
+            loss_fn=lambda p, b: zamba2.loss_fn(p, b, cfg),
+            prefill=lambda p, **inp: zamba2.prefill(p, inp["tokens"], cfg),
+            decode_step=lambda p, c, t, pos: zamba2.decode_step(p, c, t, pos,
+                                                                cfg),
+            init_caches=lambda b, s: zamba2.init_caches(cfg, b, s,
+                                                        device=dev),
         )
     if cfg.family == "encdec":
         dev = resolve_device(device)

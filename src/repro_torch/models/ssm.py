@@ -49,7 +49,8 @@ from .layers import (embed_tokens, layer_params, scan_layers, stack_layers,
                      tied_unembed, unstack_layers)
 
 __all__ = ["init_mamba_block", "mamba_block_fwd", "init", "forward",
-           "loss_fn", "init_caches", "decode_step", "prefill"]
+           "loss_fn", "init_caches", "decode_step", "prefill", "ssd_grouped",
+           "ssd_step_grouped"]
 
 Params = Dict[str, Any]
 
@@ -124,16 +125,20 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y + b.to(x.dtype), new_state
 
 
-def _ssd_chunked(xh, bmat, cmat, dt, a, chunk: int = _CHUNK):
+def _ssd_chunked(xh, bmat, cmat, dt, a, chunk: int = _CHUNK,
+                 floor: Optional[float] = -30.0, with_state: bool = False):
     """Chunked SSD. xh: (B,T,H,dh); bmat/cmat: (B,T,N); dt: (B,T,H); a: (H,)<0.
 
     Per head: logdec_t = dt_t·a; cum = cumsum inside a chunk, clamped at
-    −30 (so exp(cum_t − cum_i) above the diagonal stays finite before the
-    mask zeroes it); scores(t,i) = exp(cum_t−cum_i)·(C_t·B_i)·dt_i for i≤t;
+    ``floor`` (the reference's −30; ``None``: not clamped);
+    scores(t,i) = exp(cum_t−cum_i)·(C_t·B_i)·dt_i for i≤t, the exponent
+    masked to −inf above the diagonal before the exp;
     y = scores @ x + exp(cum_t)·(S0 C_t), S0 the state at the chunk's start.
     The chunk-local terms are computed for every chunk at once; only the
     state carry S' = exp(cum_T)·S0 + Σ_i exp(cum_T−cum_i)·dt_i·(x_i ⊗ B_i)
-    loops over the chunks.
+    loops over the chunks.  ``with_state`` also returns the state after
+    the last position (B,H,dh,N): padded positions have dt = 0 and leave
+    it as it is.
     """
     b, t, h, dh = xh.shape
     n = bmat.shape[-1]
@@ -151,12 +156,15 @@ def _ssd_chunked(xh, bmat, cmat, dt, a, chunk: int = _CHUNK):
     dtc = dt.reshape(b, nc, chunk, h).permute(1, 0, 3, 2)  # (nc,B,H,T)
 
     logdec = dtc * a[None, None, :, None]  # ≤ 0
-    cum = torch.clamp_min(torch.cumsum(logdec, dim=-1), -30.0)
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=xh.dtype,
-                                device=xh.device))  # inclusive
+    cum = torch.cumsum(logdec, dim=-1)
+    if floor is not None:
+        cum = torch.clamp_min(cum, floor)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=xh.device).tril()  # inclusive
 
     # intra-chunk: G(t,i) = exp(cum_t − cum_i), masked causal-inclusive
-    g = torch.exp(cum[..., :, None] - cum[..., None, :]) * tri
+    g = torch.exp((cum[..., :, None] - cum[..., None, :]).masked_fill(
+        ~tri, -math.inf))
     cb = torch.einsum("cbtn,cbsn->cbts", cm, bm)  # (nc,B,T,S)
     scores = cb[:, :, None] * g * dtc[..., None, :]  # (nc,B,H,T,S)
     y = torch.einsum("cbhts,cbhsd->cbhtd", scores, x)
@@ -176,7 +184,23 @@ def _ssd_chunked(xh, bmat, cmat, dt, a, chunk: int = _CHUNK):
     y = y + torch.exp(cum)[..., None] * torch.einsum("cbtn,cbhdn->cbhtd",
                                                      cm, s0)
     y = y.permute(1, 0, 3, 2, 4).reshape(b, tt, h, dh)
-    return y[:, :t]
+    return (y[:, :t], s) if with_state else y[:, :t]
+
+
+def ssd_grouped(xh, bmat, cmat, dt, a, chunk: int):
+    """The chunked SSD with B and C in groups of heads, unclamped.
+    xh: (B,T,H,dh); bmat/cmat: (B,T,G,N), head h reading group
+    h // (H/G); dt: (B,T,H); a: (H,)<0.  Each group's heads run
+    :func:`_ssd_chunked` with ``floor=None``.  Returns y (B,T,H,dh) and
+    the state after the last position (B,H,dh,N)."""
+    g = bmat.shape[2]
+    per = xh.shape[2] // g
+    out = [_ssd_chunked(xh[:, :, i * per:(i + 1) * per], bmat[:, :, i],
+                        cmat[:, :, i], dt[:, :, i * per:(i + 1) * per],
+                        a[i * per:(i + 1) * per], chunk, floor=None,
+                        with_state=True) for i in range(g)]
+    return (torch.cat([y for y, _ in out], dim=2),
+            torch.cat([st for _, st in out], dim=1))
 
 
 def _ssd_step(state, xh, bvec, cvec, dt, a):
@@ -185,6 +209,20 @@ def _ssd_step(state, xh, bvec, cvec, dt, a):
     upd = torch.einsum("bhd,bn->bhdn", xh * dt[..., None], bvec)
     new_state = state * dec[..., None, None] + upd
     y = torch.einsum("bhdn,bn->bhd", new_state, cvec)
+    return y, new_state
+
+
+def ssd_step_grouped(state, xh, bvec, cvec, dt, a):
+    """One recurrent step with B and C in groups of heads: state
+    (B,H,dh,N); xh: (B,H,dh); bvec/cvec: (B,G,N), head h reading group
+    h // (H/G); dt: (B,H); a: (H,)."""
+    per = xh.shape[1] // bvec.shape[1]
+    bh = bvec.repeat_interleave(per, dim=1)  # (B,H,N)
+    ch = cvec.repeat_interleave(per, dim=1)
+    dec = torch.exp(dt * a[None, :])
+    upd = torch.einsum("bhd,bhn->bhdn", xh * dt[..., None], bh)
+    new_state = state * dec[..., None, None] + upd
+    y = torch.einsum("bhdn,bhn->bhd", new_state, ch)
     return y, new_state
 
 

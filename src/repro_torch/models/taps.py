@@ -1,4 +1,4 @@
-"""Taps on the intermediate values of a transformer prefill.
+"""Taps on the intermediate values of a transformer or Zamba2 prefill.
 
 ``with taps.recording(fn):`` calls ``fn(site, tensors)`` at each tap a
 ``transformer.prefill`` passes, in order, with the tensors as the pass
@@ -15,8 +15,22 @@ is in ``transformer.block_fwd``, so the other passes that run blocks
 * ``"head"``: ``(x, logits)``, the last position's hidden state before
   the final norm (B, 1, D) and its logits.
 
-This is the contract that the benchmark's MLA + MoE prefill surface
-(``portbench/surfaces/mla_moe_prefill.py``) reads to hold each piece of a
+A Zamba2 pass (``models/zamba2.py``) taps its own sites, in order:
+
+* ``"embed"``: ``(e,)``, the embedding's rows (B, S, D);
+* ``"shared"``, once an application, before the layer it feeds:
+  ``(hc, attn, t)``, the block's input ``[h ‖ e]`` (B, S, 2D), the
+  attention's output after ``W_o`` (B, S, D) and ``t``, the MLP's output
+  after the application's ``linear`` (B, S, D);
+* ``"mamba"``, once a layer in layer order: ``(x, t, u, mix, y)`` on a
+  hybrid layer and ``(x, u, mix, y)`` on the others: the layer's input,
+  the shared term, the norm's output (the mixer's input), the mixer's
+  output and the layer's output ``x + mix``;
+* ``"head"``: ``(x, logits)`` as above.
+
+This is the contract that the benchmark's MLA + MoE and hybrid prefill
+surfaces (``portbench/surfaces/mla_moe_prefill.py``,
+``portbench/surfaces/hybrid_prefill.py``) read to hold each piece of a
 call against its reference: a change that fuses or reorders these steps
 keeps passing the same values here.  Without a recording a tap costs one
 test of a module global.  Record no-grad passes: under ``cfg.remat`` a
