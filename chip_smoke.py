@@ -284,6 +284,7 @@ from repro_torch.kernels import flow_update as fuk  # noqa: E402
 from repro_torch.kernels import forest_traversal as ftk  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import row_quantize as ROW_QUANT  # noqa: E402
+from repro_torch.kernels import ssd_scan as SSD_SCAN  # noqa: E402
 from repro_torch.kernels.ops import forest_traverse, fused_mlp  # noqa: E402
 from repro_torch.kernels.ref import (FLOW_CODE_MAX,  # noqa: E402
                                      flow_update_ref,
@@ -380,10 +381,15 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/row_quantize.cu",
         replaces="none: src/repro/core/quantize.py::absmax_quantize is plain "
                  "jax.numpy"),
+    "ssd_scan": dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="none: the chunked SSD of src/repro/models/ssm.py is plain "
+                 "jax.numpy"),
 }
 SOURCES = ["fixedpoint_mlp", "forest_traversal", "flow_update",
            "fixedpoint_matmul", "taylor_activation", "wkv_scan",
-           "flash_attention", "row_quantize"]
+           "flash_attention", "row_quantize", "ssd_scan"]
 
 # one qwen2-1.5b decoder layer (src/repro/configs/qwen2_1_5b.py): d_model
 # 1536, q_dim 12·128, kv_dim 2·128, d_ff 8960; leaf names as
@@ -3011,6 +3017,200 @@ def row_quantize_numbers(dev, launches: int, card: str) -> list:
     return entries
 
 
+# the SSD scan at Zamba2-7B's per-layer shape on the benchmark's prefill
+# (4 × 4096 positions, 112 heads of 64 in 2 groups, state 64, bf16 x, B, C)
+# and around it: one position, ragged chunks, one group, strong decays
+# (dt up to 2, A down to −112), B and C of group 0 expanded (stride 0), fp32
+SSD_CELL = (4, 4096, 112, 2)
+SSD_CASES = [("cell", SSD_CELL, torch.bfloat16, False, False),
+             ("cell strong", SSD_CELL, torch.bfloat16, True, False),
+             ("cell group 0", SSD_CELL, torch.bfloat16, False, True),
+             ("T=1", (1, 1, 112, 2), torch.bfloat16, True, False),
+             ("T=4097", (1, 4097, 16, 2), torch.bfloat16, True, False),
+             ("T=65 G=1", (4, 65, 8, 1), torch.float32, True, False)]
+SSD_TOL = 1e-4  # relative L2 against the plain float32 form (TF32: ≈1e-3)
+
+
+def ssd_operands(dev, shape, dtype, strong: bool, expand: bool, seed: int):
+    """x, B, C normal; A = −1 … −H as Zamba2 initialises it; dt
+    log-uniform over [1e-3, 0.1] (its dt_bias) or, strong, uniform over
+    [0, 2]; with ``expand`` B and C are group 0's, expanded."""
+    b, t, h, grp = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, t, h, 64, generator=gen, device=dev).to(dtype)
+    bm = torch.randn(b, t, grp, 64, generator=gen, device=dev).to(dtype)
+    cm = torch.randn(b, t, grp, 64, generator=gen, device=dev).to(dtype)
+    u = torch.rand(b, t, h, generator=gen, device=dev)
+    dt = 2 * u if strong else torch.exp(u * math.log(100.0) + math.log(1e-3))
+    a = -torch.arange(1, h + 1, dtype=torch.float32, device=dev)
+    if expand:
+        bm, cm = (m[:, :, :1].expand_as(m) for m in (bm, cm))
+    return x, bm, cm, dt, a
+
+
+def ssd_plain(x, bm, cm, dt, a):
+    """``zamba2.ssd``'s plain prefill: the float32 copies, then
+    ``ssm.ssd_grouped`` in chunks of 64."""
+    f32 = torch.float32
+    return SSM.ssd_grouped(x.to(f32), bm.to(f32), cm.to(f32), dt, a, 64)
+
+
+def ssd_errors(got: tuple, want: tuple) -> tuple:
+    """The largest relative L2 and the largest absolute difference of y and
+    the final state against the plain form's."""
+    rel = ab = 0.0
+    for g, w in zip(got, want):
+        d = g.double() - w.double()
+        rel = max(rel, float(d.norm() / w.double().norm()))
+        ab = max(ab, float(d.abs().max()))
+    return rel, ab
+
+
+def check_ssd_kernels(dev) -> tuple:
+    """Phase 3 for the SSD scan: y and the final state against the plain
+    float32 form at relative L2 ``SSD_TOL``, one launch a call.  Returns
+    the largest relative L2 and the largest absolute difference."""
+    worst = (0.0, 0.0)
+    for i, (label, shape, dtype, strong, expand) in enumerate(SSD_CASES):
+        ops_ = ssd_operands(dev, shape, dtype, strong, expand, SEED + 100 + i)
+        before = SSD_SCAN.launches["ssd_scan"]
+        got = SSD_SCAN.ssd_scan(*ops_)
+        launched = SSD_SCAN.launches["ssd_scan"] - before
+        want = ssd_plain(*ops_)
+        torch.cuda.synchronize()
+        rel, ab = ssd_errors(got, want)
+        log(f"kernel ssd_scan {label} (B, T, H, G) = {shape} {dtype}: "
+            f"relative L2 {rel:.3e} (max_abs_err {ab:.3e}), y and state, "
+            f"against the plain float32 form; launches {launched}")
+        if launched != 1 or not rel <= SSD_TOL:
+            raise SystemExit(f"ssd_scan {label}: launches {launched}, "
+                             f"relative L2 {rel} above {SSD_TOL}")
+        worst = (max(worst[0], rel), max(worst[1], ab))
+        del ops_, got, want
+    free_card()
+    return worst
+
+
+# zamba2-7b (src/repro_torch/configs/zamba2_7b.py) at its published widths
+# in bf16, cut to ZAMBA7_LAYERS Mamba layers and one application of each
+# shared block, on the benchmark cell's prefill (4 × 4096 seeded tokens):
+# models/zamba2.py sends every prefill SSD to the scan kernel
+ZAMBA7_ARCH = "zamba2-7b"
+ZAMBA7_LAYERS, ZAMBA7_SHARED = 4, (1, 3)
+ZAMBA7_BATCH, ZAMBA7_SEQ = 4, 4096
+
+
+def run_zamba2_7b_prefill(dev, card: str) -> dict:
+    """The zamba2-7b prefill through ``models/zamba2.py`` with the counters
+    zeroed right before it: every prefill SSD on the kernel (``ssd_kernel``
+    = layers, ``ssd_plain`` 0, one launch each), each call within
+    ``SSD_TOL`` of the plain float32 form on its own operands; then the
+    prefill timed with the kernel and with the plain form, in turns."""
+    from repro_torch.models import zamba2 as Z
+    cfg = get_config(ZAMBA7_ARCH).replace(n_layers=ZAMBA7_LAYERS,
+                                          hybrid_layer_ids=ZAMBA7_SHARED)
+    g = torch.Generator(device=dev).manual_seed(SEED + 112)
+    params = Z.init(g, cfg, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (ZAMBA7_BATCH, ZAMBA7_SEQ),
+                           generator=g, device=dev)
+    ssd, rule = Z.ssd, Z.ssd_kernel_applies
+    errs = []
+
+    def checked(xh, bmat, cmat, dt, a, chunk, state=None):
+        out = ssd(xh, bmat, cmat, dt, a, chunk, state)
+        if state is None:
+            errs.append(ssd_errors(out, ssd_plain(xh, bmat, cmat, dt, a)))
+        return out
+
+    def plain():
+        Z.ssd_kernel_applies = lambda *a: False
+        try:
+            return Z.prefill(params, tokens, cfg)
+        finally:
+            Z.ssd_kernel_applies = rule
+
+    def wall(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    label = (f"{ZAMBA7_ARCH} prefill ({ZAMBA7_LAYERS} Mamba-2 layers at the "
+             f"published widths, bf16, B={ZAMBA7_BATCH} T={ZAMBA7_SEQ})")
+    with torch.no_grad():
+        Z.prefill(params, tokens, cfg)  # first call: allocator and cuBLAS
+        torch.cuda.synchronize()
+        Z.zamba2_stats.reset()
+        SSD_SCAN.reset_launches()
+        Z.ssd = checked
+        try:
+            logits = Z.prefill(params, tokens, cfg)
+        finally:
+            Z.ssd = ssd
+        torch.cuda.synchronize()
+        paths = (Z.zamba2_stats.ssd_kernel, Z.zamba2_stats.ssd_plain)
+        launches = SSD_SCAN.launches["ssd_scan"]
+        check_logits(label, logits, (ZAMBA7_BATCH, 1, cfg.vocab_size))
+        rel = max((e[0] for e in errs), default=math.inf)
+        ab = max((e[1] for e in errs), default=math.inf)
+        if (paths != (ZAMBA7_LAYERS, 0) or launches != ZAMBA7_LAYERS
+                or len(errs) != ZAMBA7_LAYERS or not rel <= SSD_TOL):
+            raise SystemExit(f"{label}: prefill SSDs (kernel, plain) {paths},"
+                             f" launches {launches}, {len(errs)} checked, "
+                             f"relative L2 {rel} (bound {SSD_TOL}); expected "
+                             f"{ZAMBA7_LAYERS} kernel, 0 plain")
+        plain()
+        secs = in_turns({"kernel": lambda: Z.prefill(params, tokens, cfg),
+                         "plain": plain},
+                        lambda fn: statistics.median(wall(fn)
+                                                     for _ in range(3)))
+        want = plain()
+    logits_l2 = float((logits.float() - want.float()).norm()
+                      / want.float().norm())
+    log(f"path {label}: prefill SSDs kernel {paths[0]}, plain {paths[1]}, "
+        f"ssd_scan launches {launches}; each call against the plain float32 "
+        f"form on its own operands: relative L2 ≤ {rel:.3e} (max_abs_err "
+        f"{ab:.3e}); last-position logits finite, relative L2 {logits_l2:.3e}"
+        f" against the plain form's; {secs['kernel']:.4f} s a prefill with "
+        f"the kernel, {secs['plain']:.4f} s with the plain form (host wall, "
+        f"the card synchronised, median of 3, in turns) [{card}]")
+    del params, tokens, logits, want
+    free_card()
+    return dict(launches=launches, rel_l2=rel, max_abs_err=ab,
+                prefill_s=secs["kernel"], plain_prefill_s=secs["plain"])
+
+
+def ssd_numbers(dev, worst: tuple, launches: int, card: str) -> dict:
+    """Phase 5 for the SSD scan at the cell's per-layer shape (bf16): the
+    kernel per call and queued and the plain form (the float32 copies and
+    ``ssm.ssd_grouped``), in turns, and the benchmark's bound of the layer's
+    SSD (``portbench/work_zamba2.ssd_bound_s``: its bytes at HBM bandwidth
+    at the published chunk, 256)."""
+    from portbench import work_zamba2
+    sizes = json.loads((Path(__file__).resolve().parent / "portbench"
+                        / "configs" / "zamba2_7b.json").read_text())
+    b, t = SSD_CELL[0], SSD_CELL[1]
+    ops_ = ssd_operands(dev, SSD_CELL, torch.bfloat16, False, False,
+                        SEED + 110)
+    calls = {"kernel": lambda: SSD_SCAN.ssd_scan(*ops_),
+             "plain": lambda: ssd_plain(*ops_)}
+    per_call = in_turns(calls, lambda fn: cuda_ms(fn, reps=7, inner=5))
+    queued = queued_ms(calls["kernel"], reps=5, inner=5)
+    b_ms = work_zamba2.ssd_bound_s(sizes, b, t) * 1e3
+    log(f"time ssd_scan (B, T, H, G, P, N) = {SSD_CELL + (64, 64)} bf16: "
+        f"kernel {per_call['kernel']:.4f} ms per call ({queued:.4f} queued; "
+        f"{b_ms / per_call['kernel']:.4f} of the bound), plain "
+        f"{per_call['plain']:.4f} ms, bound {b_ms:.6f} ms (bytes) [{card}]")
+    del ops_
+    free_card()
+    return dict(KERNELS["ssd_scan"], shape="4x4096 112x64 G=2 N=64",
+                launches=launches, rel_l2=worst[0], max_abs_err=worst[1],
+                ms=per_call["kernel"],
+                queued_ms=queued, plain_ms=per_call["plain"], bound_ms=b_ms,
+                bound_by="bytes", library_ms=None)
+
+
 def check_flash_calls(label: str, want: int) -> int:
     """After a run that began with ``FLASH_KERNEL.reset_launches()`` and
     ``FLASH.flash_stats.reset()``: every ``flash_attention`` call took the
@@ -4476,6 +4676,9 @@ def main() -> int:
     t0 = time.perf_counter()
     worst["flash_attention"] = check_flash_kernels(dev)
     log(f"flash attention kernel checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    worst["ssd_scan"] = check_ssd_kernels(dev)
+    log(f"SSD scan kernel checks: {time.perf_counter() - t0:.1f} s")
 
     # -- 4. the serving path --------------------------------------------------
     mixed = dict(forests=forests, drifted=drifted)
@@ -4515,6 +4718,9 @@ def main() -> int:
     worst["fixedpoint_matmul"] = max(worst["fixedpoint_matmul"],
                                      lmc["zamba2"]["gemm_err"],
                                      lmc["whisper"]["gemm_err"])
+    zamba7 = run_zamba2_7b_prefill(dev, smi)
+    worst["ssd_scan"] = tuple(max(w, zamba7[k]) for w, k in zip(
+        worst["ssd_scan"], ("rel_l2", "max_abs_err")))
     train = run_train_path(dev, smi)
 
     # -- 5. numbers -----------------------------------------------------------
@@ -4625,6 +4831,8 @@ def main() -> int:
                                  tf["qwen"]["flash_launches"], smi))
     kernels.extend(row_quantize_numbers(dev, tf["qwen"]["quantize_launches"],
                                         smi))
+    kernels.append(ssd_numbers(dev, worst["ssd_scan"], zamba7["launches"],
+                               smi))
     for label, p in path.items():
         kernel_s = sum(n * k_ms[k] * 1e-3 for k, n in p["launches"].items())
         log(f"path {label}: {p['packets_per_s']:.0f} packets/s, engine call "

@@ -19,6 +19,9 @@
   * ``row_quantize``      — the W8A8 linear's per-row activation quantize
     in one pass (``csrc/row_quantize.cu``); ``core.quantize.absmax_quantize``
     takes it where its input allows
+  * ``ssd_scan``          — the Mamba-2 SSD of a prefill in float32 accuracy,
+    each head's state on chip across its chunks (``csrc/ssd_scan.cu``);
+    ``models.zamba2.ssd`` takes it where its input allows
   * ``result_cache``     — the ingress result cache's probe sweeps as one
     host call per chunk (``csrc/result_cache.cpp``, built with the host
     C++ compiler)

@@ -33,12 +33,17 @@ where the gated norm multiplies by SiLU(z) first and then takes the RMS
 over each group's ``d_inner / G`` channels.  The head is the final RMSNorm
 and the tied embedding.
 
-The SSD runs chunked (``ssm.ssd_grouped``: the exponent masked before the
-exp, no clamp), its state and chunk sums in float32, in chunks of
+The SSD runs chunked, its state and chunk sums in float32, in chunks of
 ``SSD_CHUNK`` positions, the program's choice (the result does not depend
 on it; the published ``cfg.chunk_size`` is 256: a 4 × 4096 zamba2-7b
 prefill took 3.06 s a call at 256, 2.68 s at 128 and 2.54 s at 64 on one
-H100 at 700 W); decode is the recurrent step (``ssm.ssd_step_grouped``).
+H100 at 700 W, in the plain form).  A prefill's SSD on the card runs the
+hand-written scan ``kernels/ssd_scan.py`` (``csrc/ssd_scan.cu``, the same
+chunk), which raises on operands it does not take; the CPU, autograd,
+DTensors and dispatch modes (:func:`ssd_kernel_applies`) keep the plain
+``ssm.ssd_grouped`` (the exponent masked before the exp, no clamp).
+``zamba2_stats`` counts the prefill SSDs by path.  Decode is the
+recurrent step (``ssm.ssd_step_grouped``).
 Attention runs ``flash.flash_attention`` on q pre-scaled by (D/2)^-½.
 ``prefill`` with ``caches`` fills them (conv windows, SSD states, the
 applications' KV caches) for ``decode_step``, whose token's ``e`` row is
@@ -68,34 +73,41 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from ..configs.base import ModelConfig
 from ..core.inference import resolve_device
+from ..distributed.constrain import is_dtensor
+from ..kernels import ssd_scan
 from . import layers as L
 from . import ssm, taps
 from .layers import embed_tokens, layer_params, split_heads, stack_layers
 
 __all__ = ["init", "forward", "loss_fn", "prefill", "init_caches",
            "decode_step", "mamba_layer", "shared_block", "gated_norm",
-           "softmax_scale", "ssd", "zamba2_stats", "Zamba2Stats"]
+           "softmax_scale", "ssd", "ssd_kernel_applies", "zamba2_stats",
+           "Zamba2Stats"]
 
 Params = Dict[str, Any]
 
 GATED_EPS = 1e-5  # the published mixer's gated norm (fixed in its code)
-SSD_CHUNK = 64  # positions a chunk of the chunked SSD holds
+SSD_CHUNK = ssd_scan.CHUNK  # positions a chunk of the SSD holds, both forms
 
 
 class Zamba2Stats:
     """Counters of the Zamba2 passes since the last :meth:`reset`: tokens
     (rows × positions of each pass), Mamba layer calls, SSD chunks (rows ×
-    chunks of each chunked layer call) and shared-block applications by
-    block.  Host integers from the shapes (no device read)."""
+    chunks of each chunked layer call), the prefill SSDs by path
+    (``ssd_kernel``, the hand-written scan; ``ssd_plain``,
+    ``ssm.ssd_grouped``) and shared-block applications by block.  Host
+    integers from the shapes (no device read)."""
 
     def __init__(self):
         self.reset()
 
     def reset(self) -> None:
         self.tokens = self.mamba_layers = self.ssd_chunks = 0
+        self.ssd_kernel = self.ssd_plain = 0
         self.shared: Dict[int, int] = {}
 
 
@@ -247,14 +259,40 @@ def gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
     return (g.flatten(-2) * w).to(y.dtype)
 
 
+def ssd_kernel_applies(xh, bmat, cmat, dt, a) -> bool:
+    """Whether :func:`ssd`'s prefill goes to the scan kernel: the operands
+    are on the card and none of :func:`_plain_only`'s refusals holds.  The
+    kernel computes such a call or raises on what
+    ``kernels.ssd_scan.kernel_applies`` refuses: the card has no silent
+    plain form."""
+    return xh.is_cuda and not _plain_only(xh, bmat, cmat, dt, a)
+
+
+def _plain_only(*ops: torch.Tensor) -> bool:
+    """Whether a call must run the plain ops on any device: an operand is a
+    DTensor, autograd records a graph through one (the kernel has no
+    backward), or a dispatch mode (the dry run's cost counter, fake
+    tensors) is active, which must see them."""
+    return ((torch.is_grad_enabled() and any(t.requires_grad for t in ops))
+            or any(is_dtensor(t) for t in ops)
+            or _get_current_dispatch_mode() is not None)
+
+
 def ssd(xh, bmat, cmat, dt, a, chunk: int, state=None):
     """The SSD of one layer in float32: xh (B,T,H,dh), bmat/cmat
     (B,T,G,N) in the activation dtype, dt (B,T,H) and a (H,) float32.
-    Without ``state`` the chunked form over the sequence, else one
-    recurrent step from ``state`` (T = 1).  Returns y (B,T,H,dh) float32
-    and the state after the last position."""
+    Without ``state`` the chunked form over the sequence from a zero
+    state — the scan kernel where :func:`ssd_kernel_applies`, else
+    ``ssm.ssd_grouped`` in chunks of ``chunk`` — else one recurrent step
+    from ``state`` (T = 1).  Returns y (B,T,H,dh) float32 and the state
+    after the last position."""
     f32 = torch.float32
     if state is None:
+        if ssd_kernel_applies(xh, bmat, cmat, dt, a):
+            out = ssd_scan.ssd_scan(xh, bmat, cmat, dt, a)
+            zamba2_stats.ssd_kernel += 1
+            return out
+        zamba2_stats.ssd_plain += 1
         return ssm.ssd_grouped(xh.to(f32), bmat.to(f32), cmat.to(f32), dt,
                                a, chunk)
     y, s = ssm.ssd_step_grouped(state, xh[:, 0].to(f32), bmat[:, 0].to(f32),

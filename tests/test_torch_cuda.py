@@ -7,7 +7,9 @@ imports the JAX package, which this file does not need):
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import contextlib
 import importlib
+import math
 
 import numpy as np
 import pytest
@@ -27,12 +29,15 @@ from repro_torch.kernels import flow_update as fuk
 from repro_torch.kernels import forest_traversal as ftk
 from repro_torch.kernels import ops
 from repro_torch.kernels import row_quantize as rqk
+from repro_torch.kernels import ssd_scan as ssk
 from repro_torch.kernels.ref import (FLOW_CODE_MAX, flow_update_ref,
                                      forest_range_gather_ref,
                                      forest_traverse_gather_ref,
                                      fused_mlp_gather_ref, fused_mlp_warp_ref)
 from repro_torch.launch.serve import PacketServer
 from repro_torch.models import flash as FL
+from repro_torch.models import ssm
+from repro_torch.models import zamba2 as Z
 
 # the kernel modules (``repro_torch.kernels`` exports their wrappers, which
 # share the modules' names)
@@ -2258,3 +2263,198 @@ def test_gemm_wkv_and_flash_on_every_card_in_one_process(card):
             _FLASH_ATOL[torch.bfloat16]
         assert float((lse - want_lse).abs().max()) <= 1e-5
     assert torch.cuda.current_device() == 0
+
+
+# ---------------------------------------------------------------------------
+# the Mamba-2 SSD scan (csrc/ssd_scan.cu)
+# ---------------------------------------------------------------------------
+
+#: relative L2 of the kernel's y and final state against the plain float32
+#: ``ssm.ssd_grouped``: sums in another order read about 1e-6 (measured up to
+#: 8.4e-6 with strong decays); plain TF32 products read about 1e-3, so this
+#: bound is the kernel's float32 precision rule
+SSD_TOL = 1e-4
+
+
+def _ssd_operands(dev, b, t, h, g, p=64, n=64, dtype=torch.bfloat16,
+                  strong=False, expand=False, seed=0):
+    """x, B, C normal in ``dtype``; A = −1 … −H as Zamba2 initialises it;
+    dt log-uniform over [1e-3, 0.1] as its dt_bias gives it, or with
+    ``strong`` uniform over [0, 2] (decays down to e^-224 a step); with
+    ``expand`` B and C are group 0's, expanded (stride 0)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, t, h, p, generator=gen, device=dev).to(dtype)
+    bm = torch.randn(b, t, g, n, generator=gen, device=dev).to(dtype)
+    cm = torch.randn(b, t, g, n, generator=gen, device=dev).to(dtype)
+    u = torch.rand(b, t, h, generator=gen, device=dev)
+    dt = 2 * u if strong else torch.exp(u * math.log(100.0) + math.log(1e-3))
+    a = -torch.arange(1, h + 1, dtype=torch.float32, device=dev)
+    if expand:
+        bm, cm = (m[:, :, :1].expand_as(m) for m in (bm, cm))
+    return x, bm, cm, dt, a
+
+
+def _rel_l2(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-300))
+
+
+def _ssd_check(ops):
+    ssk.reset_launches()
+    y, state = ssk.ssd_scan(*ops)
+    x, bm, cm, dt, a = ops
+    want_y, want_s = ssm.ssd_grouped(x.float(), bm.float(), cm.float(), dt, a,
+                                     64)
+    torch.cuda.synchronize()
+    assert ssk.launches["ssd_scan"] == 1
+    assert y.dtype == state.dtype == torch.float32
+    assert y.shape == want_y.shape and state.shape == want_s.shape
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(state).all())
+    assert _rel_l2(y, want_y) <= SSD_TOL
+    assert _rel_l2(state, want_s) <= SSD_TOL
+
+
+@pytest.mark.parametrize("b,t,h,g", [(4, 4096, 112, 2), (1, 1, 112, 2),
+                                     (4, 63, 112, 2), (1, 64, 112, 1),
+                                     (4, 65, 8, 2), (1, 4097, 16, 2)])
+@pytest.mark.parametrize("strong", [False, True])
+@pytest.mark.parametrize("expand", [False, True])
+def test_ssd_kernel_matches_plain_float32(card, b, t, h, g, strong, expand):
+    """The Zamba2-7B cell's per-layer shape (4 × 4096, 112 heads of 64 in 2
+    groups, state 64), one position, ragged and whole chunks, one group,
+    strong decays, B and C of group 0 expanded: y and the final state
+    within ``SSD_TOL`` of the plain float32 form, one launch."""
+    _ssd_check(_ssd_operands(card, b, t, h, g, strong=strong, expand=expand,
+                             seed=t + h))
+
+
+@pytest.mark.parametrize("dtype,p,n", [(torch.float32, 64, 64),
+                                       (torch.float16, 64, 64),
+                                       (torch.bfloat16, 40, 24),
+                                       (torch.float32, 33, 17)])
+def test_ssd_kernel_types_and_widths(card, dtype, p, n):
+    """fp32 and fp16 operands; head dims and state sizes below 64, and ones
+    that are no multiple of a 16-byte vector (the element-wise loads)."""
+    _ssd_check(_ssd_operands(card, 2, 130, 6, 3, p=p, n=n, dtype=dtype,
+                             strong=True, seed=p))
+
+
+def test_ssd_kernel_takes_the_mixers_views_and_repeats(card):
+    """x, B and C as views into one projection (the mixer's split), and the
+    same call twice: bit for bit (no atomics)."""
+    x, bm, cm, dt, a = _ssd_operands(card, 2, 200, 16, 2)
+    b, t, h, p = x.shape
+    cat = torch.cat([x.reshape(b, t, -1), bm.reshape(b, t, -1),
+                     cm.reshape(b, t, -1), torch.zeros(b, t, 16, device=card,
+                                                       dtype=x.dtype)], -1)
+    xv, bv, cv, _ = torch.split(cat, [h * p, 128, 128, 16], -1)
+    ops = (xv.reshape(x.shape), bv.reshape(bm.shape), cv.reshape(cm.shape),
+           dt, a)
+    assert not ops[0].is_contiguous()
+    _ssd_check(ops)
+    y1, s1 = ssk.ssd_scan(*ops)
+    y2, s2 = ssk.ssd_scan(*ops)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(card):
+    x, bm, cm, dt, a = _ssd_operands(card, 1, 70, 4, 2)
+    bad = {"dt bf16": (x, bm, cm, dt.bfloat16(), a),
+           "x and B in two types": (x.float(), bm, cm, dt, a),
+           "P = 65": (torch.zeros(1, 70, 4, 65, device=card,
+                                  dtype=x.dtype), bm, cm, dt, a),
+           "a on the CPU": (x, bm, cm, dt, a.cpu())}
+    ssk.reset_launches()
+    for args in bad.values():
+        with pytest.raises(ValueError):
+            ssk.ssd_scan(*args)
+    assert ssk.launches["ssd_scan"] == 0
+
+
+def _zamba2_two_layers(card):
+    """Zamba2-7B at its published widths, 2 Mamba layers and one shared
+    application, float32 (so that the kernel and the plain form are held
+    at the SSD's float32 tolerance)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("zamba2-7b").replace(
+        n_layers=2, hybrid_layer_ids=(1,), dtype="float32",
+        param_dtype="float32")
+    params = Z.init(torch.Generator(device=card).manual_seed(5), cfg,
+                    device=card)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 300), device=card,
+                           generator=torch.Generator(device=card
+                                                     ).manual_seed(6))
+    return cfg, params, tokens
+
+
+@contextlib.contextmanager
+def _plain_ssd():
+    rule = Z.ssd_kernel_applies
+    Z.ssd_kernel_applies = lambda *a: False
+    try:
+        yield
+    finally:
+        Z.ssd_kernel_applies = rule
+
+
+def test_zamba2_prefill_takes_the_ssd_kernel(card):
+    """Two layers at Zamba2-7B's widths: each prefill SSD on the kernel
+    (2 kernel, 0 plain, 2 launches), the logits within the SSD's tolerance
+    of the plain form's."""
+    cfg, params, tokens = _zamba2_two_layers(card)
+    Z.zamba2_stats.reset()
+    ssk.reset_launches()
+    with torch.no_grad():
+        got = Z.prefill(params, tokens, cfg)
+    assert (Z.zamba2_stats.ssd_kernel, Z.zamba2_stats.ssd_plain) == (2, 0)
+    assert ssk.launches["ssd_scan"] == 2
+    with torch.no_grad(), _plain_ssd():
+        want = Z.prefill(params, tokens, cfg)
+    assert (Z.zamba2_stats.ssd_kernel, Z.zamba2_stats.ssd_plain) == (2, 2)
+    torch.cuda.synchronize()
+    assert _rel_l2(got, want) <= SSD_TOL
+
+
+@pytest.mark.parametrize("change", ["float64", "P = 80"])
+def test_zamba2_ssd_raises_on_the_card_for_what_the_kernel_refuses(card,
+                                                                   change):
+    """On the card a prefill SSD the kernel does not take raises: no plain
+    form behind it, nothing counted, nothing launched."""
+    x, bm, cm, dt, a = _ssd_operands(card, 1, 70, 4, 2, dtype=torch.float32)
+    if change == "float64":
+        x, bm, cm = x.double(), bm.double(), cm.double()
+    else:
+        x = torch.zeros(1, 70, 4, 80, device=card)
+    Z.zamba2_stats.reset()
+    ssk.reset_launches()
+    with torch.no_grad(), pytest.raises(ValueError, match="does not take"):
+        Z.ssd(x, bm, cm, dt, a, Z.SSD_CHUNK)
+    assert (Z.zamba2_stats.ssd_kernel, Z.zamba2_stats.ssd_plain) == (0, 0)
+    assert ssk.launches["ssd_scan"] == 0
+
+
+def test_zamba2_decode_continues_from_the_kernels_state(card):
+    """A prefill into fresh caches on the kernel, then a decode step: the
+    SSD states and the step's logits as the plain form's, and the step as
+    the last position of a prefill one token longer."""
+    cfg, params, tokens = _zamba2_two_layers(card)
+    s = tokens.shape[1] - 1
+
+    def run():
+        caches = Z.init_caches(cfg, 2, s + 4, device=card)
+        _, caches = Z.prefill(params, tokens[:, :s], cfg, caches=caches)
+        step, _ = Z.decode_step(params, caches, tokens[:, s:],
+                                torch.full((2,), s, device=card), cfg)
+        return caches["mamba"]["s"], step
+
+    Z.zamba2_stats.reset()
+    with torch.no_grad():
+        states, step = run()
+        full = Z.forward(params, tokens, cfg)[0][:, -1:]
+        with _plain_ssd():
+            want_states, want_step = run()
+    assert Z.zamba2_stats.ssd_kernel == 2 + 2
+    torch.cuda.synchronize()
+    assert _rel_l2(states, want_states) <= SSD_TOL
+    assert _rel_l2(step, want_step) <= SSD_TOL
+    assert _rel_l2(step, full) <= SSD_TOL
