@@ -47,9 +47,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                of 64, D = 64), C = 16 and C = 256, one row of one chunk and
                a ragged C and D, plus its state carry across chunks and an
                empty input that must launch nothing; flash attention's
-               forward (bf16) at the two LM cells' shapes (qwen2-1.5b's
+               forward (bf16) at the three LM cells' shapes (qwen2-1.5b's
                4 × 12/2 heads × 2048 × (128, 128), deepseek-v2's MLA
-               4 × 128 × 4096 × (192, 128)) against flash_attention's plain
+               4 × 128 × 4096 × (192, 128), kimi-linear's MLA
+               2 × 32 × 16384 × (192, 128)) against flash_attention's plain
                path on the same grouped K/V: out within 2^-5, lse within
                1e-5, no farther from float64 attention than the plain form
                × 1.05, a second call bit-equal; the row quantize (the W8A8
@@ -184,7 +185,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                (forward, prefill, decode with full and Taylor-linear
                attention) and whisper at full depth (forward, prefill,
                decode after precompute_cross), 1e-3, decode against
-               forward within the reference's 0.08 and 0.03.  Then LM
+               forward within the reference's 0.08 and 0.03.  Then
+               kimi-linear-48b at its published widths cut to 4 layers
+               (KDA, KDA, KDA, MLA; the first dense, then MoE of 256
+               experts), bf16, on the Kimi cell's 2 × 16384 tokens: with
+               the flash counters zeroed right before one prefill, the MLA
+               layer's attention on the flash kernel (kernel calls and
+               launches = MLA layers, none plain), the KDA and MoE
+               counters as the layers give them, logits finite.  Then LM
                slice D, training (flash attention's forward on its
                kernel; its backward and AdamW are PyTorch ops):
                TrainLoop on qwen2-1.5b at full width and depth
@@ -217,7 +225,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                kernel and the library call (torch._int_mm + the rescale)
                timed in turns on one card; the WKV scan at the prefill
                geometry, its two device kernels split by the profiler;
-               flash attention's forward at both LM cells' shapes, the
+               flash attention's forward at the LM cells' shapes, the
                kernel, the plain path and SDPA's fused backends timed in
                turns against the causal FLOP over the bf16 peak; the row
                quantize and the plain chain it replaces (with its float32
@@ -2781,11 +2789,13 @@ def attention_vs_sdpa(dev, cfg, card: str) -> dict:
     return dict(port_ms=ms["port"], sdpa_ms=ms["sdpa"])
 
 
-# flash attention's forward at the two LM prefill cells' shapes, bf16:
+# flash attention's forward at the LM prefill cells' shapes, bf16:
 # qwen2-1.5b (B=4, 12 query heads over 2 KV heads, S=2048, (Dqk, Dv) =
-# (128, 128)) and deepseek-v2's MLA (B=4, 128 heads, S=4096, (192, 128))
+# (128, 128)), deepseek-v2's MLA (B=4, 128 heads, S=4096, (192, 128)) and
+# kimi-linear's MLA (B=2, 32 heads, S=16384, (192, 128))
 FLASH_SHAPES = {"qwen2-1.5b": (4, 12, 2, 2048, 128, 128),
-                "deepseek-v2 MLA": (4, 128, 128, 4096, 192, 128)}
+                "deepseek-v2 MLA": (4, 128, 128, 4096, 192, 128),
+                "kimi-linear MLA": (2, 32, 32, 16384, 192, 128)}
 # the card tests' limits (tests/test_torch_cuda.py): out within 2^-5 of the
 # plain form (4 bf16 units at 1), lse within 1e-5, and no farther from
 # float64 attention than the plain form x1.05
@@ -2813,10 +2823,12 @@ def flash_plain(q, k, v) -> tuple:
                             FLASH._repeat_heads(v, n), True, 512)
 
 
-def exact_rel_l2(q, k, v, outs, heads: int = 8) -> list:
+def exact_rel_l2(q, k, v, outs) -> list:
     """Relative L2 distance of each of ``outs`` from causal attention in
-    float64 on the same operands, ``heads`` query heads at a time."""
+    float64 on the same operands, up to 8 query heads at a time (fewer
+    past S = 4096, so that a group's S × S logits stay within 2 GiB)."""
     b, h, s, _ = q.shape
+    heads = max(1, min(8, (1 << 28) // (s * s)))
     n = h // k.shape[1]
     keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
     num, den = [0.0] * len(outs), 0.0
@@ -3179,6 +3191,61 @@ def run_zamba2_7b_prefill(dev, card: str) -> dict:
     free_card()
     return dict(launches=launches, rel_l2=rel, max_abs_err=ab,
                 prefill_s=secs["kernel"], plain_prefill_s=secs["plain"])
+
+
+# kimi-linear-48b (src/repro_torch/configs/kimi_linear_48b.py) at its
+# published widths in bf16, cut to its first KIMI_LAYERS layers (KDA, KDA,
+# KDA, MLA; the first dense, the others MoE of 256 experts), on the Kimi
+# cell's prefill (2 × 16384 seeded tokens): MLA's attention at (192, 128)
+# over 16384 positions goes to the flash kernel
+KIMI_ARCH = "kimi-linear-48b"
+KIMI_LAYERS = 4
+KIMI_BATCH, KIMI_SEQ = 2, 16384
+
+
+def run_kimi_linear_prefill(dev, card: str) -> dict:
+    """The kimi-linear-48b prefill through ``models/kimi_linear.py`` with
+    the flash counters zeroed right before it: every MLA layer's attention
+    on the flash kernel (kernel calls = launches = MLA layers, none
+    plain; ``flash_attention`` falls back to its plain form without
+    raising), the KDA and MoE counters as the layers give them, the
+    logits finite."""
+    from repro_torch.models import kimi_linear as KL
+    cfg = get_config(KIMI_ARCH).replace(n_layers=KIMI_LAYERS)
+    n_kda = sum(KL.is_kda(cfg, i) for i in range(KIMI_LAYERS))
+    n_mla = KIMI_LAYERS - n_kda
+    g = torch.Generator(device=dev).manual_seed(SEED + 113)
+    params = KL.init(g, cfg, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (KIMI_BATCH, KIMI_SEQ),
+                           generator=g, device=dev)
+    label = (f"{KIMI_ARCH} prefill ({n_kda} KDA + {n_mla} MLA layers at the "
+             f"published widths, bf16, B={KIMI_BATCH} T={KIMI_SEQ})")
+    with torch.no_grad():
+        KL.prefill(params, tokens, cfg)  # first call: allocator and cuBLAS
+        torch.cuda.synchronize()
+        KL.kimi_stats.reset()
+        TL.moe_stats.reset()
+        reset_flash_calls()
+        t0 = time.perf_counter()
+        logits = KL.prefill(params, tokens, cfg)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    check_logits(label, logits, (KIMI_BATCH, 1, cfg.vocab_size))
+    launches = check_flash_calls(label, n_mla)
+    layers = (KL.kimi_stats.kda_layers, KL.kimi_stats.mla_layers,
+              TL.moe_stats.layer_calls)
+    want = (n_kda, n_mla, KIMI_LAYERS - cfg.first_k_dense_replace)
+    if layers != want:
+        raise SystemExit(f"{label}: (KDA, MLA, MoE) layer calls {layers}, "
+                         f"expected {want}")
+    log(f"path {label}: flash_attention launches {launches}, kernel calls "
+        f"{FLASH.flash_stats.kernel}, plain {FLASH.flash_stats.plain}; "
+        f"(KDA, MLA, MoE) layer calls {layers}; last-position logits "
+        f"finite; {prefill_s:.4f} s a prefill (host wall, the card "
+        f"synchronised, one call) [{card}]")
+    del params, tokens, logits
+    free_card()
+    return dict(flash_launches=launches, prefill_s=prefill_s)
 
 
 def ssd_numbers(dev, worst: tuple, launches: int, card: str) -> dict:
@@ -4721,6 +4788,7 @@ def main() -> int:
     zamba7 = run_zamba2_7b_prefill(dev, smi)
     worst["ssd_scan"] = tuple(max(w, zamba7[k]) for w, k in zip(
         worst["ssd_scan"], ("rel_l2", "max_abs_err")))
+    kimi = run_kimi_linear_prefill(dev, smi)
     train = run_train_path(dev, smi)
 
     # -- 5. numbers -----------------------------------------------------------
@@ -4828,7 +4896,8 @@ def main() -> int:
         f"{dist['prefill']['wkv_launches']}")
     kernels.append(wkv)
     kernels.extend(flash_numbers(dev, worst["flash_attention"],
-                                 tf["qwen"]["flash_launches"], smi))
+                                 tf["qwen"]["flash_launches"]
+                                 + kimi["flash_launches"], smi))
     kernels.extend(row_quantize_numbers(dev, tf["qwen"]["quantize_launches"],
                                         smi))
     kernels.append(ssd_numbers(dev, worst["ssd_scan"], zamba7["launches"],

@@ -5,8 +5,9 @@ installs, and the registry of the assigned LM architectures
 from __future__ import annotations
 
 from . import (base, chatglm3_6b, deepseek_v2, deepseek_v2_236b, gemma_7b,
-               granite_20b, granite_moe_3b_a800m, pixtral_12b, qwen2_1_5b,
-               rwkv6_3b, whisper_base, zamba2_2_7b, zamba2_7b)
+               granite_20b, granite_moe_3b_a800m, kimi_linear_48b,
+               pixtral_12b, qwen2_1_5b, rwkv6_3b, whisper_base, zamba2_2_7b,
+               zamba2_7b)
 from .base import SHAPES, ModelConfig, ShapeConfig, reduced
 from .paper_models import PAPER_MODELS, make_paper_model, train_qos_regressor
 
@@ -28,7 +29,8 @@ ARCH_NAMES = tuple(_MODULES)
 
 #: architectures the port registers beyond the reference's, at their
 #: published configurations (not dry-run cells)
-_PUBLISHED = {"deepseek-v2": deepseek_v2, "zamba2-7b": zamba2_7b}
+_PUBLISHED = {"deepseek-v2": deepseek_v2, "zamba2-7b": zamba2_7b,
+              "kimi-linear-48b": kimi_linear_48b}
 
 #: archs whose attention is sub-quadratic (or hybrid) — the only ones that
 #: run ``long_500k`` (full attention is quadratic at 500k tokens)

@@ -20,7 +20,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["ModelConfig", "DeepSeekConfig", "Zamba2Config", "ShapeConfig",
+__all__ = ["ModelConfig", "DeepSeekConfig", "Zamba2Config",
+           "KimiLinearConfig", "ShapeConfig",
            "SHAPES", "reduced", "active_params", "param_count",
            "remat_group_size", "n_heads_ssm"]
 
@@ -196,6 +197,45 @@ class Zamba2Config(ModelConfig):
     mamba_ngroups: int = 1
     use_mem_rope: bool = False
     chunk_size: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class KimiLinearConfig(DeepSeekConfig):
+    """A :class:`DeepSeekConfig` with Kimi Linear's published layer
+    pattern, Kimi Delta Attention (KDA) sizes and router as fields, named
+    as in its ``config.json`` (family ``kimi_linear``,
+    ``models/kimi_linear.py``).  The trunk's fields keep their meaning:
+    ``n_layers`` layers of width ``d_model``; the MLA layers' ``n_heads``
+    heads and latent sizes; ``first_k_dense_replace`` leading dense
+    SwiGLUs of width ``d_ff``; MoE layers of ``n_experts`` experts of
+    width ``moe_d_ff``, ``top_k`` a token, and ``n_shared_experts``.
+
+    * ``kda_layers``, ``full_attn_layers``: the layers (numbered from 1,
+      as published) whose mixer is KDA, and MLA.
+    * ``kda_num_heads``, ``kda_head_dim``: KDA's heads, each of one key
+      and one value width; ``short_conv_kernel_size``: its causal
+      depthwise conv on q, k and v.
+    * ``mla_use_nope``: MLA without rotary parts (its 64 ``qk_rope``
+      dims enter the scores unrotated).
+    * ``moe_router_activation_func``: the router's scores, ``"softmax"``
+      or ``"sigmoid"``.  A sigmoid router carries a per-expert selection
+      bias (``e_score_correction_bias``) added to the scores to pick the
+      experts, not to weigh them; its gates are the picked scores
+      renormalised (``norm_topk_prob``, published as ``moe_renormalize``),
+      then times ``routed_scaling_factor``.
+
+    The shared MLA and MoE code reads these two on any configuration,
+    with the values that leave every other model as it is (rotary MLA,
+    softmax scores) where it has no such field.
+    """
+
+    kda_layers: Tuple[int, ...] = ()
+    full_attn_layers: Tuple[int, ...] = ()
+    kda_num_heads: int = 0
+    kda_head_dim: int = 0
+    short_conv_kernel_size: int = 4
+    mla_use_nope: bool = False
+    moe_router_activation_func: str = "softmax"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,7 +3,9 @@ points for every family.
 
 Counterpart of ``repro.models.api`` for every family: the transformer
 families (dense, moe, vlm), RWKV-6, the Zamba2 hybrid (hybrid) and the
-Whisper encoder–decoder (encdec).  The dry-run helpers
+Whisper encoder–decoder (encdec); and the families the port adds at
+published configurations: Zamba2 (zamba2) and Kimi Linear
+(kimi_linear).  The dry-run helpers
 (``abstract_params``, ``abstract_caches``, ``input_specs``) give the
 reference's trees, shapes and dtypes as tensors on the ``"meta"`` device:
 they allocate nothing, so a 236B-parameter config costs no memory.
@@ -24,7 +26,7 @@ import torch
 from ..configs.base import ModelConfig, ShapeConfig
 from ..core.inference import resolve_device
 from ..core.quantize import k_major_pairs
-from . import encdec, rwkv6, ssm, transformer, zamba2
+from . import encdec, kimi_linear, rwkv6, ssm, transformer, zamba2
 
 __all__ = ["Model", "build_model", "params_from_numpy"]
 
@@ -148,6 +150,20 @@ def build_model(cfg: ModelConfig, *, wkv: Optional[str] = None,
                                                                 cfg),
             init_caches=lambda b, s: zamba2.init_caches(cfg, b, s,
                                                         device=dev),
+        )
+    if cfg.family == "kimi_linear":
+        dev = resolve_device(device)
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init=lambda g: kimi_linear.init(g, cfg, device=dev),
+            loss_fn=lambda p, b: kimi_linear.loss_fn(p, b, cfg),
+            prefill=lambda p, **inp: kimi_linear.prefill(p, inp["tokens"],
+                                                         cfg),
+            decode_step=lambda p, c, t, pos: kimi_linear.decode_step(
+                p, c, t, pos, cfg),
+            init_caches=lambda b, s: kimi_linear.init_caches(cfg, b, s,
+                                                             device=dev),
         )
     if cfg.family == "encdec":
         dev = resolve_device(device)

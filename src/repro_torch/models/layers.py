@@ -718,6 +718,8 @@ def init_moe(generator: torch.Generator, cfg: ModelConfig, *, device="cpu",
     if cfg.n_shared_experts:
         p["shared"] = init_mlp(g, cfg, d_ff=cfg.moe_d_ff * cfg.n_shared_experts,
                                device=device, lead=lead)
+    if _sigmoid_router(cfg):  # its selection bias, zero as published
+        p["router"]["bias"] = torch.zeros((*lead, e), device=device)
     return p
 
 
@@ -835,16 +837,49 @@ class MoEStats:
 moe_stats = MoEStats()
 
 
-def _route(probs: torch.Tensor, cfg: ModelConfig
+def _sigmoid_router(cfg: ModelConfig) -> bool:
+    """Whether the router scores with sigmoids and picks with a selection
+    bias (``KimiLinearConfig.moe_router_activation_func``); every other
+    configuration's router is the softmax."""
+    return getattr(cfg, "moe_router_activation_func", "softmax") == "sigmoid"
+
+
+def _router_scores(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The router's scores (…, E) of its float32 logits: the softmax (in
+    the Taylor mode, C2) or, for a sigmoid router, each expert's
+    sigmoid."""
+    if _sigmoid_router(cfg):
+        return torch.sigmoid(logits)
+    return softmax_fn(logits, cfg, axis=-1)
+
+
+def _route(probs: torch.Tensor, cfg: ModelConfig,
+           bias: Optional[torch.Tensor] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Gates and expert ids (…, k) of the router's probabilities
-    (…, E).  With ``cfg.n_group > 1``, group-limited greedy: group ``g``
-    holds experts ``g·E/G … (g+1)·E/G − 1`` and scores its best expert;
-    the top ``topk_group`` groups are kept and the top k taken among their
-    experts (the others masked to 0).  Ties go to the lower index, groups
-    and experts alike.  Gates renormalised with ``norm_topk_prob``, else
-    times ``routed_scaling_factor`` (as DeepSeek-V2's code applies it)."""
+    """Gates and expert ids (…, k) of the router's scores (…, E).
+
+    Softmax scores: with ``cfg.n_group > 1``, group-limited greedy: group
+    ``g`` holds experts ``g·E/G … (g+1)·E/G − 1`` and scores its best
+    expert; the top ``topk_group`` groups are kept and the top k taken
+    among their experts (the others masked to 0).  Ties go to the lower
+    index, groups and experts alike.  Gates renormalised with
+    ``norm_topk_prob``, else times ``routed_scaling_factor`` (as
+    DeepSeek-V2's code applies it).
+
+    Sigmoid scores (DeepSeek-V3's and Kimi's router, one group): the top k
+    of the scores plus the selection ``bias`` (E,) where there is one,
+    ties to the lower index; the gates are the picked scores without the
+    bias, renormalised with ``norm_topk_prob``, then times
+    ``routed_scaling_factor``."""
     k = cfg.top_k
+    if _sigmoid_router(cfg):
+        if cfg.n_group > 1:
+            raise NotImplementedError("sigmoid routing in expert groups")
+        _, idx = _top_k(probs if bias is None else probs + bias, k)
+        gates = torch.gather(probs, -1, idx)
+        if cfg.norm_topk_prob:
+            gates = gates / (gates.sum(-1, keepdim=True) + 1e-20)
+        return gates * cfg.routed_scaling_factor, idx
     if cfg.n_group > 1:
         e = probs.shape[-1]
         grouped = probs.reshape(*probs.shape[:-1], cfg.n_group,
@@ -898,8 +933,8 @@ def _moe_dropless(p: Params, x: torch.Tensor, cfg: ModelConfig
     moe_stats.count(t, k)
     with record_function("moe.route"):
         logits = x.to(f32) @ p["router"]["w"].to(f32)
-        probs = softmax_fn(logits, cfg, axis=-1)
-        gates, idx = _route(probs, cfg)  # (T,k)
+        probs = _router_scores(logits, cfg)
+        gates, idx = _route(probs, cfg, p["router"].get("bias"))  # (T,k)
         density = _one_hot(idx[:, 0], e, f32).mean(0)
         aux = e * torch.sum(density * probs.mean(0))
     with record_function("moe.dispatch"):
@@ -968,8 +1003,8 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
     # reference's einsum
     logits = torch.einsum("gsd,de->gse", xg.to(f32),
                           gather_data(p["router"]["w"]).to(f32))
-    probs = softmax_fn(logits, cfg, axis=-1)
-    gates, idx = _route(probs, cfg)  # (G,S,k)
+    probs = _router_scores(logits, cfg)
+    gates, idx = _route(probs, cfg, p["router"].get("bias"))  # (G,S,k)
 
     # load-balancing auxiliary loss (Switch-style), on slot 0's choice
     density = _one_hot(idx[..., 0], e, f32).mean((0, 1))

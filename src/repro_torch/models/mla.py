@@ -17,9 +17,12 @@ Two execution forms, as in the reference:
 
 With ``cfg.rope_scaling`` (YaRN, DeepSeek-V2 as published) the rotary
 parts take YaRN's frequencies and the softmax scale is
-``mscale²/√(dn + dr)`` (:func:`softmax_scale`).  Profiler ranges
-``mla.project`` (the projections, norms and rotary parts, and the output
-projection) and ``mla.attend`` (the attention itself) mark the stages.
+``mscale²/√(dn + dr)`` (:func:`softmax_scale`).  With
+``cfg.mla_use_nope`` (Kimi Linear) nothing is rotated: the
+``qk_rope_dim`` parts of q and of the shared key enter the scores as
+projected, at the scale 1/√(dn + dr).  Profiler ranges ``mla.project``
+(the projections, norms and rotary parts, and the output projection) and
+``mla.attend`` (the attention itself) mark the stages.
 """
 
 from __future__ import annotations
@@ -71,6 +74,12 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, *,
     }
 
 
+def _nope(cfg: ModelConfig) -> bool:
+    """Whether nothing is rotated (``KimiLinearConfig.mla_use_nope``);
+    every other configuration's MLA is rotary."""
+    return getattr(cfg, "mla_use_nope", False)
+
+
 def _queries(p: Params, x: torch.Tensor, cfg: ModelConfig,
              pos_arr: torch.Tensor):
     b, s, _ = x.shape
@@ -82,6 +91,8 @@ def _queries(p: Params, x: torch.Tensor, cfg: ModelConfig,
         q = linear(p["wq"], x, cfg)
     q = split_heads(q, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
+    if _nope(cfg):
+        return q_nope, q_rope
     return q_nope, rope(q_rope, pos_arr, cfg.rope_theta,
                         inv_freq=rope_inv_freq(cfg, dr, x.device))
 
@@ -92,6 +103,8 @@ def _latents(p: Params, x: torch.Tensor, cfg: ModelConfig,
     kv = linear(p["wkv_a"], x, cfg)
     ckv, k_rope = kv[..., :lkv], kv[..., lkv:]
     ckv = norm(p["kv_norm"], ckv, cfg)
+    if _nope(cfg):
+        return ckv, k_rope
     k_rope = rope(k_rope[:, :, None, :], pos_arr, cfg.rope_theta,
                   inv_freq=rope_inv_freq(cfg, cfg.qk_rope_dim, x.device)
                   )[:, :, 0, :]

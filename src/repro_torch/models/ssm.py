@@ -108,11 +108,13 @@ def init_mamba_block(generator: torch.Generator, cfg: ModelConfig, *,
     }
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: Optional[torch.Tensor],
                  state: Optional[torch.Tensor] = None):
-    """Depthwise causal conv. x: (B,T,C); w: (K,C).  The taps are summed one
-    at a time in ``x``'s dtype, as the reference's Python ``sum``.  Returns
-    (y, new_state): the last K−1 inputs, the decode state."""
+    """Depthwise causal conv. x: (B,T,C); w: (K,C); b: (C,) or None (no
+    bias).  The taps are summed one at a time in ``x``'s dtype, as the
+    reference's Python ``sum``.  Returns (y, new_state): the last K−1
+    inputs, the decode state."""
     k = w.shape[0]
     if state is None:
         ctx = F.pad(x, (0, 0, k - 1, 0))
@@ -122,7 +124,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     y = sum(ctx[:, i:i + t] * w[i].to(x.dtype) for i in range(k))
     new_state = (ctx[:, -(k - 1):] if k > 1
                  else x.new_zeros((x.shape[0], 0, x.shape[2])))
-    return y + b.to(x.dtype), new_state
+    return (y if b is None else y + b.to(x.dtype)), new_state
 
 
 def _ssd_chunked(xh, bmat, cmat, dt, a, chunk: int = _CHUNK,

@@ -1,4 +1,5 @@
-"""Taps on the intermediate values of a transformer or Zamba2 prefill.
+"""Taps on the intermediate values of a transformer, Zamba2 or Kimi Linear
+prefill.
 
 ``with taps.recording(fn):`` calls ``fn(site, tensors)`` at each tap a
 ``transformer.prefill`` passes, in order, with the tensors as the pass
@@ -28,9 +29,16 @@ A Zamba2 pass (``models/zamba2.py``) taps its own sites, in order:
   output and the layer's output ``x + mix``;
 * ``"head"``: ``(x, logits)`` as above.
 
-This is the contract that the benchmark's MLA + MoE and hybrid prefill
-surfaces (``portbench/surfaces/mla_moe_prefill.py``,
-``portbench/surfaces/hybrid_prefill.py``) read to hold each piece of a
+A Kimi Linear pass (``models/kimi_linear.py``) taps the transformer's
+sites: ``"embed"``; ``"block"`` once a layer in layer order, ``(x, h1,
+mix, h2, ffn, y)`` with ``mix`` the layer's mixer output (KDA for the
+layers of ``cfg.kda_layers``, MLA for the others) and ``ffn`` the dense
+SwiGLU's or the MoE's with its shared expert; and ``"head"``.
+
+This is the contract that the benchmark's MLA + MoE, hybrid and Kimi
+Linear prefill surfaces (``portbench/surfaces/mla_moe_prefill.py``,
+``portbench/surfaces/hybrid_prefill.py``,
+``portbench/surfaces/kimi_linear_prefill.py``) read to hold each piece of a
 call against its reference: a change that fuses or reorders these steps
 keeps passing the same values here.  Without a recording a tap costs one
 test of a module global.  Record no-grad passes: under ``cfg.remat`` a
